@@ -1,0 +1,22 @@
+"""hmrt_tpu_torch -- the heightmap raytracer in PyTorch, with CUDA kernels.
+
+The port of `hmrt_tpu` (JAX/Pallas) to PyTorch and hand-written CUDA for
+NVIDIA Hopper. It imports torch and never jax; the JAX package is the
+reference it is tested against. Entry points:
+
+    procedural_terrain -> make_scene -> Camera -> render_frame -> Frame
+"""
+
+from hmrt_tpu_torch.api.scene import make_scene
+from hmrt_tpu_torch.config import RenderConfig
+from hmrt_tpu_torch.core.pyramid import build_pyramid_flat
+from hmrt_tpu_torch.core.renderer import render_frame
+from hmrt_tpu_torch.io.heightmap import procedural_terrain
+from hmrt_tpu_torch.types import Camera, Frame, Light, Scene
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Camera", "Frame", "Light", "RenderConfig", "Scene",
+    "build_pyramid_flat", "make_scene", "procedural_terrain", "render_frame",
+]

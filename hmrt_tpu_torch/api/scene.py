@@ -1,0 +1,84 @@
+"""Scene construction on an explicit device.
+
+Counterpart of `hmrt_tpu/api/scene.py`: upload the height grid, build the
+max pyramid there, and precompute the per-sample gradient planes that the
+shade kernel interpolates. Everything stays resident across frames.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hmrt_tpu_torch.core.pyramid import build_pyramid_flat, next_pow2, num_levels
+from hmrt_tpu_torch.types import Camera, Light, Scene
+
+
+def corner_grads(heights: torch.Tensor):
+    """Per-sample central-difference gradients with clamped borders,
+    (N, N) -> (gx, gy): gx[y, x] = (h[y, x+1] - h[y, x-1]) / 2, one-sided
+    (divided by 1) at the border. Same expression as the JAX package's
+    `kernels/packing.py::_corner_grads`."""
+    n = heights.shape[0]
+    idx = torch.arange(n, device=heights.device)
+    xm = torch.clamp(idx - 1, 0, n - 1)
+    xp = torch.clamp(idx + 1, 0, n - 1)
+    denom = (xp - xm).to(torch.float32)
+    gx = (heights[:, xp] - heights[:, xm]) / denom[None, :]
+    gy = (heights[xp, :] - heights[xm, :]) / denom[:, None]
+    return gx.contiguous(), gy.contiguous()
+
+
+def _planar_albedo(albedo, n: int, device) -> torch.Tensor:
+    a = np.asarray(albedo, np.float32)
+    if a.shape != (n, n, 3):
+        raise ValueError(f"albedo must be (N, N, 3), got {a.shape}")
+    return torch.from_numpy(a.reshape(n * n, 3).T.copy()).to(device)
+
+
+def make_scene(heights, albedo=None, light: Light | None = None,
+               device="cpu") -> Scene:
+    """Build a Scene on `device` from an (N, N) height grid.
+
+    `albedo` is an optional (N, N, 3) float [0,1] texture, stored planar
+    (3, N*N)."""
+    h = np.asarray(heights, np.float32)
+    if h.ndim != 2 or h.shape[0] != h.shape[1]:
+        raise ValueError(f"heights must be square (N, N), got {h.shape}")
+    n = int(h.shape[0])
+    if n < 2:
+        raise ValueError("heightmap must be at least 2x2")
+    m = next_pow2(n - 1)
+    ht = torch.from_numpy(np.ascontiguousarray(h)).to(device)
+    gx, gy = corner_grads(ht)
+    return Scene(heights=ht, pyr_flat=build_pyramid_flat(ht),
+                 albedo=None if albedo is None else _planar_albedo(albedo, n, device),
+                 light=light if light is not None else Light.create(device=device),
+                 gx=gx, gy=gy, n=n, m=m, levels=num_levels(m))
+
+
+def _tensor(a, device):
+    return torch.from_numpy(np.array(a, np.float32, copy=True)).to(device)
+
+
+def scene_from_arrays(heights, pyr_flat, albedo, light: dict, *, n: int,
+                      m: int, levels: int, device="cpu") -> Scene:
+    """A Scene from the numpy arrays of another package's scene (heights,
+    flat pyramid, planar albedo or None, and a dict of the light's five
+    vectors), so both packages render the very same state."""
+    ht = _tensor(heights, device)
+    if ht.shape != (n, n):
+        raise ValueError(f"heights must be ({n}, {n}), got {tuple(ht.shape)}")
+    gx, gy = corner_grads(ht)
+    return Scene(heights=ht, pyr_flat=_tensor(pyr_flat, device),
+                 albedo=None if albedo is None else _tensor(albedo, device),
+                 light=Light(**{k: _tensor(light[k], device) for k in
+                                ("sun_dir", "sun_color", "sky_top",
+                                 "sky_horizon", "fog_color")}),
+                 gx=gx, gy=gy, n=n, m=m, levels=levels)
+
+
+def camera_from_arrays(eye, target, up, fov_y, device="cpu") -> Camera:
+    """A Camera from numpy arrays; `fov_y` is in radians."""
+    return Camera(eye=_tensor(eye, device), target=_tensor(target, device),
+                  up=_tensor(up, device), fov_y=_tensor(fov_y, device))

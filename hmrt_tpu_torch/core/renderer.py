@@ -1,0 +1,143 @@
+"""Frame rendering: backend dispatch and the plain torch oracle.
+
+Counterpart of `hmrt_tpu/core/renderer.py`. The oracle is raygen ->
+masked-wavefront march -> shading -> Frame in plain torch on any device:
+the executable spec that the compact path with its CUDA kernels is held
+against.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hmrt_tpu_torch.config import RenderConfig
+from hmrt_tpu_torch.shading import shade as sh
+from hmrt_tpu_torch.traversal.march import march_dda, march_maxmip
+from hmrt_tpu_torch.types import Camera, Frame, Scene
+
+SHADOW_EPS = 1e-2
+
+
+def render_frame(scene: Scene, camera: Camera, config: RenderConfig) -> Frame:
+    """Render one frame on the scene's device.
+
+    Backend dispatch (config.backend):
+      "compact": budgeted march passes with ray sorting
+                 (kernels/compact.py): the CUDA kernels on a CUDA scene,
+                 their plain torch versions on a CPU scene;
+      "oracle":  the plain torch pipeline below, on either device;
+      "auto":    compact on CUDA (for every map size until the fused tile
+                 kernel is ported), the oracle on the CPU;
+      "pallas":  the fused tile kernel, not ported yet: raises.
+    """
+    if config.backend == "pallas":
+        raise NotImplementedError(
+            "backend='pallas' (the fused tile kernel) is not ported to "
+            "hmrt_tpu_torch yet: ROADMAP.md queue 2 item 3")
+    if config.backend not in ("auto", "oracle", "compact"):
+        raise ValueError(f"unknown backend {config.backend!r}")
+    if config.backend == "compact" or (config.backend == "auto"
+                                       and scene.device.type == "cuda"):
+        from hmrt_tpu_torch.kernels.compact import render_frame_compact
+        return render_frame_compact(scene, camera, config)
+    return render_frame_oracle(scene, camera, config)
+
+
+def _broadcast_eye(eye, p):
+    return eye[0].expand(p), eye[1].expand(p), eye[2].expand(p)
+
+
+def render_frame_oracle(scene: Scene, camera: Camera,
+                        config: RenderConfig) -> Frame:
+    """The plain torch oracle pipeline (the reference renderer)."""
+    H, W = config.height, config.width
+    eye, dirs = camera.rays(H, W)
+    d = dirs.reshape(-1, 3)
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    ox, oy, oz = _broadcast_eye(eye, dx.shape[0])
+
+    heights_flat = scene.heights.reshape(-1)
+    max_steps = config.steps_for(scene.n_cells)
+    if config.traversal == "dda":
+        res = march_dda(ox, oy, oz, dx, dy, dz, heights_flat, n=scene.n,
+                        max_steps=max_steps,
+                        cell_intersect=config.cell_intersect,
+                        clip=config.clip_box)
+    else:
+        res = march_maxmip(ox, oy, oz, dx, dy, dz, scene.pyr_flat,
+                           heights_flat, n=scene.n, m=scene.m,
+                           levels=scene.levels, max_steps=max_steps,
+                           cell_intersect=config.cell_intersect,
+                           clip=config.clip_box)
+
+    color, depth, normal = shade_hits(scene, config, ox, oy, oz, dx, dy, dz,
+                                      res.hit, res.t)
+    return Frame(color=color.reshape(H, W, 3),
+                 depth=depth.reshape(H, W) if config.aux_buffers else None,
+                 normal=normal.reshape(H, W, 3) if config.aux_buffers else None,
+                 hit=res.hit.reshape(H, W))
+
+
+def shade_hits(scene: Scene, config: RenderConfig,
+               ox, oy, oz, dx, dy, dz, hit, t):
+    """Shade a batch of march results -> (color[P,3], depth[P], normal[P,3])."""
+    heights_flat = scene.heights.reshape(-1)
+    n = scene.n
+    light = scene.light
+    lx, ly, lz = light.sun_dir[0], light.sun_dir[1], light.sun_dir[2]
+
+    ts = torch.where(hit, t, 0.0)
+    px = ox + ts * dx
+    py = oy + ts * dy
+    pz = oz + ts * dz
+
+    nx, ny, nz = sh.gradient_normal(heights_flat, n, px, py)
+    diff = sh.lambert(nx, ny, nz, lx, ly, lz)
+
+    if config.shadows:
+        # a second march toward the sun from just above the hit point; it
+        # is always max-mip, so its step cap is the max-mip one even under
+        # traversal="dda" (whose 4*N cap has no descend/ascend slack)
+        sx = px + lx * SHADOW_EPS + nx * SHADOW_EPS
+        sy = py + ly * SHADOW_EPS + ny * SHADOW_EPS
+        sz = pz + lz * SHADOW_EPS + nz * SHADOW_EPS
+        shadow_cap = config.max_steps or (8 * scene.n_cells + 256)
+        p = px.shape[0]
+        occ = march_maxmip(
+            torch.where(hit, sx, -1e6), torch.where(hit, sy, -1e6), sz,
+            lx.expand(p), ly.expand(p), lz.expand(p),
+            scene.pyr_flat, heights_flat, n=n, m=scene.m, levels=scene.levels,
+            max_steps=shadow_cap, cell_intersect=config.cell_intersect).hit
+        diff = torch.where(occ, 0.0, diff)
+
+    if config.texture and scene.albedo is not None:
+        ar, ag, ab = sh.sample_albedo(scene.albedo, n, px, py)
+    else:
+        ar = ag = ab = torch.full_like(px, 0.55)
+
+    amb = config.ambient
+    sr, sg, sb = light.sun_color[0], light.sun_color[1], light.sun_color[2]
+    r = ar * (amb + diff * sr)
+    g = ag * (amb + diff * sg)
+    b = ab * (amb + diff * sb)
+
+    if config.shading == "phong":
+        spec = sh.phong_specular(nx, ny, nz, lx, ly, lz, -dx, -dy, -dz,
+                                 config.shininess)
+        if config.shadows:
+            spec = torch.where(occ, 0.0, spec)
+        ks = config.specular
+        r = r + ks * spec * sr
+        g = g + ks * spec * sg
+        b = b + ks * spec * sb
+
+    if config.fog:
+        r, g, b = sh.apply_fog(r, g, b, ts, config.fog_density, light.fog_color)
+
+    skyr, skyg, skyb = sh.sky_color(dz, light.sky_top, light.sky_horizon)
+    color = torch.stack([torch.where(hit, r, skyr), torch.where(hit, g, skyg),
+                         torch.where(hit, b, skyb)], dim=-1)
+    depth = torch.where(hit, t, torch.inf)
+    normal = torch.stack([torch.where(hit, nx, 0.0), torch.where(hit, ny, 0.0),
+                          torch.where(hit, nz, 0.0)], dim=-1)
+    return torch.clamp(color, 0.0, 1.0), depth, normal

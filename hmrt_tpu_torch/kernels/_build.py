@@ -1,0 +1,104 @@
+"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+
+All of `csrc/*.cu` compiles into one shared library with a plain C
+interface, on first use, into `build/hmrt_tpu_torch_kernels/` at the root
+of the checkout. The file name carries a hash of the sources and flags, so
+an edited source builds anew and an unchanged one is loaded as it is.
+Nothing here runs at import time: the CPU tests import every module on a
+machine without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hmrt_tpu_torch_kernels"
+
+# Exact arithmetic: no FMA contraction, IEEE division and square root. The
+# march's hit decisions depend on them (a 1-ulp change flips grazing hits).
+NVCC_FLAGS = ["-O3", "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-gencode", "arch=compute_90a,code=sm_90a", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: C signature of every kernel entry point: argument types, in order
+SIGNATURES = {
+    # 24 state/ray planes, pyr_flat, heights; p n m levels budget
+    # intersector; box_lo box_hi; stream
+    "hmrt_march_pass": [_P] * 26 + [_I] * 6 + [_F] * 2 + [_P],
+    # hit hx hy fx fy gx gy albedo, 6 outputs; p n; stream
+    "hmrt_shade_pass": [_P] * 14 + [_I] * 2 + [_P],
+}
+
+
+def find_nvcc() -> str:
+    """Path of nvcc in the CUDA toolkit torch finds ($CUDA_HOME, $CUDA_PATH,
+    nvcc on PATH, or the default install). Raises when there is none."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    nvcc = Path(CUDA_HOME or "") / "bin" / "nvcc"
+    if not CUDA_HOME or not nvcc.is_file():
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels of "
+                           "hmrt_tpu_torch cannot be built")
+    return str(nvcc)
+
+
+def build(src_dir: Path, build_dir: Path) -> Path:
+    """Compile src_dir/*.cu into one shared library (once per content
+    hash) and return its path. Raises on any failure."""
+    srcs = sorted(src_dir.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources in {src_dir}")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs + sorted(src_dir.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    stem = f"hmrt_kernels_{h.hexdigest()[:16]}"
+    lib = build_dir / f"{stem}.so"
+    if lib.exists():
+        return lib
+    nvcc = find_nvcc()
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tmp = build_dir / f"{stem}.{os.getpid()}.tmp"
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)],
+                          capture_output=True, text=True)
+    (build_dir / f"{stem}.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)  # atomic: a concurrent builder sees all or nothing
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use; argtypes set from
+    SIGNATURES. Raises when it cannot be built or loaded."""
+    lib = ctypes.CDLL(str(build(CSRC, BUILD_DIR)))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def device_of(tensors) -> torch.device:
+    """The one device all `tensors` live on; raises if they are on several."""
+    devs = {x.device for x in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
+    return devs.pop()

@@ -1,0 +1,213 @@
+"""Compacted-wavefront renderer: budgeted march passes + ray sorting.
+
+Counterpart of the legacy flow of `hmrt_tpu/kernels/compact.py`
+(`fold_inv=False`). Rays are generated and initialised in torch, and the
+ray state lives in flat per-lane planes. A march pass (`march_pass`, CUDA
+kernel 1) steps every live ray up to a budget. Between passes the
+survivors are SORTED by their current 32-cell terrain column (one argsort
+and one gather of the moving planes), so the rays of a thread block march
+through nearby terrain; the last round is unbudgeted, so every ray
+resolves. Results return to launch order by one scatter through the
+composed permutation. The shade pass (`shade_pass`, CUDA kernel 2) then
+runs in launch order, the shadow march repeats the sorted rounds from the
+hit cells, and the final colour maths is plain torch.
+
+The schedule only decides which rays march when: any (first_budget,
+rounds, round_budget) gives the same frame, because each ray's march is
+deterministic and independent of the others. The TPU package's other
+knobs (n_col, subserve, band_tail, unroll, banks, l0_tail, relax,
+sort_dir, sort_mode, fold_inv, coarse0, prefix schedules) tuned its Mosaic
+schedule and are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hmrt_tpu_torch.config import RenderConfig
+from hmrt_tpu_torch.core.renderer import SHADOW_EPS
+from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass
+from hmrt_tpu_torch.kernels.shade_pass import shade_pass
+from hmrt_tpu_torch.shading import shade as sh
+from hmrt_tpu_torch.traversal.intersect import BIG_T
+from hmrt_tpu_torch.traversal.march import entry_cell, ray_box_range
+from hmrt_tpu_torch.types import Camera, Frame, Scene
+
+BIG_KEY = 2 ** 30   # sort key of a dead lane: after every live column
+
+#: Default schedule. Pass 0 in launch order resolves sky and near hits
+#: cheaply; each later round first sorts the survivors by terrain column.
+#: Chosen as a simple start, not tuned yet on the H100 (see PERF.md).
+FIRST_BUDGET = 64
+ROUNDS = 2
+ROUND_BUDGET = 256
+
+
+def primary_rays(camera: Camera, config: RenderConfig):
+    """Launch-order ray planes (ox, oy, oz, dx, dy, dz), each f32[H*W]."""
+    eye, dirs = camera.rays(config.height, config.width)
+    d = dirs.reshape(-1, 3)
+    p = d.shape[0]
+    return (tuple(eye[i].expand(p).contiguous() for i in range(3))
+            + tuple(d[:, i].contiguous() for i in range(3)))
+
+
+def init_state(rays, valid0, gmax, *, n: int, m: int, levels: int,
+               clip=None, start_cell=None):
+    """Initial march state (alive, t, lvl, icx, icy), with the sky
+    early-out. `start_cell=(cx, cy)`: begin at level 0 in that cell
+    instead of at the pyramid top (the shadow rays, whose origins sit in
+    the primary hit cells; any start level is exact)."""
+    ox, oy, oz, dx, dy, dz = rays
+    t0, _, valid = ray_box_range(ox, oy, dx, dy, float(n - 1), clip)
+    if valid0 is not None:
+        valid = valid & valid0
+    valid = valid & ~((oz + t0 * dz > gmax) & (dz >= 0.0))
+    if start_cell is not None:
+        lvl = torch.zeros_like(start_cell[0])
+        icx = torch.clamp(start_cell[0], 0, m - 1)
+        icy = torch.clamp(start_cell[1], 0, m - 1)
+    else:
+        lvl = torch.full(ox.shape, levels - 1, dtype=torch.int32, device=ox.device)
+        icx, icy = entry_cell(ox, oy, dx, dy, t0, levels - 1, 1)
+    return (valid.to(torch.int32), torch.where(valid, t0, BIG_T), lvl, icx, icy)
+
+
+def column_key(state, m5: int):
+    """Sort key: the 32-cell terrain column of each live lane's current
+    cell (at any level); dead lanes key BIG_KEY."""
+    alive, _, lvl, icx, icy = state
+    colx = torch.clamp((icx << lvl) >> 5, 0, m5 - 1)
+    coly = torch.clamp((icy << lvl) >> 5, 0, m5 - 1)
+    return torch.where(alive != 0, coly * m5 + colx, BIG_KEY)
+
+
+def march_rounds(rays, state, scene: Scene, *, cell_intersect: str, clip,
+                 first_budget: int, rounds: int, round_budget: int,
+                 moving: tuple, skip_pass0: bool = False):
+    """Pass 0 in launch order, then `rounds` sorted rounds (the last one
+    unbudgeted). `moving` names the ray planes that differ per ray and so
+    ride the sort; the others are one value broadcast. Returns the result
+    planes (hit, t_hit, hx, hy) in launch order."""
+    dev = rays[0].device
+    p = rays[0].shape[0]
+    res = (torch.zeros(p, dtype=torch.int32, device=dev),
+           torch.full((p,), BIG_T, dtype=torch.float32, device=dev),
+           torch.zeros(p, dtype=torch.int32, device=dev),
+           torch.zeros(p, dtype=torch.int32, device=dev))
+    kw = dict(n=scene.n, m=scene.m, levels=scene.levels,
+              cell_intersect=cell_intersect, clip=clip)
+    if not skip_pass0 and first_budget > 0:
+        state, res = march_pass(rays, state, res, scene.pyr_flat, scene.heights,
+                                budget=first_budget, **kw)
+    m5 = max(scene.m // 32, 1)
+    perm_tot = None
+    for r in range(rounds):
+        perm = torch.argsort(column_key(state, m5))
+        rays = tuple(x.index_select(0, perm) if i in moving else x
+                     for i, x in enumerate(rays))
+        state = tuple(x.index_select(0, perm) for x in state)
+        res = tuple(x.index_select(0, perm) for x in res)
+        perm_tot = perm if perm_tot is None else perm_tot.index_select(0, perm)
+        state, res = march_pass(rays, state, res, scene.pyr_flat, scene.heights,
+                                budget=UNBUDGETED if r == rounds - 1 else round_budget,
+                                **kw)
+    # back to launch order: lane k of the sorted planes is launch lane perm_tot[k]
+    return tuple(torch.empty_like(x).index_copy_(0, perm_tot, x) for x in res)
+
+
+def hit_points(rays, hit, t_hit, hx, hy):
+    """World hit points (px, py, pz) and the offsets (fx, fy) inside the
+    hit cell, clamped to [0, 1]."""
+    ox, oy, oz, dx, dy, dz = rays
+    ts = torch.where(hit, t_hit, 0.0)
+    px = ox + ts * dx
+    py = oy + ts * dy
+    pz = oz + ts * dz
+    fx = torch.clamp(px - hx.to(torch.float32), 0.0, 1.0)
+    fy = torch.clamp(py - hy.to(torch.float32), 0.0, 1.0)
+    return (px, py, pz), fx, fy
+
+
+def shadow_start(points, normal, hit, hx, hy, scene: Scene, clip=None):
+    """Shadow rays toward the sun from just above each hit point (offset
+    by SHADOW_EPS along the sun and the normal; misses are parked outside
+    the map), and their initial state at level 0 in the hit cell."""
+    px, py, pz = points
+    nx, ny, nz = normal
+    lx, ly, lz = scene.light.sun_dir[0], scene.light.sun_dir[1], scene.light.sun_dir[2]
+    p = px.shape[0]
+    sxo = px + lx * SHADOW_EPS + nx * SHADOW_EPS
+    syo = py + ly * SHADOW_EPS + ny * SHADOW_EPS
+    szo = pz + lz * SHADOW_EPS + nz * SHADOW_EPS
+    srays = (torch.where(hit, sxo, -1e6), torch.where(hit, syo, -1e6), szo,
+             lx.expand(p).contiguous(), ly.expand(p).contiguous(),
+             lz.expand(p).contiguous())
+    sstate = init_state(srays, hit, scene.pyr_flat[-1], n=scene.n, m=scene.m,
+                        levels=scene.levels, clip=clip, start_cell=(hx, hy))
+    return srays, sstate
+
+
+def render_frame_compact(scene: Scene, camera: Camera, config: RenderConfig, *,
+                         first_budget: int = FIRST_BUDGET, rounds: int = ROUNDS,
+                         round_budget: int = ROUND_BUDGET) -> Frame:
+    """Compacted-wavefront render (see the module docstring).
+
+    first_budget: steps of pass 0 in launch order (0 skips it);
+    rounds: sorted rounds, the last unbudgeted (at least 1);
+    round_budget: steps of each earlier sorted round.
+    The shadow march takes min(rounds, 2) sorted rounds and no pass 0."""
+    if rounds < 1 or first_budget < 0 or round_budget < 0:
+        raise ValueError(f"bad schedule first_budget={first_budget} "
+                         f"rounds={rounds} round_budget={round_budget}")
+    H, W = config.height, config.width
+    rays = primary_rays(camera, config)
+    dx, dy, dz = rays[3:]
+    sched = dict(cell_intersect=config.cell_intersect, clip=config.clip_box,
+                 first_budget=first_budget, round_budget=round_budget)
+
+    state0 = init_state(rays, None, scene.pyr_flat[-1], n=scene.n, m=scene.m,
+                        levels=scene.levels, clip=config.clip_box)
+    hit_i, t_hit, hx, hy = march_rounds(rays, state0, scene, rounds=rounds,
+                                        moving=(3, 4, 5), **sched)
+    hit = hit_i != 0
+    points, fx, fy = hit_points(rays, hit, t_hit, hx, hy)
+    nx, ny, nz, ar, ag, ab = shade_pass(
+        hit_i, hx, hy, fx, fy, scene.gx, scene.gy,
+        scene.albedo if config.texture else None)
+
+    light = scene.light
+    lx, ly, lz = light.sun_dir[0], light.sun_dir[1], light.sun_dir[2]
+    diff = sh.lambert(nx, ny, nz, lx, ly, lz)
+
+    if config.shadows:
+        srays, sstate = shadow_start(points, (nx, ny, nz), hit, hx, hy, scene,
+                                     config.clip_box)
+        occ = march_rounds(srays, sstate, scene, rounds=min(rounds, 2),
+                           moving=(0, 1, 2), skip_pass0=True, **sched)[0] != 0
+        diff = torch.where(occ, 0.0, diff)
+
+    sr, sg, sb = light.sun_color[0], light.sun_color[1], light.sun_color[2]
+    r = ar * (config.ambient + diff * sr)
+    g = ag * (config.ambient + diff * sg)
+    b = ab * (config.ambient + diff * sb)
+    if config.shading == "phong":
+        spec = sh.phong_specular(nx, ny, nz, lx, ly, lz, -dx, -dy, -dz,
+                                 config.shininess)
+        if config.shadows:
+            spec = torch.where(occ, 0.0, spec)
+        r = r + config.specular * spec * sr
+        g = g + config.specular * spec * sg
+        b = b + config.specular * spec * sb
+    if config.fog:
+        r, g, b = sh.apply_fog(r, g, b, torch.where(hit, t_hit, 0.0),
+                               config.fog_density, light.fog_color)
+    skyr, skyg, skyb = sh.sky_color(dz, light.sky_top, light.sky_horizon)
+    color = torch.stack([torch.where(hit, c, s) for c, s in
+                         ((r, skyr), (g, skyg), (b, skyb))], dim=-1)
+    normal = torch.stack([torch.where(hit, c, 0.0) for c in (nx, ny, nz)], dim=-1)
+    return Frame(color=torch.clamp(color, 0.0, 1.0).reshape(H, W, 3),
+                 depth=(torch.where(hit, t_hit, torch.inf).reshape(H, W)
+                        if config.aux_buffers else None),
+                 normal=normal.reshape(H, W, 3) if config.aux_buffers else None,
+                 hit=hit.reshape(H, W))

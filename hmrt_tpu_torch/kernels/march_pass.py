@@ -1,0 +1,108 @@
+"""Kernel 1: one budgeted max-mip march pass over flat ray-state planes.
+
+`march_pass` launches the CUDA kernel `csrc/march_pass.cu` for CUDA
+tensors and runs its plain torch version, `march_pass_reference`, for CPU
+tensors. It replaces the TPU kernel
+`hmrt_tpu/kernels/compact.py::_march_pass_kernel`.
+
+Planes, each 1-D of length P (the JAX package's order and dtypes):
+  rays    (ox, oy, oz, dx, dy, dz)           f32
+  state   (alive, t, lvl, icx, icy)          i32, f32, i32, i32, i32
+  results (hit, t_hit, hx, hy)               i32, f32, i32, i32
+Every alive ray takes up to `budget` steps of the max-mip march; the
+budget is per ray, so a pass with budget b followed by one with budget c
+equals one pass with budget b + c, and UNBUDGETED resolves every ray.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hmrt_tpu_torch.core.pyramid import flat_size
+from hmrt_tpu_torch.kernels import _build
+from hmrt_tpu_torch.traversal.intersect import INTERSECTORS, INTERSECTOR_IDS
+from hmrt_tpu_torch.traversal.march import (maxmip_step, ray_box_range,
+                                            ray_inverses, run_masked)
+
+UNBUDGETED = 1 << 22
+STATE_DTYPES = (torch.int32, torch.float32, torch.int32, torch.int32, torch.int32)
+RESULT_DTYPES = (torch.int32, torch.float32, torch.int32, torch.int32)
+
+
+def march_pass_reference(rays, state, results, pyr_flat, heights, *, n: int,
+                         m: int, levels: int, budget: int,
+                         cell_intersect: str = "triangle", clip=None):
+    """The plain torch version: the masked step loop of
+    `traversal/march.py`, at most `budget` steps."""
+    ox, oy, oz, dx, dy, dz = rays
+    alive, t, lvl, icx, icy = state
+    hit, t_hit, hx, hy = results
+    inv_x, inv_y = ray_inverses(dx, dy)
+    _, t1, _ = ray_box_range(ox, oy, dx, dy, float(n - 1), clip)
+    ray = (ox, oy, oz, dx, dy, dz, inv_x, inv_y, t1)
+    gmax = pyr_flat[-1]
+    heights_flat = heights.reshape(-1)
+    intersector = INTERSECTORS[cell_intersect]
+    st = dict(t=t, lvl=lvl, icx=icx, icy=icy, alive=alive != 0, hit=hit != 0,
+              t_hit=t_hit, hx=hx, hy=hy)
+    st = run_masked(lambda s: maxmip_step(ray, s, pyr_flat, heights_flat, gmax,
+                                          n=n, m=m, levels=levels,
+                                          intersector=intersector),
+                    st, budget)
+    return ((st["alive"].to(torch.int32), st["t"], st["lvl"], st["icx"], st["icy"]),
+            (st["hit"].to(torch.int32), st["t_hit"], st["hx"], st["hy"]))
+
+
+def _check_inputs(rays, state, results, pyr_flat, heights, n, m, levels, budget):
+    p = rays[0].shape[0]
+    dtypes = (torch.float32,) * 6 + STATE_DTYPES + RESULT_DTYPES
+    for i, (x, dt) in enumerate(zip((*rays, *state, *results), dtypes)):
+        if x.shape != (p,) or x.dtype != dt or not x.is_contiguous():
+            raise ValueError(f"plane {i}: want contiguous {dt} of shape ({p},), got "
+                             f"{x.dtype} {tuple(x.shape)}")
+    if heights.shape != (n, n) or heights.dtype != torch.float32 \
+            or not heights.is_contiguous():
+        raise ValueError(f"heights: want contiguous f32 ({n}, {n})")
+    if pyr_flat.shape != (flat_size(m),) or pyr_flat.dtype != torch.float32 \
+            or not pyr_flat.is_contiguous():
+        raise ValueError(f"pyr_flat: want contiguous f32 ({flat_size(m)},) for m={m}")
+    if levels != m.bit_length() or n - 1 > m or n < 2:
+        raise ValueError(f"inconsistent geometry n={n} m={m} levels={levels}")
+    if not 0 <= budget <= UNBUDGETED:
+        raise ValueError(f"budget {budget} outside [0, {UNBUDGETED}]")
+    if p:  # the kernel shifts by the level and indexes the pyramid with it
+        lo, hi = (int(v) for v in torch.aminmax(state[2]))
+        if lo < 0 or hi >= levels:
+            raise ValueError(f"levels in [{lo}, {hi}] outside [0, {levels - 1}]")
+
+
+def march_pass(rays, state, results, pyr_flat, heights, *, n: int, m: int,
+               levels: int, budget: int, cell_intersect: str = "triangle",
+               clip=None):
+    """One budgeted march pass. Returns (new_state, new_results).
+
+    CPU tensors run `march_pass_reference`; CUDA tensors launch the kernel
+    (building it on first use) or raise."""
+    dev = _build.device_of([*rays, *state, *results, pyr_flat, heights])
+    if dev.type == "cpu":
+        return march_pass_reference(rays, state, results, pyr_flat, heights,
+                                    n=n, m=m, levels=levels, budget=budget,
+                                    cell_intersect=cell_intersect, clip=clip)
+    if dev.type != "cuda":
+        raise ValueError(f"march_pass runs on cpu or cuda, not {dev}")
+    _check_inputs(rays, state, results, pyr_flat, heights, n, m, levels, budget)
+    lib = _build.library()
+    outs = [torch.empty_like(x) for x in (*state, *results)]
+    lo, hi = (0.0, float(n - 1)) if clip is None else clip
+    with torch.cuda.device(dev):
+        err = lib.hmrt_march_pass(
+            *[x.data_ptr() for x in (*rays, *state, *results, *outs)],
+            pyr_flat.data_ptr(), heights.data_ptr(), rays[0].shape[0], n, m, levels,
+            budget, INTERSECTOR_IDS[cell_intersect], float(lo), float(hi),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "march_pass")
+    march_pass.launches += 1
+    return tuple(outs[:5]), tuple(outs[5:])
+
+
+march_pass.launches = 0

@@ -1,0 +1,183 @@
+"""The CUDA kernels against their plain torch versions, on the card.
+
+Every test here needs a CUDA device and skips without one (there is no
+interpret mode for a CUDA kernel). On a machine with a card:
+    python -m pytest tests/test_torch_kernels_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import hmrt_tpu_torch as T
+from conftest import random_rays
+from hmrt_tpu_torch.kernels import _build
+from hmrt_tpu_torch.kernels.compact import init_state, render_frame_compact
+from hmrt_tpu_torch.core.renderer import render_frame_oracle
+from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, march_pass,
+                                               march_pass_reference)
+from hmrt_tpu_torch.kernels.shade_pass import shade_pass, shade_pass_reference
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _scene(n, dev):
+    return T.make_scene(T.procedural_terrain(n, seed=3), device=dev)
+
+
+def _rays(n, dev, p=8192, seed=0):
+    o, d = random_rays(p, n, seed=seed)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+                 for a in (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2]))
+
+
+def _empty_results(p, dev):
+    return (torch.zeros(p, dtype=torch.int32, device=dev),
+            torch.full((p,), 3.0e38, device=dev),
+            torch.zeros(p, dtype=torch.int32, device=dev),
+            torch.zeros(p, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("ci", ["triangle", "bilinear", "flat"])
+@pytest.mark.parametrize("budget", [1, 7, 64, UNBUDGETED])
+@pytest.mark.parametrize("n", [128, 1024])
+def test_march_kernel_equals_plain(cuda, n, budget, ci):
+    """All 9 output planes equal, bit for bit, from the initial state and
+    from a mid-march state."""
+    sc = _scene(n, cuda)
+    rays = _rays(n, cuda)
+    st = init_state(rays, None, sc.pyr_flat[-1], n=sc.n, m=sc.m, levels=sc.levels)
+    res = _empty_results(rays[0].shape[0], cuda)
+    kw = dict(n=sc.n, m=sc.m, levels=sc.levels, cell_intersect=ci)
+    for _ in range(2):
+        sk, rk = march_pass(rays, st, res, sc.pyr_flat, sc.heights, budget=budget, **kw)
+        torch.cuda.synchronize()
+        sr, rr = march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights,
+                                      budget=budget, **kw)
+        for a, b in zip(sk + rk, sr + rr):
+            assert torch.equal(a, b)
+        st, res = sk, rk
+
+
+@pytest.mark.parametrize("textured", [False, True])
+@pytest.mark.parametrize("n", [128, 1024])
+def test_shade_kernel_equals_plain(cuda, n, textured):
+    """Within 1e-6 (the two may order the normalisation differently)."""
+    rng = np.random.default_rng(1)
+    albedo = rng.uniform(0, 1, (n, n, 3)).astype(np.float32) if textured else None
+    sc = T.make_scene(T.procedural_terrain(n, seed=3), albedo=albedo, device=cuda)
+    p = 65536
+    lanes = [torch.from_numpy(a).to(cuda) for a in (
+        (rng.uniform(size=p) < 0.7).astype(np.int32),
+        rng.integers(0, n - 1, p).astype(np.int32),
+        rng.integers(0, n - 1, p).astype(np.int32),
+        rng.uniform(0, 1, p).astype(np.float32), rng.uniform(0, 1, p).astype(np.float32))]
+    got = shade_pass(*lanes, sc.gx, sc.gy, sc.albedo)
+    torch.cuda.synchronize()
+    want = shade_pass_reference(*lanes, sc.gx, sc.gy, sc.albedo)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("ci", ["triangle", "bilinear", "flat"])
+def test_march_kernel_clip_window_equals_plain(cuda, ci):
+    sc = _scene(128, cuda)
+    rays = _rays(128, cuda, seed=2)
+    clip = (8.0, 100.0)
+    st = init_state(rays, None, sc.pyr_flat[-1], n=sc.n, m=sc.m, levels=sc.levels,
+                    clip=clip)
+    res = _empty_results(rays[0].shape[0], cuda)
+    kw = dict(n=sc.n, m=sc.m, levels=sc.levels, cell_intersect=ci, clip=clip,
+              budget=UNBUDGETED)
+    got = march_pass(rays, st, res, sc.pyr_flat, sc.heights, **kw)
+    torch.cuda.synchronize()
+    want = march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights, **kw)
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(a, b)
+
+
+def test_march_kernel_rejects_bad_levels(cuda):
+    sc = _scene(128, cuda)
+    rays = _rays(128, cuda, p=1024)
+    st = list(init_state(rays, None, sc.pyr_flat[-1], n=sc.n, m=sc.m, levels=sc.levels))
+    st[2] = torch.full_like(st[2], sc.levels)
+    with pytest.raises(ValueError, match="levels"):
+        march_pass(rays, tuple(st), _empty_results(1024, cuda), sc.pyr_flat, sc.heights,
+                   n=sc.n, m=sc.m, levels=sc.levels, budget=1)
+
+
+CAMERAS = {
+    "default": dict(eye=(64.0, -42.0, 50.0), target=(64.0, 64.0, 5.0)),
+    "grazing": dict(eye=(-10.0, 64.0, 14.0), target=(128.0, 65.0, 13.5)),
+    "under": dict(eye=(64.0, 64.0, -2.0), target=(115.0, 90.0, -1.0)),
+    "sky": dict(eye=(64.0, -64.0, 40.0), target=(64.0, -256.0, 80.0)),
+}
+CONFIGS = {
+    "phong_shadows": dict(shading="phong", shadows=True),
+    "texture_fog": dict(texture=True, fog=True, shading="phong"),
+    "bilinear": dict(cell_intersect="bilinear", shadows=True),
+}
+
+
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+@pytest.mark.parametrize("cam", list(CAMERAS))
+def test_frames_match_oracle_on_card(cuda, cam, cfg):
+    """render_frame on the card (the kernels) against the torch oracle on
+    the card: hit mask equal, colour < 5e-5, depth and normal as on the
+    CPU (tests/test_torch_render.py)."""
+    terr = T.procedural_terrain(128, seed=3)
+    albedo = np.random.default_rng(0).uniform(0.2, 0.9, (128, 128, 3)).astype(np.float32)
+    sc = T.make_scene(terr, albedo=albedo, device=cuda)
+    c = T.Camera.create(**CAMERAS[cam], device=cuda)
+    rc = T.RenderConfig(width=128, height=64, aux_buffers=True, **CONFIGS[cfg])
+    fc = T.render_frame(sc, c, rc)
+    fo = render_frame_oracle(sc, c, rc)
+    assert torch.equal(fc.hit, fo.hit)
+    assert float((fc.color - fo.color).abs().max()) < 5e-5
+    h = fo.hit
+    torch.testing.assert_close(fc.depth[h], fo.depth[h], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(fc.normal[h], fo.normal[h], rtol=0, atol=1e-4)
+
+
+def test_launch_counters_rise_and_frame_matches_oracle(cuda):
+    sc = _scene(128, cuda)
+    cam = T.Camera.create(eye=(64.0, -40.0, 60.0), target=(64.0, 64.0, 5.0), device=cuda)
+    cfg = T.RenderConfig(width=128, height=64, shading="phong", shadows=True,
+                         aux_buffers=True)
+    m0, s0 = march_pass.launches, shade_pass.launches
+    fc = T.render_frame(sc, cam, cfg)
+    assert march_pass.launches > m0 and shade_pass.launches > s0
+    fo = render_frame_oracle(sc, cam, cfg)
+    assert torch.equal(fc.hit, fo.hit)
+    assert float((fc.color - fo.color).abs().max()) < 5e-5
+    # the schedule does not change the frame
+    fs = render_frame_compact(sc, cam, cfg, first_budget=3, rounds=3, round_budget=5)
+    assert torch.equal(fs.color, fc.color)
+
+
+def test_unbuildable_library_raises(cuda, tmp_path, monkeypatch):
+    """A CUDA tensor given to a wrapper whose kernels cannot be built
+    raises; it never falls back to the plain version."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "broken.cu").write_text("this is not CUDA C++\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    _build.library.cache_clear()
+    try:
+        sc = _scene(128, cuda)
+        lanes = [torch.zeros(1024, dtype=torch.int32, device=cuda) for _ in range(3)]
+        lanes += [torch.zeros(1024, device=cuda) for _ in range(2)]
+        before = shade_pass.launches
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            shade_pass(*lanes, sc.gx, sc.gy)
+        assert shade_pass.launches == before
+    finally:
+        _build.library.cache_clear()
