@@ -5,16 +5,26 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the package's CUDA kernels from the sources in the checkout,
-renders B3 (a 4096^2 DEM at 1920x1080 with Phong, shadows and the sky
-early-out) through the normal entry points and times it, holds each kernel
-against its plain torch version at the shapes of that main path, and holds
-rendered frames against the torch oracle. It prints the card's name and
-power limit, one JSON line of per-kernel results, and last
+It builds the package's CUDA kernels from the sources in the checkout and
+drives both render paths through the normal entry points:
+
+  - the compact path: B3 (a 4096^2 DEM at 1920x1080 with Phong, shadows
+    and the sky early-out) under backend "auto", timed; march_pass and
+    shade_pass held against their plain versions at its shapes; B2 and B3
+    frames against the torch oracle;
+  - the fused path: B1 (256^2, 512x512, Lambert) under "auto", which takes
+    the fused kernel, against the torch oracle; B3 through backend
+    "pallas", timed and held against the compact frame; the fused kernel
+    against its plain version on the B1 frame and on a 16-row band of B3
+    at the horizon; B2 under both backends.
+
+It prints the card's name and power limit, one JSON line of per-kernel
+results (time, plain time, launches, error and the bound of each), and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
 without a CUDA device it exits 1 before doing anything.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -25,6 +35,18 @@ ROOT = Path(__file__).resolve().parent
 N_SAMPLE = 65536   # rays per kernel-vs-plain march comparison
 STATE = ("alive", "t", "lvl", "icx", "icy")
 RESULTS = ("hit", "t_hit", "hx", "hy")
+
+# The least time the card could take for a kernel's work: the larger of its
+# bytes over the memory rate and its operations over the f32 rate (NVIDIA
+# H100 SXM data sheet: 3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Operations per unit of work, counted from the CUDA sources (float and
+# integer arithmetic, compares and selects alike, all at the f32 rate):
+OPS_PER_STEP = 50    # one max-mip step of march_common.cuh without the cell test
+OPS_PER_TEST = 50    # the exact triangle test of a level-0 cell
+OPS_PER_SHADE = 40   # shade_lane of shade_common.cuh on a hit
+OPS_PER_PIXEL = 150  # render_tile.cu outside the marches: raygen, box, shade, colour
 
 
 def log(*a):
@@ -50,13 +72,77 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare_march(label, rays, state, scene, budgets):
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(bound in ms, what bounds it) for the given bytes and operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def corner_samples(hit, hx, hy, n: int) -> int:
+    """Distinct grid samples at the 4 corners of the hit cells."""
+    import torch
+    base = (torch.clamp(hy, 0, n - 2) * n + torch.clamp(hx, 0, n - 2))[hit]
+    return int(torch.unique(torch.cat([base + o for o in (0, 1, n, n + 1)])).numel())
+
+
+def kernel_ms(fn, kernel: str, reps: int) -> float:
+    """Device time per call of the CUDA kernel whose name contains
+    `kernel`, over `reps` calls of fn(), from torch.profiler: the kernel
+    alone, without the wrapper's host work between launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+             if kernel in e.key)
+    if us <= 0:
+        raise RuntimeError(f"the profiler recorded no device time for {kernel}")
+    return us / 1e3 / reps
+
+
+def median_ms(fn, reps: int) -> tuple[float, list]:
+    """Median over `reps` single calls of fn(), each timed by CUDA events."""
+    times = sorted(event_ms(fn, 1) for _ in range(reps))
+    return times[len(times) // 2], times
+
+
+def profile_frames(label, fn, frame_ms, frames: int = 3):
+    """torch.profiler over `frames` calls of fn(): device time per frame by
+    kernel, and the busy share of `frame_ms` (the frame's time by events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3 / frames)
+            for e in prof.key_averages()]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    busy = sum(t for _, t in rows)
+    if not rows:
+        log(f"{label}: the profiler recorded no device time")
+        return
+    log(f"{label}: device busy {busy:.3f} ms per frame of {frame_ms:.3f} ms "
+        f"({100 * busy / frame_ms:.1f}%, idle {100 * (1 - busy / frame_ms):.1f}%); by kernel:")
+    for key, t in rows[:8]:
+        log(f"    {t:9.4f} ms  {key[:90]}")
+
+
+def compare_march(label, rays, state, scene, budgets, counter=None):
     """march_pass kernel vs march_pass_reference from the same state, for
     each budget: state planes equal on the lanes alive at the start, the
-    alive plane and the results equal everywhere. Returns the largest
-    absolute difference over all planes (0.0 when exact)."""
+    alive plane and the results equal everywhere. `counter` records the
+    work of the unbudgeted plain run. Returns the largest absolute
+    difference over all planes (0.0 when exact)."""
     import torch
-    from hmrt_tpu_torch.kernels.march_pass import march_pass, march_pass_reference
+    from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, march_pass,
+                                                   march_pass_reference)
     from hmrt_tpu_torch.traversal.intersect import BIG_T
     p = rays[0].shape[0]
     dev = rays[0].device
@@ -71,7 +157,8 @@ def compare_march(label, rays, state, scene, budgets):
         sk, rk = march_pass(rays, state, res, scene.pyr_flat, scene.heights, budget=b, **kw)
         torch.cuda.synchronize()
         sr, rr = march_pass_reference(rays, state, res, scene.pyr_flat, scene.heights,
-                                      budget=b, **kw)
+                                      budget=b, **kw,
+                                      counter=counter if b == UNBUDGETED else None)
         for name, a, c in zip(STATE + RESULTS, sk + rk, sr + rr):
             sel = alive_in if name in STATE[1:] else slice(None)
             if not torch.equal(a[sel], c[sel]):
@@ -90,13 +177,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     sys.path.insert(0, str(ROOT))
     import hmrt_tpu_torch as T
     if not Path(T.__file__).resolve().is_relative_to(ROOT):
         raise RuntimeError(f"hmrt_tpu_torch imported from {T.__file__}, not this checkout")
-    from hmrt_tpu_torch.bench.configs import BENCH_CONFIGS, bench_scene
+    from hmrt_tpu_torch.bench.configs import BENCH_CONFIGS, bench_albedo, bench_scene
     from hmrt_tpu_torch.core.renderer import render_frame_oracle
     from hmrt_tpu_torch.kernels import _build
     from hmrt_tpu_torch.kernels.compact import (FIRST_BUDGET, ROUND_BUDGET, ROUNDS,
@@ -104,22 +192,35 @@ def main() -> int:
                                                 primary_rays, shadow_start)
     from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, march_pass,
                                                    march_pass_reference)
+    from hmrt_tpu_torch.kernels.raycast import (fused_planes, fused_reference_planes,
+                                                render_frame_fused,
+                                                render_frame_fused_reference)
     from hmrt_tpu_torch.kernels.shade_pass import shade_pass, shade_pass_reference
+    from hmrt_tpu_torch.traversal.march import WorkCounter
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  device {kind}")
 
+    def reset_counts():
+        for f in (march_pass, shade_pass, render_frame_fused):
+            f.launches = 0
+
+    def phase(name):
+        log(f"---- {name}  (at {time.perf_counter() - t_start:.1f} s)")
+
     # ---- 1. build the kernels from the checkout's sources ----------------
+    phase("1. build")
     t0 = time.perf_counter()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for line in sorted(_build.BUILD_DIR.glob("*.log"))[-1].read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas:", line.strip())
 
-    # ---- 2. the main path: B3 through render_frame -----------------------
+    # ---- 2. the compact path: B3 through render_frame --------------------
+    phase("2. B3 through render_frame (auto: compact)")
     b3 = BENCH_CONFIGS["B3"]
     cfg = b3.render
     t0 = time.perf_counter()
@@ -128,38 +229,45 @@ def main() -> int:
     log(f"B3 scene: {scene.n}^2 samples, m={scene.m}, {scene.levels} levels, "
         f"built in {time.perf_counter() - t0:.2f} s")
 
-    march_pass.launches = 0
-    shade_pass.launches = 0
+    reset_counts()
     fr = T.render_frame(scene, cam, cfg)
     torch.cuda.synchronize()
     launches = {"march_pass": march_pass.launches, "shade_pass": shade_pass.launches}
-    log(f"B3 main path launches: {launches}")
+    log(f"B3 main path launches: {launches}, render_tile {render_frame_fused.launches}")
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"{k} was not launched by render_frame")
-    color = fr.color
-    if color.shape != (cfg.height, cfg.width, 3) or fr.hit.shape != (cfg.height, cfg.width):
-        raise AssertionError(f"B3 frame has shape {tuple(color.shape)}")
-    if not bool(torch.isfinite(color).all()) or float(color.min()) < 0 or float(color.max()) > 1:
-        raise AssertionError("B3 colours are not finite values in [0, 1]")
-    hit_frac = float(fr.hit.float().mean())
-    if not 0.05 < hit_frac < 0.95:
-        raise AssertionError(f"B3 hit fraction {hit_frac} outside (0.05, 0.95)")
-    log(f"B3 frame: {cfg.width}x{cfg.height}, hit fraction {hit_frac:.4f}, colours in "
-        f"[{float(color.min()):.4f}, {float(color.max()):.4f}]")
+    if render_frame_fused.launches:
+        raise AssertionError("B3 under 'auto' launched the fused kernel")
 
-    times = []
-    for _ in range(5):
-        times.append(event_ms(lambda: T.render_frame(scene, cam, cfg), 1))
-    times.sort()
-    ms = times[len(times) // 2]
-    primary = cfg.width * cfg.height
-    log(f"B3 warm frames (ms, CUDA events): {times}")
-    log(f"B3: {ms:.3f} ms/frame (median of 5), "
-        f"{primary * (1 + hit_frac) / ms / 1e3:.2f} Mrays/s with shadow rays, "
-        f"{primary / ms / 1e3:.2f} Mrays/s primary  [{card}]")
+    def check_frame(label, f, cf):
+        color = f.color
+        if color.shape != (cf.height, cf.width, 3) or f.hit.shape != (cf.height, cf.width):
+            raise AssertionError(f"{label} frame has shape {tuple(color.shape)}")
+        if not bool(torch.isfinite(color).all()) or float(color.min()) < 0 \
+                or float(color.max()) > 1:
+            raise AssertionError(f"{label} colours are not finite values in [0, 1]")
+        frac = float(f.hit.float().mean())
+        if not 0.05 < frac < 0.95:
+            raise AssertionError(f"{label} hit fraction {frac} outside (0.05, 0.95)")
+        log(f"{label} frame: {cf.width}x{cf.height}, hit fraction {frac:.4f}, colours in "
+            f"[{float(color.min()):.4f}, {float(color.max()):.4f}]")
+        return frac
 
-    # ---- 3. kernels vs plain versions at the main path's shapes ----------
+    def log_rate(label, ms, times, cf, frac):
+        primary = cf.width * cf.height
+        shadow = frac if cf.shadows else 0.0
+        log(f"{label} warm frames (ms, CUDA events): {times}")
+        log(f"{label}: {ms:.3f} ms/frame (median of {len(times)}), "
+            f"{primary * (1 + shadow) / ms / 1e3:.2f} Mrays/s with shadow rays, "
+            f"{primary / ms / 1e3:.2f} Mrays/s primary  [{card}]")
+
+    hit_frac = check_frame("B3", fr, cfg)
+    ms, times = median_ms(lambda: T.render_frame(scene, cam, cfg), 5)
+    log_rate("B3 compact", ms, times, cfg, hit_frac)
+
+    # ---- 3. march_pass and shade_pass vs plain at the main path's shapes --
+    phase("3. march_pass and shade_pass vs their plain versions")
     rays = primary_rays(cam, cfg)
     p = rays[0].shape[0]
     idx = torch.arange(N_SAMPLE, device=dev) * (p // N_SAMPLE)
@@ -167,7 +275,8 @@ def main() -> int:
     st0 = init_state(srays_p, None, scene.pyr_flat[-1], n=scene.n, m=scene.m,
                      levels=scene.levels)
     budgets = (1, 7, 64, UNBUDGETED)
-    err_primary, res0 = compare_march("primary", srays_p, st0, scene, budgets)
+    work_k1 = WorkCounter(scene.pyr_flat.shape[0], scene.n, dev)
+    err_primary, res0 = compare_march("primary", srays_p, st0, scene, budgets, work_k1)
     # from a mid-march state as well: the kernel's own state after 64 steps
     mid = march_pass(srays_p, st0, res0, scene.pyr_flat, scene.heights, n=scene.n,
                      m=scene.m, levels=scene.levels, budget=64)[0]
@@ -175,11 +284,16 @@ def main() -> int:
 
     args = (srays_p, st0, res0, scene.pyr_flat, scene.heights)
     kw = dict(n=scene.n, m=scene.m, levels=scene.levels, budget=UNBUDGETED)
-    march_pass(*args, **kw)
-    march_ms = event_ms(lambda: march_pass(*args, **kw), 10)
+    march_ms = kernel_ms(lambda: march_pass(*args, **kw), "march_pass_kernel", 10)
+    march_call_ms = event_ms(lambda: march_pass(*args, **kw), 10)
     march_plain_ms = event_ms(lambda: march_pass_reference(*args, **kw), 1)
-    log(f"march_pass, {N_SAMPLE} B3 primary rays unbudgeted: kernel {march_ms:.3f} ms, "
-        f"plain {march_plain_ms:.3f} ms  [{card}]")
+    # bytes: 15 planes in, 9 out, and the distinct pyramid and height values read
+    k1_bound = bound(N_SAMPLE * 4 * (15 + 9) + work_k1.unique_bytes(),
+                     int(work_k1.steps) * OPS_PER_STEP + int(work_k1.tests) * OPS_PER_TEST)
+    log(f"march_pass, {N_SAMPLE} B3 primary rays unbudgeted: kernel {march_ms:.3f} ms "
+        f"(wrapper call {march_call_ms:.3f} ms), plain {march_plain_ms:.3f} ms; {int(work_k1.steps)} steps, {int(work_k1.tests)} "
+        f"cell tests, {work_k1.unique_bytes()} distinct bytes of terrain; bound "
+        f"{k1_bound[0]:.4f} ms ({k1_bound[1]})  [{card}]")
 
     # full-frame primary march (kernel), then the shade pass on every lane
     st_full = init_state(rays, None, scene.pyr_flat[-1], n=scene.n, m=scene.m,
@@ -200,10 +314,15 @@ def main() -> int:
         raise AssertionError(f"shade_pass differs from its plain version by {err_shade}")
     log(f"  shade_pass on all {p} lanes ({int(hit.sum())} hits): max |kernel - plain| "
         f"{err_shade:.3g} (bar 1e-6)")
-    shade_ms = event_ms(lambda: shade_pass(*shade_args), 20)
+    shade_ms = kernel_ms(lambda: shade_pass(*shade_args), "shade_pass_kernel", 20)
+    shade_call_ms = event_ms(lambda: shade_pass(*shade_args), 20)
     shade_plain_ms = event_ms(lambda: shade_pass_reference(*shade_args), 5)
-    log(f"shade_pass, {p} B3 lanes: kernel {shade_ms:.4f} ms, plain {shade_plain_ms:.4f} ms"
-        f"  [{card}]")
+    # bytes: 5 lane planes in, 6 out, and the distinct gradient samples read
+    k2_bound = bound(p * 4 * (5 + 6) + 8 * corner_samples(hit, hx, hy, scene.n),
+                     int(hit.sum()) * OPS_PER_SHADE)
+    log(f"shade_pass, {p} B3 lanes: kernel {shade_ms:.4f} ms (wrapper call "
+        f"{shade_call_ms:.4f} ms), plain {shade_plain_ms:.4f} ms"
+        f"; bound {k2_bound[0]:.4f} ms ({k2_bound[1]})  [{card}]")
 
     # shadow rays from the frame's hits, started in the hit cells
     srays, sstate = shadow_start(points, got[:3], hit, hx, hy, scene)
@@ -220,6 +339,8 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---- 4. frames vs the torch oracle on the card -----------------------
+    phase("4. frames vs the torch oracle")
+
     def check_vs_oracle(label, sc, cm, cf):
         fc = T.render_frame(sc, cm, cf)
         t1 = time.perf_counter()
@@ -249,18 +370,165 @@ def main() -> int:
     check_vs_oracle("B2-class 1024^2 1024x768 aux", scene2, cam2, b2.render)
     check_vs_oracle("B3 4096^2 1920x1080 phong+shadows", scene, cam, cfg)
 
+    # ---- 5. the fused path: B1 through render_frame ----------------------
+    phase("5. B1 through render_frame (auto: fused)")
+    b1 = BENCH_CONFIGS["B1"]
+    cfg1 = b1.render
+    scene1, cam1, terr1 = bench_scene(b1, device=dev)
+    reset_counts()
+    fr1 = T.render_frame(scene1, cam1, cfg1)
+    torch.cuda.synchronize()
+    launches["render_tile"] = render_frame_fused.launches
+    log(f"B1 main path launches: render_tile {render_frame_fused.launches}, march_pass "
+        f"{march_pass.launches}, shade_pass {shade_pass.launches}")
+    if render_frame_fused.launches <= 0:
+        raise AssertionError("render_tile was not launched by render_frame on B1")
+    if march_pass.launches or shade_pass.launches:
+        raise AssertionError("B1 under 'auto' launched the compact path's kernels")
+    b1_frac = check_frame("B1", fr1, cfg1)
+    b1_ms, b1_times = median_ms(lambda: T.render_frame(scene1, cam1, cfg1), 5)
+    log_rate("B1 fused", b1_ms, b1_times, cfg1, b1_frac)
+    check_vs_oracle("B1 256^2 512x512 lambert (dda oracle)", scene1, cam1, cfg1)
+
+    # ---- 6. B3 through the fused kernel (backend "pallas") ---------------
+    phase("6. B3 through render_frame (pallas: fused)")
+    cfg_f = dataclasses.replace(cfg, backend="pallas")
+    f0 = render_frame_fused.launches
+    frf = T.render_frame(scene, cam, cfg_f)
+    torch.cuda.synchronize()
+    if render_frame_fused.launches != f0 + 1:
+        raise AssertionError("backend 'pallas' did not launch render_tile")
+    b3f_frac = check_frame("B3 fused", frf, cfg_f)
+    b3f_ms, b3f_times = median_ms(lambda: T.render_frame(scene, cam, cfg_f), 5)
+    log_rate("B3 fused", b3f_ms, b3f_times, cfg_f, b3f_frac)
+    b3c_ms, b3c_times = median_ms(lambda: T.render_frame(scene, cam, cfg), 5)
+    log_rate("B3 compact (again, after fused)", b3c_ms, b3c_times, cfg, hit_frac)
+    fa = T.render_frame(scene, cam, dataclasses.replace(cfg_f, aux_buffers=True))
+    fc = T.render_frame(scene, cam, dataclasses.replace(cfg, aux_buffers=True,
+                                                        backend="compact"))
+    if not torch.equal(fa.hit, fc.hit) or not torch.equal(fa.depth, fc.depth):
+        raise AssertionError(f"B3 fused vs compact: hit differs on "
+                             f"{int((fa.hit != fc.hit).sum())} pixels, depth on "
+                             f"{int((fa.depth != fc.depth).sum())}")
+    dcol = float((fa.color - fc.color).abs().max())
+    dnrm = float((fa.normal - fc.normal).abs().max())
+    if dcol > 1e-6 or dnrm > 1e-6:
+        raise AssertionError(f"B3 fused vs compact: colour {dcol}, normal {dnrm}")
+    log(f"B3 fused vs compact (aux): hit and depth equal, max colour diff {dcol:.3g}, "
+        f"normal {dnrm:.3g} (bar 1e-6)")
+
+    # ---- 7. the fused kernel vs its plain version ------------------------
+    phase("7. render_tile vs its plain version")
+
+    def compare_fused(label, sc, cm, cf, row0=None, fh=None):
+        got = fused_planes(sc, cm, cf, row0, fh, cells=True)
+        torch.cuda.synchronize()
+        work = WorkCounter(sc.pyr_flat.shape[0], sc.n, dev)
+        want = fused_reference_planes(sc, cm, cf, row0, fh, counter=work)
+        color, depth, normal, hit_k, cell = got
+        for name, a, b in (("hit", hit_k.reshape(-1), want[3]),
+                           ("hit cell", cell.reshape(-1, 2), want[4])) + (
+                (("depth", depth.reshape(-1), want[1]),) if cf.aux_buffers else ()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"render_tile {label}: {name} differs on "
+                                     f"{int((a != b).sum())} pixels")
+        err = float((color.reshape(-1, 3) - want[0]).abs().max())
+        if cf.aux_buffers:
+            err = max(err, float((normal.reshape(-1, 3) - want[2]).abs().max()))
+        if err > 1e-6:
+            raise AssertionError(f"render_tile {label}: colour or normal differs by {err}")
+        hits = want[3]
+        log(f"  render_tile {label}: hit, hit cells{', depth' if cf.aux_buffers else ''} "
+            f"equal, max colour/normal diff {err:.3g} (bar 1e-6); {int(hits.sum())} hits, "
+            f"{int(work.steps)} march steps, {int(work.tests)} cell tests")
+        return err, work, want
+
+    def fused_bound(sc, cf, work, want):
+        p_ = cf.width * cf.height
+        hx_, hy_ = want[4][:, 0], want[4][:, 1]
+        grads = corner_samples(want[3], hx_, hy_, sc.n) * (8 + (12 if cf.texture else 0))
+        out = p_ * (16 + (16 if cf.aux_buffers else 0))
+        return bound(4 * 32 + work.unique_bytes() + grads + out,
+                     int(work.steps) * OPS_PER_STEP + int(work.tests) * OPS_PER_TEST
+                     + p_ * OPS_PER_PIXEL)
+
+    err_b1, work_b1, want_b1 = compare_fused("B1 frame, lambert", scene1, cam1, cfg1)
+    scene1t = T.make_scene(terr1, albedo=bench_albedo(terr1), device=dev)
+    cfg1_all = dataclasses.replace(cfg1, shading="phong", shadows=True, aux_buffers=True,
+                                   fog=True, texture=True)
+    err_b1all, _, _ = compare_fused("B1 frame, phong+shadows+aux+fog+texture", scene1t,
+                                    cam1, cfg1_all)
+    fused_ms = kernel_ms(lambda: render_frame_fused(scene1, cam1, cfg1), "render_tile_kernel",
+                         20)
+    fused_call_ms = event_ms(lambda: render_frame_fused(scene1, cam1, cfg1), 20)
+    fused_plain_ms = event_ms(lambda: render_frame_fused_reference(scene1, cam1, cfg1), 1)
+    k3_bound = fused_bound(scene1, cfg1, work_b1, want_b1)
+    log(f"render_tile, B1 frame {cfg1.width}x{cfg1.height}: kernel {fused_ms:.4f} ms (wrapper "
+        f"call {fused_call_ms:.4f} ms), plain "
+        f"{fused_plain_ms:.3f} ms; bound {k3_bound[0]:.4f} ms ({k3_bound[1]})  [{card}]")
+
+    # a 16-row band of B3 at the horizon, where the marches are longest: of
+    # the 16-row bands from the first row with a hit down, the slowest one
+    first = int(torch.nonzero(fr.hit.any(dim=1)).squeeze(1)[0])
+    cfg_band = dataclasses.replace(cfg, height=16)
+    cands = range(first, min(first + 16 * 12, cfg.height - 15), 16)
+    band_times = {r0: event_ms(lambda: render_frame_fused(scene, cam, cfg_band, r0, cfg.height),
+                               3) for r0 in cands}
+    row0 = max(band_times, key=band_times.get)
+    log("  B3 16-row bands, kernel ms by first row: "
+        + ", ".join(f"{r0}: {t:.3f}" for r0, t in band_times.items()))
+    err_band, work_band, want_band = compare_fused(
+        f"B3 band rows {row0}-{row0 + 15} of {cfg.height}", scene, cam, cfg_band, row0,
+        cfg.height)
+    band_ms = kernel_ms(lambda: render_frame_fused(scene, cam, cfg_band, row0, cfg.height),
+                        "render_tile_kernel", 10)
+    band_plain_ms = event_ms(lambda: render_frame_fused_reference(
+        scene, cam, cfg_band, row0, cfg.height), 1)
+    band_bound = fused_bound(scene, cfg_band, work_band, want_band)
+    log(f"render_tile, B3 band {cfg.width}x16 at row {row0}: kernel {band_ms:.4f} ms, plain "
+        f"{band_plain_ms:.3f} ms; bound {band_bound[0]:.4f} ms ({band_bound[1]})  [{card}]")
+
+    # ---- 8. B2 under both backends, for the "auto" split ---------------
+    phase("8. B2 under both backends")
+    for backend in ("compact", "pallas", "pallas", "compact"):
+        cf2 = dataclasses.replace(b2.render, backend=backend)
+        T.render_frame(scene2, cam2, cf2)
+        b2_ms, b2_times = median_ms(lambda: T.render_frame(scene2, cam2, cf2), 3)
+        log(f"B2 {backend}: {b2_ms:.3f} ms/frame (median of 3: {b2_times})  [{card}]")
+
+    # ---- 9. where the time goes ------------------------------------------
+    phase("9. where the time goes")
+    cfg_ns = dataclasses.replace(cfg_f, shadows=False)
+    k_ns = kernel_ms(lambda: render_frame_fused(scene, cam, cfg_ns), "render_tile_kernel", 3)
+    k_all = kernel_ms(lambda: render_frame_fused(scene, cam, cfg_f), "render_tile_kernel", 3)
+    log(f"B3 fused kernel alone: {k_all:.3f} ms with shadow rays, {k_ns:.3f} ms without  "
+        f"[{card}]")
+    profile_frames("B1 auto (fused)", lambda: T.render_frame(scene1, cam1, cfg1), b1_ms)
+    profile_frames("B3 pallas (fused)", lambda: T.render_frame(scene, cam, cfg_f), b3f_ms)
+    profile_frames("B3 auto (compact)", lambda: T.render_frame(scene, cam, cfg), b3c_ms)
+
+    phase("done")
     kernels = [
         {"name": "march_pass", "route": "cuda",
          "source": "hmrt_tpu_torch/kernels/csrc/march_pass.cu",
          "replaces": "hmrt_tpu/kernels/compact.py:80",
          "launches": launches["march_pass"],
          "max_abs_err": max(err_primary, err_mid, err_shadow),
-         "ms": march_ms, "plain_ms": march_plain_ms},
+         "ms": march_ms, "plain_ms": march_plain_ms,
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "shade_pass", "route": "cuda",
          "source": "hmrt_tpu_torch/kernels/csrc/shade_pass.cu",
          "replaces": "hmrt_tpu/kernels/compact.py:562",
          "launches": launches["shade_pass"],
-         "max_abs_err": err_shade, "ms": shade_ms, "plain_ms": shade_plain_ms},
+         "max_abs_err": err_shade, "ms": shade_ms, "plain_ms": shade_plain_ms,
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
+        {"name": "render_tile", "route": "cuda",
+         "source": "hmrt_tpu_torch/kernels/csrc/render_tile.cu",
+         "replaces": "hmrt_tpu/kernels/raycast.py:88",
+         "launches": launches["render_tile"],
+         "max_abs_err": max(err_b1, err_b1all, err_band),
+         "ms": fused_ms, "plain_ms": fused_plain_ms,
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
     ]
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -1,4 +1,4 @@
-"""Scene construction on an explicit device.
+"""Scene construction on the card, or on the device the caller names.
 
 Counterpart of `hmrt_tpu/api/scene.py`: upload the height grid, build the
 max pyramid there, and precompute the per-sample gradient planes that the
@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from hmrt_tpu_torch.core.pyramid import build_pyramid_flat, next_pow2, num_levels
+from hmrt_tpu_torch.device import resolve
 from hmrt_tpu_torch.types import Camera, Light, Scene
 
 
@@ -37,8 +38,9 @@ def _planar_albedo(albedo, n: int, device) -> torch.Tensor:
 
 
 def make_scene(heights, albedo=None, light: Light | None = None,
-               device="cpu") -> Scene:
-    """Build a Scene on `device` from an (N, N) height grid.
+               device=None) -> Scene:
+    """Build a Scene on `device` (default: the CUDA card) from an (N, N)
+    height grid.
 
     `albedo` is an optional (N, N, 3) float [0,1] texture, stored planar
     (3, N*N)."""
@@ -48,6 +50,7 @@ def make_scene(heights, albedo=None, light: Light | None = None,
     n = int(h.shape[0])
     if n < 2:
         raise ValueError("heightmap must be at least 2x2")
+    device = resolve(device)
     m = next_pow2(n - 1)
     ht = torch.from_numpy(np.ascontiguousarray(h)).to(device)
     gx, gy = corner_grads(ht)
@@ -62,10 +65,11 @@ def _tensor(a, device):
 
 
 def scene_from_arrays(heights, pyr_flat, albedo, light: dict, *, n: int,
-                      m: int, levels: int, device="cpu") -> Scene:
+                      m: int, levels: int, device=None) -> Scene:
     """A Scene from the numpy arrays of another package's scene (heights,
     flat pyramid, planar albedo or None, and a dict of the light's five
     vectors), so both packages render the very same state."""
+    device = resolve(device)
     ht = _tensor(heights, device)
     if ht.shape != (n, n):
         raise ValueError(f"heights must be ({n}, {n}), got {tuple(ht.shape)}")
@@ -78,7 +82,8 @@ def scene_from_arrays(heights, pyr_flat, albedo, light: dict, *, n: int,
                  gx=gx, gy=gy, n=n, m=m, levels=levels)
 
 
-def camera_from_arrays(eye, target, up, fov_y, device="cpu") -> Camera:
+def camera_from_arrays(eye, target, up, fov_y, device=None) -> Camera:
     """A Camera from numpy arrays; `fov_y` is in radians."""
+    device = resolve(device)
     return Camera(eye=_tensor(eye, device), target=_tensor(target, device),
                   up=_tensor(up, device), fov_y=_tensor(fov_y, device))

@@ -87,8 +87,9 @@ def bench_albedo(terr: np.ndarray) -> np.ndarray:
     return albedo.astype(np.float32)
 
 
-def bench_scene(cfg: BenchConfig, seed: int = 3, device="cpu"):
-    """Deterministic (scene, camera, terrain) of a bench config on `device`."""
+def bench_scene(cfg: BenchConfig, seed: int = 3, device=None):
+    """Deterministic (scene, camera, terrain) of a bench config on `device`
+    (default: the CUDA card)."""
     from hmrt_tpu_torch.api.scene import make_scene
     from hmrt_tpu_torch.io.heightmap import procedural_terrain
     from hmrt_tpu_torch.types import Camera

@@ -48,14 +48,16 @@ class RenderConfig:
     fog_density: float = 0.0015
 
     # --- performance knobs ---
-    #: Screen-tile height of the fused tile kernel (not ported yet).
+    #: Screen-tile height of the TPU's fused tile kernel; a Mosaic knob
+    #: the CUDA kernel does not read (kept so both configs match).
     tile_h: int = 8
     #: "oracle"  = plain torch wavefront (runs anywhere, is the spec)
-    #: "pallas"  = fused tile kernel (not ported yet: raises)
+    #: "pallas"  = fused tile render, one CUDA thread per pixel
     #: "compact" = budgeted march passes + ray sorting (CUDA kernels)
-    #: "auto"    = compact on CUDA, oracle on the CPU
+    #: "auto"    = on CUDA compact for maps >= 1024^2, else fused;
+    #:             the oracle on the CPU
     backend: Literal["auto", "oracle", "pallas", "compact"] = "auto"
-    #: per-tile work counters of the fused kernel (not ported yet)
+    #: per-tile work counters of the fused kernel (not ported: raises)
     debug_counters: bool = False
 
     def steps_for(self, n_cells: int) -> int:

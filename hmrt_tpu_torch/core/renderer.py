@@ -2,8 +2,8 @@
 
 Counterpart of `hmrt_tpu/core/renderer.py`. The oracle is raygen ->
 masked-wavefront march -> shading -> Frame in plain torch on any device:
-the executable spec that the compact path with its CUDA kernels is held
-against.
+the executable spec that the compact and fused paths with their CUDA
+kernels are held against.
 """
 
 from __future__ import annotations
@@ -18,28 +18,43 @@ from hmrt_tpu_torch.types import Camera, Frame, Scene
 SHADOW_EPS = 1e-2
 
 
-def render_frame(scene: Scene, camera: Camera, config: RenderConfig) -> Frame:
-    """Render one frame on the scene's device.
+#: "auto" on CUDA: maps with m >= this take the compact path, smaller ones
+#: the fused kernel (the JAX package's split, hmrt_tpu/core/renderer.py)
+COMPACT_MIN_M = 1024
 
-    Backend dispatch (config.backend):
+
+def choose_backend(device_type: str, m: int, backend: str) -> str:
+    """The path `render_frame` takes: "oracle", "compact" or "fused".
+
       "compact": budgeted march passes with ray sorting
-                 (kernels/compact.py): the CUDA kernels on a CUDA scene,
-                 their plain torch versions on a CPU scene;
-      "oracle":  the plain torch pipeline below, on either device;
-      "auto":    compact on CUDA (for every map size until the fused tile
-                 kernel is ported), the oracle on the CPU;
-      "pallas":  the fused tile kernel, not ported yet: raises.
-    """
-    if config.backend == "pallas":
-        raise NotImplementedError(
-            "backend='pallas' (the fused tile kernel) is not ported to "
-            "hmrt_tpu_torch yet: ROADMAP.md queue 2 item 3")
-    if config.backend not in ("auto", "oracle", "compact"):
-        raise ValueError(f"unknown backend {config.backend!r}")
-    if config.backend == "compact" or (config.backend == "auto"
-                                       and scene.device.type == "cuda"):
+                 (kernels/compact.py);
+      "pallas":  the fused tile render (kernels/raycast.py);
+      "oracle":  the plain torch pipeline below;
+      "auto":    on CUDA, compact for maps with m >= COMPACT_MIN_M and
+                 fused for smaller ones; on the CPU, the oracle.
+    The kernel paths launch the CUDA kernels on a CUDA scene and run their
+    plain torch versions on a CPU scene."""
+    if backend == "pallas":
+        return "fused"
+    if backend in ("oracle", "compact"):
+        return backend
+    if backend != "auto":
+        raise ValueError(f"unknown backend {backend!r}")
+    if device_type != "cuda":
+        return "oracle"
+    return "compact" if m >= COMPACT_MIN_M else "fused"
+
+
+def render_frame(scene: Scene, camera: Camera, config: RenderConfig) -> Frame:
+    """Render one frame on the scene's device, by the path that
+    `choose_backend` picks for config.backend."""
+    path = choose_backend(scene.device.type, scene.m, config.backend)
+    if path == "compact":
         from hmrt_tpu_torch.kernels.compact import render_frame_compact
         return render_frame_compact(scene, camera, config)
+    if path == "fused":
+        from hmrt_tpu_torch.kernels.raycast import render_frame_fused
+        return render_frame_fused(scene, camera, config)
     return render_frame_oracle(scene, camera, config)
 
 

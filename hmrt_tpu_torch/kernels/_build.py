@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-All of `csrc/*.cu` compiles into one shared library with a plain C
-interface, on first use, into `build/hmrt_tpu_torch_kernels/` at the root
+Each of `csrc/*.cu` compiles to an object file, all at once in parallel
+nvcc processes, and the objects link into one shared library with a plain
+C interface, on first use, in `build/hmrt_tpu_torch_kernels/` at the root
 of the checkout. The file name carries a hash of the sources and flags, so
 an edited source builds anew and an unchanged one is loaded as it is.
 Nothing here runs at import time: the CPU tests import every module on a
@@ -25,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hmrt_tpu_torch_kern
 # Exact arithmetic: no FMA contraction, IEEE division and square root. The
 # march's hit decisions depend on them (a 1-ulp change flips grazing hits).
 NVCC_FLAGS = ["-O3", "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-std=c++17", "-Xcompiler", "-fPIC",
               "-gencode", "arch=compute_90a,code=sm_90a", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -36,6 +37,10 @@ SIGNATURES = {
     "hmrt_march_pass": [_P] * 26 + [_I] * 6 + [_F] * 2 + [_P],
     # hit hx hy fx fy gx gy albedo, 6 outputs; p n; stream
     "hmrt_shade_pass": [_P] * 14 + [_I] * 2 + [_P],
+    # params pyr heights gx gy albedo, color hit depth normal cell;
+    # H W full_h n m levels intersector phong shadows fog;
+    # ambient specular shininess fog_density box_lo box_hi; stream
+    "hmrt_render_tile": [_P] * 11 + [_I] * 10 + [_F] * 6 + [_P],
 }
 
 
@@ -51,8 +56,10 @@ def find_nvcc() -> str:
 
 
 def build(src_dir: Path, build_dir: Path) -> Path:
-    """Compile src_dir/*.cu into one shared library (once per content
-    hash) and return its path. Raises on any failure."""
+    """Compile src_dir/*.cu (one nvcc each, run in parallel) and link them
+    into one shared library, once per content hash; return its path. The
+    compilers' output, with ptxas' register counts, goes to `<stem>.log`.
+    Raises on any failure."""
     srcs = sorted(src_dir.glob("*.cu"))
     if not srcs:
         raise RuntimeError(f"no CUDA sources in {src_dir}")
@@ -66,14 +73,28 @@ def build(src_dir: Path, build_dir: Path) -> Path:
         return lib
     nvcc = find_nvcc()
     build_dir.mkdir(parents=True, exist_ok=True)
-    tmp = build_dir / f"{stem}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)],
-                          capture_output=True, text=True)
-    (build_dir / f"{stem}.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    tag = f"{stem}.{os.getpid()}"
+    objs = [build_dir / f"{tag}.{src.stem}.o" for src in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, o in zip(srcs, objs)]
+    outs = [proc.communicate()[0] for proc in procs]
+    tmp = build_dir / f"{tag}.tmp"
+    failed = [(src.name, proc.returncode, out)
+              for src, proc, out in zip(srcs, procs, outs) if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        outs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(("link", link.returncode, outs[-1]))
+    (build_dir / f"{stem}.log").write_text("".join(outs))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+        name, rc, out = failed[0]
+        raise RuntimeError(f"nvcc failed on {name} (exit {rc}):\n{out[-4000:]}")
     os.replace(tmp, lib)  # atomic: a concurrent builder sees all or nothing
     return lib
 

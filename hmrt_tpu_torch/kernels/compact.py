@@ -89,12 +89,7 @@ def march_rounds(rays, state, scene: Scene, *, cell_intersect: str, clip,
     unbudgeted). `moving` names the ray planes that differ per ray and so
     ride the sort; the others are one value broadcast. Returns the result
     planes (hit, t_hit, hx, hy) in launch order."""
-    dev = rays[0].device
-    p = rays[0].shape[0]
-    res = (torch.zeros(p, dtype=torch.int32, device=dev),
-           torch.full((p,), BIG_T, dtype=torch.float32, device=dev),
-           torch.zeros(p, dtype=torch.int32, device=dev),
-           torch.zeros(p, dtype=torch.int32, device=dev))
+    res = empty_results(rays[0].shape[0], rays[0].device)
     kw = dict(n=scene.n, m=scene.m, levels=scene.levels,
               cell_intersect=cell_intersect, clip=clip)
     if not skip_pass0 and first_budget > 0:
@@ -148,33 +143,26 @@ def shadow_start(points, normal, hit, hx, hy, scene: Scene, clip=None):
     return srays, sstate
 
 
-def render_frame_compact(scene: Scene, camera: Camera, config: RenderConfig, *,
-                         first_budget: int = FIRST_BUDGET, rounds: int = ROUNDS,
-                         round_budget: int = ROUND_BUDGET) -> Frame:
-    """Compacted-wavefront render (see the module docstring).
+def empty_results(p: int, dev):
+    """Result planes (hit, t_hit, hx, hy) of P rays that have not hit."""
+    return (torch.zeros(p, dtype=torch.int32, device=dev),
+            torch.full((p,), BIG_T, dtype=torch.float32, device=dev),
+            torch.zeros(p, dtype=torch.int32, device=dev),
+            torch.zeros(p, dtype=torch.int32, device=dev))
 
-    first_budget: steps of pass 0 in launch order (0 skips it);
-    rounds: sorted rounds, the last unbudgeted (at least 1);
-    round_budget: steps of each earlier sorted round.
-    The shadow march takes min(rounds, 2) sorted rounds and no pass 0."""
-    if rounds < 1 or first_budget < 0 or round_budget < 0:
-        raise ValueError(f"bad schedule first_budget={first_budget} "
-                         f"rounds={rounds} round_budget={round_budget}")
-    H, W = config.height, config.width
-    rays = primary_rays(camera, config)
+
+def shade_frame(scene: Scene, config: RenderConfig, rays, hit_i, t_hit, hx, hy, *,
+                shade, shadow_hits):
+    """Shade data, shadow rays and the colour maths for primary march
+    results in launch order. `shade` is `shade_pass` or its plain version;
+    `shadow_hits(srays, sstate)` marches the shadow rays to the end and
+    returns their hit plane. Returns flat (color[P,3] clipped to [0, 1],
+    depth[P], normal[P,3], hit[P] bool)."""
     dx, dy, dz = rays[3:]
-    sched = dict(cell_intersect=config.cell_intersect, clip=config.clip_box,
-                 first_budget=first_budget, round_budget=round_budget)
-
-    state0 = init_state(rays, None, scene.pyr_flat[-1], n=scene.n, m=scene.m,
-                        levels=scene.levels, clip=config.clip_box)
-    hit_i, t_hit, hx, hy = march_rounds(rays, state0, scene, rounds=rounds,
-                                        moving=(3, 4, 5), **sched)
     hit = hit_i != 0
     points, fx, fy = hit_points(rays, hit, t_hit, hx, hy)
-    nx, ny, nz, ar, ag, ab = shade_pass(
-        hit_i, hx, hy, fx, fy, scene.gx, scene.gy,
-        scene.albedo if config.texture else None)
+    nx, ny, nz, ar, ag, ab = shade(hit_i, hx, hy, fx, fy, scene.gx, scene.gy,
+                                   scene.albedo if config.texture else None)
 
     light = scene.light
     lx, ly, lz = light.sun_dir[0], light.sun_dir[1], light.sun_dir[2]
@@ -183,8 +171,7 @@ def render_frame_compact(scene: Scene, camera: Camera, config: RenderConfig, *,
     if config.shadows:
         srays, sstate = shadow_start(points, (nx, ny, nz), hit, hx, hy, scene,
                                      config.clip_box)
-        occ = march_rounds(srays, sstate, scene, rounds=min(rounds, 2),
-                           moving=(0, 1, 2), skip_pass0=True, **sched)[0] != 0
+        occ = shadow_hits(srays, sstate) != 0
         diff = torch.where(occ, 0.0, diff)
 
     sr, sg, sb = light.sun_color[0], light.sun_color[1], light.sun_color[2]
@@ -206,8 +193,42 @@ def render_frame_compact(scene: Scene, camera: Camera, config: RenderConfig, *,
     color = torch.stack([torch.where(hit, c, s) for c, s in
                          ((r, skyr), (g, skyg), (b, skyb))], dim=-1)
     normal = torch.stack([torch.where(hit, c, 0.0) for c in (nx, ny, nz)], dim=-1)
-    return Frame(color=torch.clamp(color, 0.0, 1.0).reshape(H, W, 3),
-                 depth=(torch.where(hit, t_hit, torch.inf).reshape(H, W)
-                        if config.aux_buffers else None),
+    return (torch.clamp(color, 0.0, 1.0), torch.where(hit, t_hit, torch.inf), normal,
+            hit)
+
+
+def to_frame(config: RenderConfig, color, depth, normal, hit) -> Frame:
+    """A Frame of config's (height, width) from flat or planar buffers;
+    depth and normal only with aux_buffers."""
+    H, W = config.height, config.width
+    return Frame(color=color.reshape(H, W, 3),
+                 depth=depth.reshape(H, W) if config.aux_buffers else None,
                  normal=normal.reshape(H, W, 3) if config.aux_buffers else None,
                  hit=hit.reshape(H, W))
+
+
+def render_frame_compact(scene: Scene, camera: Camera, config: RenderConfig, *,
+                         first_budget: int = FIRST_BUDGET, rounds: int = ROUNDS,
+                         round_budget: int = ROUND_BUDGET) -> Frame:
+    """Compacted-wavefront render (see the module docstring).
+
+    first_budget: steps of pass 0 in launch order (0 skips it);
+    rounds: sorted rounds, the last unbudgeted (at least 1);
+    round_budget: steps of each earlier sorted round.
+    The shadow march takes min(rounds, 2) sorted rounds and no pass 0."""
+    if rounds < 1 or first_budget < 0 or round_budget < 0:
+        raise ValueError(f"bad schedule first_budget={first_budget} "
+                         f"rounds={rounds} round_budget={round_budget}")
+    rays = primary_rays(camera, config)
+    sched = dict(cell_intersect=config.cell_intersect, clip=config.clip_box,
+                 first_budget=first_budget, round_budget=round_budget)
+
+    state0 = init_state(rays, None, scene.pyr_flat[-1], n=scene.n, m=scene.m,
+                        levels=scene.levels, clip=config.clip_box)
+    hit_i, t_hit, hx, hy = march_rounds(rays, state0, scene, rounds=rounds,
+                                        moving=(3, 4, 5), **sched)
+    return to_frame(config, *shade_frame(
+        scene, config, rays, hit_i, t_hit, hx, hy, shade=shade_pass,
+        shadow_hits=lambda srays, sstate: march_rounds(
+            srays, sstate, scene, rounds=min(rounds, 2), moving=(0, 1, 2),
+            skip_pass0=True, **sched)[0]))

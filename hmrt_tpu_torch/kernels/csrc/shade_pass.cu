@@ -5,30 +5,22 @@
 // central-difference gradients (gx, gy) at the 4 corners of the hit cell
 // (hx, hy), interpolates them bilinearly at the in-cell offsets (fx, fy)
 // and normalises (-gx, -gy, 1); a textured scene also gets the bilinear
-// RGB albedo from the planar (3, N*N) texture. Misses get the normal
-// (0, 0, 1) and albedo 0.55. The TPU kernel's brick records, DMA loop and
-// lane-shuffle gathers existed only because the TPU has no dynamic vector
-// gather; here they are plain global loads.
+// RGB albedo from the planar (3, N*N) texture (shade_common.cuh). Misses
+// get the normal (0, 0, 1) and albedo 0.55. The TPU kernel's brick
+// records, DMA loop and lane-shuffle gathers existed only because the TPU
+// has no dynamic vector gather; here they are plain global loads.
 //
 // What bounds it on the H100: it is a gather bound by bytes (8 gradient
 // and up to 12 albedo loads per hit, scattered by hit cell) with almost no
 // arithmetic. What this design does about it: nothing yet, on purpose; one
 // thread per lane in launch order. Packing the corner gradients of a cell
 // into one 16-byte load is later, measured work.
-//
-// The interpolation is written in the same expression order as the TPU
-// kernel and the torch plain version, and the normalisation uses
-// 1/sqrtf(x), not the approximate rsqrtf.
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "shade_common.cuh"
 
-__device__ __forceinline__ float bilerp(float v00, float v10, float v01, float v11, float fx,
-                                        float fy) {
-  return v00 * (1 - fx) * (1 - fy) + v10 * fx * (1 - fy) + v01 * (1 - fx) * fy +
-         v11 * fx * fy;
-}
+namespace {
 
 __global__ void shade_pass_kernel(const int* hit, const int* hx, const int* hy,
                                   const float* fx_p, const float* fy_p, const float* gx,
@@ -37,35 +29,13 @@ __global__ void shade_pass_kernel(const int* hit, const int* hx, const int* hy,
                                   float* ab_o, int p, int n) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p) return;
-  float nx = 0.0f, ny = 0.0f, nz = 1.0f;
-  float ar = 0.55f, ag = 0.55f, ab = 0.55f;
-  if (hit[i]) {
-    int cx = min(max(hx[i], 0), n - 2);
-    int cy = min(max(hy[i], 0), n - 2);
-    long long b = (long long)cy * n + cx;
-    float fx = fx_p[i], fy = fy_p[i];
-    float g_x = bilerp(gx[b], gx[b + 1], gx[b + n], gx[b + n + 1], fx, fy);
-    float g_y = bilerp(gy[b], gy[b + 1], gy[b + n], gy[b + n + 1], fx, fy);
-    float inv = 1.0f / sqrtf(g_x * g_x + g_y * g_y + 1.0f);
-    nx = -g_x * inv;
-    ny = -g_y * inv;
-    nz = inv;
-    if (albedo != nullptr) {
-      long long nn = (long long)n * n;
-      const float* r = albedo;
-      const float* g = albedo + nn;
-      const float* bl = albedo + 2 * nn;
-      ar = bilerp(r[b], r[b + 1], r[b + n], r[b + n + 1], fx, fy);
-      ag = bilerp(g[b], g[b + 1], g[b + n], g[b + n + 1], fx, fy);
-      ab = bilerp(bl[b], bl[b + 1], bl[b + n], bl[b + n + 1], fx, fy);
-    }
-  }
-  nx_o[i] = nx;
-  ny_o[i] = ny;
-  nz_o[i] = nz;
-  ar_o[i] = ar;
-  ag_o[i] = ag;
-  ab_o[i] = ab;
+  ShadeData d = shade_lane(hit[i] != 0, hx[i], hy[i], fx_p[i], fy_p[i], gx, gy, albedo, n);
+  nx_o[i] = d.nx;
+  ny_o[i] = d.ny;
+  nz_o[i] = d.nz;
+  ar_o[i] = d.ar;
+  ag_o[i] = d.ag;
+  ab_o[i] = d.ab;
 }
 
 }  // namespace

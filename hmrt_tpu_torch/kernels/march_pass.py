@@ -21,8 +21,8 @@ import torch
 from hmrt_tpu_torch.core.pyramid import flat_size
 from hmrt_tpu_torch.kernels import _build
 from hmrt_tpu_torch.traversal.intersect import INTERSECTORS, INTERSECTOR_IDS
-from hmrt_tpu_torch.traversal.march import (maxmip_step, ray_box_range,
-                                            ray_inverses, run_masked)
+from hmrt_tpu_torch.traversal.march import (WorkCounter, maxmip_step,
+                                            ray_box_range, ray_inverses, run_masked)
 
 UNBUDGETED = 1 << 22
 STATE_DTYPES = (torch.int32, torch.float32, torch.int32, torch.int32, torch.int32)
@@ -31,9 +31,11 @@ RESULT_DTYPES = (torch.int32, torch.float32, torch.int32, torch.int32)
 
 def march_pass_reference(rays, state, results, pyr_flat, heights, *, n: int,
                          m: int, levels: int, budget: int,
-                         cell_intersect: str = "triangle", clip=None):
+                         cell_intersect: str = "triangle", clip=None,
+                         counter: WorkCounter | None = None):
     """The plain torch version: the masked step loop of
-    `traversal/march.py`, at most `budget` steps."""
+    `traversal/march.py`, at most `budget` steps. `counter` records the
+    work done."""
     ox, oy, oz, dx, dy, dz = rays
     alive, t, lvl, icx, icy = state
     hit, t_hit, hx, hy = results
@@ -47,7 +49,7 @@ def march_pass_reference(rays, state, results, pyr_flat, heights, *, n: int,
               t_hit=t_hit, hx=hx, hy=hy)
     st = run_masked(lambda s: maxmip_step(ray, s, pyr_flat, heights_flat, gmax,
                                           n=n, m=m, levels=levels,
-                                          intersector=intersector),
+                                          intersector=intersector, counter=counter),
                     st, budget)
     return ((st["alive"].to(torch.int32), st["t"], st["lvl"], st["icx"], st["icy"]),
             (st["hit"].to(torch.int32), st["t_hit"], st["hx"], st["hy"]))

@@ -132,13 +132,42 @@ def corner_heights(heights_flat, n: int, cx, cy):
             heights_flat.index_select(0, base + n + 1))
 
 
+class WorkCounter:
+    """What a masked max-mip march does, counted on its device without a
+    wait: the steps taken (one per alive lane per step), the exact cell
+    tests, and which pyramid entries and height samples it reads. A
+    kernel's bound in bytes and operations is computed from these."""
+
+    def __init__(self, pyr_size: int, n: int, device):
+        self.n = n
+        self.steps = torch.zeros((), dtype=torch.int64, device=device)
+        self.tests = torch.zeros((), dtype=torch.int64, device=device)
+        self.pyr_reads = torch.zeros(pyr_size, dtype=torch.int32, device=device)
+        self.height_reads = torch.zeros(n * n, dtype=torch.int32, device=device)
+
+    def observe(self, alive, idx, test, icx, icy):
+        """One step: every alive lane reads pyramid entry `idx`; the lanes
+        in `test` also read the 4 corner heights of cell (icx, icy)."""
+        n = self.n
+        self.steps += alive.sum()
+        self.tests += test.sum()
+        self.pyr_reads.index_add_(0, idx, alive.to(torch.int32))
+        base = torch.clamp(icy, 0, n - 2) * n + torch.clamp(icx, 0, n - 2)
+        for off in (0, 1, n, n + 1):
+            self.height_reads.index_add_(0, base + off, test.to(torch.int32))
+
+    def unique_bytes(self) -> int:
+        """Bytes of the distinct f32 pyramid entries and heights read."""
+        return 4 * int((self.pyr_reads > 0).sum() + (self.height_reads > 0).sum())
+
+
 def maxmip_step(ray, st, pyr_flat, heights_flat, gmax, *, n: int, m: int,
-                levels: int, intersector):
+                levels: int, intersector, counter: WorkCounter | None = None):
     """One masked max-mip step for the alive lanes of `st`.
 
     ray = (ox, oy, oz, dx, dy, dz, inv_x, inv_y, t1); st holds t, lvl,
     icx, icy, alive (bool), hit (bool), t_hit, hx, hy. A lane that is not
-    alive is left exactly as it was."""
+    alive is left exactly as it was. `counter` records the step's work."""
     ox, oy, oz, dx, dy, dz, inv_x, inv_y, t1 = ray
     t, lvl, alive = st["t"], st["lvl"], st["alive"]
     icx, icy = st["icx"], st["icy"]
@@ -159,6 +188,8 @@ def maxmip_step(ray, st, pyr_flat, heights_flat, gmax, *, n: int, m: int,
     at_fine = lvl == 0
     descend = ~skip & ~at_fine
     test = ~skip & at_fine & alive
+    if counter is not None:
+        counter.observe(alive, idx, test, icx, icy)
 
     z00, z10, z01, z11 = corner_heights(heights_flat, n, icx, icy)
     hit_now, t_c = intersector(ox, oy, oz, dx, dy, dz, icx, icy,

@@ -9,7 +9,10 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+
+from hmrt_tpu_torch.device import resolve
 
 
 def _cross(a, b):
@@ -22,6 +25,14 @@ def _norm(v):
     """Euclidean norm over the last axis, summed x, y, z in that order."""
     return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
                       + v[..., 2] * v[..., 2])
+
+
+def recip_f32(k: int) -> float:
+    """1/k rounded once to f32. Raygen multiplies by it instead of dividing
+    by k, as XLA does with a division by a constant and as torch on CUDA
+    does with a division by a Python number, so the rays are the same bits
+    on every device and in the fused kernel."""
+    return float(np.float32(1.0) / np.float32(k))
 
 
 def _vec3(v, device):
@@ -39,7 +50,8 @@ class Camera:
 
     @staticmethod
     def create(eye, target, up=(0.0, 0.0, 1.0), fov_y_deg=60.0,
-               device="cpu") -> "Camera":
+               device=None) -> "Camera":
+        device = resolve(device)
         return Camera(
             eye=_vec3(eye, device), target=_vec3(target, device),
             up=_vec3(up, device),
@@ -74,11 +86,11 @@ class Camera:
         fh = height if full_height is None else full_height
         aspect = width / fh
         jj = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) \
-            / width * 2.0 - 1.0
+            * recip_f32(width) * 2.0 - 1.0
         rr = torch.arange(height, dtype=torch.float32, device=dev)
         if row0 is not None:
             rr = rr + row0
-        ii = 1.0 - (rr + 0.5) / fh * 2.0
+        ii = 1.0 - (rr + 0.5) * recip_f32(fh) * 2.0
         dx = jj * tan_half * aspect      # (W,)
         dy = ii * tan_half               # (H,)
         d = (f[None, None, :]
@@ -101,7 +113,8 @@ class Light:
     @staticmethod
     def create(sun_dir=(0.4, 0.3, 0.85), sun_color=(1.0, 0.96, 0.9),
                sky_top=(0.35, 0.55, 0.95), sky_horizon=(0.75, 0.85, 0.98),
-               fog_color=(0.7, 0.78, 0.88), device="cpu") -> "Light":
+               fog_color=(0.7, 0.78, 0.88), device=None) -> "Light":
+        device = resolve(device)
         d = _vec3(sun_dir, device)
         return Light(sun_dir=d / _norm(d), sun_color=_vec3(sun_color, device),
                      sky_top=_vec3(sky_top, device),

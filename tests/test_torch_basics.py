@@ -64,7 +64,7 @@ CAMERAS = [
 @pytest.mark.parametrize("cam", CAMERAS)
 def test_camera_rays_match_jax(cam):
     """Raygen within 1e-6: tan and norm may round an ulp apart."""
-    jc, tc = JaxCamera.create(**cam), T.Camera.create(**cam)
+    jc, tc = JaxCamera.create(**cam), T.Camera.create(**cam, device="cpu")
     for (h, w, row0, fh) in ((16, 24, None, None), (5, 24, 7, 16)):
         je, jd = jc.rays(h, w, row0=row0, full_height=fh)
         te, td = tc.rays(h, w, row0=row0, full_height=fh)
@@ -73,7 +73,8 @@ def test_camera_rays_match_jax(cam):
 
 
 def test_light_matches_jax():
-    jl, tl = JaxLight.create(sun_dir=(0.2, -0.5, 0.7)), T.Light.create(sun_dir=(0.2, -0.5, 0.7))
+    jl = JaxLight.create(sun_dir=(0.2, -0.5, 0.7))
+    tl = T.Light.create(sun_dir=(0.2, -0.5, 0.7), device="cpu")
     for f in dataclasses.fields(jl):
         np.testing.assert_allclose(getattr(tl, f.name).numpy(),
                                    np.asarray(getattr(jl, f.name)), rtol=0, atol=1e-7)
@@ -112,14 +113,14 @@ def test_scene_from_arrays_round_trip():
              for f in dataclasses.fields(js.light)}
     ts = scene_from_arrays(np.asarray(js.heights), np.asarray(js.pyr_flat),
                            np.asarray(js.albedo), light, n=js.n, m=js.m,
-                           levels=js.levels)
+                           levels=js.levels, device="cpu")
     np.testing.assert_array_equal(ts.heights.numpy(), np.asarray(js.heights))
     np.testing.assert_array_equal(ts.pyr_flat.numpy(), np.asarray(js.pyr_flat))
     np.testing.assert_array_equal(ts.albedo.numpy(), np.asarray(js.albedo))
     for k, v in light.items():
         np.testing.assert_array_equal(getattr(ts.light, k).numpy(), v)
     # the port's own make_scene on the same inputs reproduces the state
-    own = T.make_scene(terr, albedo=albedo)
+    own = T.make_scene(terr, albedo=albedo, device="cpu")
     assert (own.n, own.m, own.levels) == (js.n, js.m, js.levels)
     np.testing.assert_array_equal(own.pyr_flat.numpy(), np.asarray(js.pyr_flat))
     np.testing.assert_array_equal(own.albedo.numpy(), np.asarray(js.albedo))
@@ -128,7 +129,7 @@ def test_scene_from_arrays_round_trip():
 
     cam = JaxCamera.create(eye=(1.0, 2.0, 30.0), target=(40.0, 30.0, 3.0))
     tc = camera_from_arrays(np.asarray(cam.eye), np.asarray(cam.target),
-                            np.asarray(cam.up), np.asarray(cam.fov_y))
+                            np.asarray(cam.up), np.asarray(cam.fov_y), device="cpu")
     assert tc.fov_y.numpy() == np.asarray(cam.fov_y)
     np.testing.assert_allclose(tc.rays(4, 6)[1].numpy(),
                                np.asarray(cam.rays(4, 6)[1]), rtol=0, atol=1e-6)
@@ -137,7 +138,7 @@ def test_scene_from_arrays_round_trip():
 @pytest.mark.parametrize("bad", [np.zeros((3, 4), np.float32), np.zeros((1, 1), np.float32)])
 def test_make_scene_rejects_bad_heights(bad):
     with pytest.raises(ValueError):
-        T.make_scene(bad)
+        T.make_scene(bad, device="cpu")
 
 
 def test_encode_png_bytes_equal():

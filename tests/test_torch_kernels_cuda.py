@@ -5,6 +5,8 @@ interpret mode for a CUDA kernel). On a machine with a card:
     python -m pytest tests/test_torch_kernels_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,8 @@ from hmrt_tpu_torch.kernels.compact import init_state, render_frame_compact
 from hmrt_tpu_torch.core.renderer import render_frame_oracle
 from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, march_pass,
                                                march_pass_reference)
+from hmrt_tpu_torch.kernels.raycast import (fused_planes, fused_reference_planes,
+                                            render_frame_fused)
 from hmrt_tpu_torch.kernels.shade_pass import shade_pass, shade_pass_reference
 
 pytestmark = pytest.mark.cuda
@@ -128,15 +132,17 @@ CONFIGS = {
 
 @pytest.mark.parametrize("cfg", list(CONFIGS))
 @pytest.mark.parametrize("cam", list(CAMERAS))
-def test_frames_match_oracle_on_card(cuda, cam, cfg):
-    """render_frame on the card (the kernels) against the torch oracle on
-    the card: hit mask equal, colour < 5e-5, depth and normal as on the
-    CPU (tests/test_torch_render.py)."""
+@pytest.mark.parametrize("backend", ["compact", "pallas"])
+def test_frames_match_oracle_on_card(cuda, backend, cam, cfg):
+    """render_frame on the card (the kernels of either path) against the
+    torch oracle on the card: hit mask equal, colour < 5e-5, depth and
+    normal as on the CPU (tests/test_torch_render.py)."""
     terr = T.procedural_terrain(128, seed=3)
     albedo = np.random.default_rng(0).uniform(0.2, 0.9, (128, 128, 3)).astype(np.float32)
     sc = T.make_scene(terr, albedo=albedo, device=cuda)
     c = T.Camera.create(**CAMERAS[cam], device=cuda)
-    rc = T.RenderConfig(width=128, height=64, aux_buffers=True, **CONFIGS[cfg])
+    rc = T.RenderConfig(width=128, height=64, aux_buffers=True, backend=backend,
+                        **CONFIGS[cfg])
     fc = T.render_frame(sc, c, rc)
     fo = render_frame_oracle(sc, c, rc)
     assert torch.equal(fc.hit, fo.hit)
@@ -150,7 +156,7 @@ def test_launch_counters_rise_and_frame_matches_oracle(cuda):
     sc = _scene(128, cuda)
     cam = T.Camera.create(eye=(64.0, -40.0, 60.0), target=(64.0, 64.0, 5.0), device=cuda)
     cfg = T.RenderConfig(width=128, height=64, shading="phong", shadows=True,
-                         aux_buffers=True)
+                         aux_buffers=True, backend="compact")
     m0, s0 = march_pass.launches, shade_pass.launches
     fc = T.render_frame(sc, cam, cfg)
     assert march_pass.launches > m0 and shade_pass.launches > s0
@@ -160,6 +166,91 @@ def test_launch_counters_rise_and_frame_matches_oracle(cuda):
     # the schedule does not change the frame
     fs = render_frame_compact(sc, cam, cfg, first_budget=3, rounds=3, round_budget=5)
     assert torch.equal(fs.color, fc.color)
+
+
+FUSED_CASES = {
+    "lambert": dict(),
+    "phong_shadows": dict(shading="phong", shadows=True),
+    "fog": dict(fog=True, shading="phong"),
+    "texture": dict(texture=True),
+    "aux": dict(aux_buffers=True, shadows=True),
+    "odd_resolution": dict(width=100, height=37, shadows=True, aux_buffers=True),
+    "bilinear": dict(cell_intersect="bilinear", shadows=True, aux_buffers=True),
+    "clip": dict(clip_box=(8.0, 50.0), shadows=True, aux_buffers=True),
+}
+
+
+def _fused_scene(n, dev):
+    terr = T.procedural_terrain(n, seed=3)
+    albedo = np.random.default_rng(0).uniform(0.2, 0.9, (n, n, 3)).astype(np.float32)
+    sc = T.make_scene(terr, albedo=albedo, device=dev)
+    cam = T.Camera.create(eye=(n * 0.5, -n * 0.3, float(terr.max()) + n * 0.08),
+                          target=(n * 0.5, n * 0.5, float(terr.mean())), device=dev)
+    return sc, cam
+
+
+def _assert_fused_equal(got, want, aux):
+    """Kernel planes against the plain version's: hit, depth and hit cells
+    equal, colour and normals within 1e-6."""
+    color, depth, normal, hit, cell = got
+    assert torch.equal(hit.reshape(-1), want[3])
+    assert torch.equal(cell.reshape(-1, 2), want[4])
+    assert float((color.reshape(-1, 3) - want[0]).abs().max()) <= 1e-6
+    if aux:
+        assert torch.equal(depth.reshape(-1), want[1])
+        assert float((normal.reshape(-1, 3) - want[2]).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+@pytest.mark.parametrize("n", [65, 128])
+def test_fused_kernel_equals_plain(cuda, n, case):
+    sc, cam = _fused_scene(n, cuda)
+    cfg = T.RenderConfig(**dict(dict(width=128, height=64), **FUSED_CASES[case]))
+    before = render_frame_fused.launches
+    got = fused_planes(sc, cam, cfg, cells=True)
+    torch.cuda.synchronize()
+    assert render_frame_fused.launches == before + 1
+    _assert_fused_equal(got, fused_reference_planes(sc, cam, cfg), cfg.aux_buffers)
+
+
+@pytest.mark.parametrize("n", [65, 128])
+def test_fused_kernel_row_bands_equal_plain(cuda, n):
+    """4 bands of a 64-row screen, each equal to the plain version of the
+    same band and, stitched, to the kernel's whole frame."""
+    sc, cam = _fused_scene(n, cuda)
+    cfg = T.RenderConfig(width=96, height=16, shading="phong", shadows=True,
+                         aux_buffers=True)
+    whole = fused_planes(sc, cam, dataclasses.replace(cfg, height=64), cells=True)
+    bands = []
+    for k in range(4):
+        got = fused_planes(sc, cam, cfg, row0=16 * k, full_height=64, cells=True)
+        torch.cuda.synchronize()
+        _assert_fused_equal(got, fused_reference_planes(sc, cam, cfg, row0=16 * k,
+                                                        full_height=64), True)
+        bands.append(got)
+    for f in range(5):
+        assert torch.equal(torch.cat([b[f] for b in bands]), whole[f])
+
+
+@pytest.mark.parametrize("cfg", list(CONFIGS))
+def test_fused_frame_equals_compact_frame(cuda, cfg):
+    """The two kernel paths on the card: hit mask and depth equal bit for
+    bit (one march code), colour and normals within 1e-6."""
+    sc, cam = _fused_scene(128, cuda)
+    rc = T.RenderConfig(width=128, height=64, aux_buffers=True, **CONFIGS[cfg])
+    ff = T.render_frame(sc, cam, dataclasses.replace(rc, backend="pallas"))
+    fc = T.render_frame(sc, cam, dataclasses.replace(rc, backend="compact"))
+    assert torch.equal(ff.hit, fc.hit)
+    assert torch.equal(ff.depth, fc.depth)
+    assert float((ff.color - fc.color).abs().max()) <= 1e-6
+    assert float((ff.normal - fc.normal).abs().max()) <= 1e-6
+
+
+def test_auto_routes_small_maps_to_fused(cuda):
+    sc, cam = _fused_scene(128, cuda)
+    m0, f0 = march_pass.launches, render_frame_fused.launches
+    T.render_frame(sc, cam, T.RenderConfig(width=64, height=32))
+    assert render_frame_fused.launches == f0 + 1 and march_pass.launches == m0
 
 
 def test_unbuildable_library_raises(cuda, tmp_path, monkeypatch):

@@ -44,7 +44,7 @@ def scenes():
     light = {f.name: np.asarray(getattr(js.light, f.name))
              for f in dataclasses.fields(js.light)}
     ts = scene_from_arrays(np.asarray(js.heights), np.asarray(js.pyr_flat), None,
-                           light, n=js.n, m=js.m, levels=js.levels)
+                           light, n=js.n, m=js.m, levels=js.levels, device="cpu")
     return js, ts
 
 

@@ -18,6 +18,7 @@ from hmrt_tpu.io.heightmap import procedural_terrain
 from hmrt_tpu.types import Camera as JaxCamera
 from hmrt_tpu_torch.core.renderer import render_frame_oracle
 from hmrt_tpu_torch.kernels.compact import render_frame_compact
+from hmrt_tpu_torch.kernels.raycast import render_frame_fused_reference
 
 torch.set_num_threads(2)  # the suite runs several workers at once
 
@@ -78,7 +79,7 @@ CASES = ["phong", "shadows", "aux_fog", "texture", "odd_resolution", "grazing",
 def _scenes(textured):
     terr = _terrain()
     alb = _albedo() if textured else None
-    return jax_make_scene(terr, albedo=alb, pack=False), T.make_scene(terr, albedo=alb)
+    return jax_make_scene(terr, albedo=alb, pack=False), T.make_scene(terr, albedo=alb, device="cpu")
 
 
 @functools.cache
@@ -101,7 +102,8 @@ def _assert_frame(got, want):
                                rtol=0, atol=1e-4)
 
 
-RENDERERS = {"oracle": render_frame_oracle, "compact": render_frame_compact}
+RENDERERS = {"oracle": render_frame_oracle, "compact": render_frame_compact,
+             "fused": render_frame_fused_reference}
 
 
 @pytest.mark.parametrize("renderer", list(RENDERERS))
@@ -109,7 +111,7 @@ RENDERERS = {"oracle": render_frame_oracle, "compact": render_frame_compact}
 def test_frame_matches_jax_oracle(name, renderer):
     cfg, cam, textured = _case(name)
     _, ts = _scenes(textured)
-    got = RENDERERS[renderer](ts, T.Camera.create(**cam), T.RenderConfig(**cfg))
+    got = RENDERERS[renderer](ts, T.Camera.create(**cam, device="cpu"), T.RenderConfig(**cfg))
     want = _jax_frame(name)
     _assert_frame(got, want)
     frac = want["hit"].mean()
@@ -127,7 +129,7 @@ def test_compact_schedule_invariance(schedule):
     first_budget, rounds, round_budget = schedule
     cfg, cam, _ = _case("shadows")
     _, ts = _scenes(False)
-    args = (ts, T.Camera.create(**cam), T.RenderConfig(**cfg))
+    args = (ts, T.Camera.create(**cam, device="cpu"), T.RenderConfig(**cfg))
     ref = render_frame_compact(*args)
     got = render_frame_compact(*args, first_budget=first_budget, rounds=rounds,
                                round_budget=round_budget)
@@ -140,15 +142,15 @@ def test_compact_rejects_bad_schedule():
     cfg, cam, _ = _case("shadows")
     _, ts = _scenes(False)
     with pytest.raises(ValueError):
-        render_frame_compact(ts, T.Camera.create(**cam), T.RenderConfig(**cfg),
+        render_frame_compact(ts, T.Camera.create(**cam, device="cpu"), T.RenderConfig(**cfg),
                              rounds=0)
 
 
 def _golden_frame(backend, **cfg):
     h = procedural_terrain(64, seed=3)
     cam = T.Camera.create(eye=(32.0, -20.0, float(h.max()) + 12.0),
-                          target=(32.0, 32.0, float(h.mean())))
-    return T.render_frame(T.make_scene(h), cam,
+                          target=(32.0, 32.0, float(h.mean())), device="cpu")
+    return T.render_frame(T.make_scene(h, device="cpu"), cam,
                           T.RenderConfig(width=64, height=64, traversal="maxmip",
                                          backend=backend, **cfg))
 
@@ -163,13 +165,13 @@ def _assert_golden(img_u8, fname):
     assert (diff <= 1).all(), f"golden mismatch: max diff {diff.max()}, {(diff > 1).sum()} px"
 
 
-@pytest.mark.parametrize("backend", ["auto", "compact"])
+@pytest.mark.parametrize("backend", ["auto", "compact", "pallas"])
 def test_golden_b1(backend):
     fr = _golden_frame(backend, shading="lambert")
     _assert_golden(_u8(fr.color.numpy()), "b1_64.npy")
 
 
-@pytest.mark.parametrize("backend", ["auto", "compact"])
+@pytest.mark.parametrize("backend", ["auto", "compact", "pallas"])
 def test_golden_b2(backend):
     fr = _golden_frame(backend, shading="lambert", aux_buffers=True)
     depth = fr.depth.numpy()
@@ -178,7 +180,7 @@ def test_golden_b2(backend):
                    "b2_64.npy")
 
 
-@pytest.mark.parametrize("backend", ["auto", "compact"])
+@pytest.mark.parametrize("backend", ["auto", "compact", "pallas"])
 def test_golden_b3(backend):
     fr = _golden_frame(backend, shading="phong", shadows=True)
     _assert_golden(_u8(fr.color.numpy()), "b3_64.npy")
@@ -187,15 +189,31 @@ def test_golden_b3(backend):
 def test_auto_on_cpu_is_the_oracle():
     cfg, cam, _ = _case("shadows")
     _, ts = _scenes(False)
-    c = T.Camera.create(**cam)
+    c = T.Camera.create(**cam, device="cpu")
     a = T.render_frame(ts, c, T.RenderConfig(**cfg))
     b = render_frame_oracle(ts, c, T.RenderConfig(**cfg))
     np.testing.assert_array_equal(a.color.numpy(), b.color.numpy())
 
 
-def test_pallas_backend_raises():
+def test_pallas_backend_on_cpu_is_the_plain_fused_render():
+    """backend="pallas" on a CPU scene runs the fused kernel's plain
+    version (the kernel itself runs only on a CUDA scene)."""
     _, ts = _scenes(False)
     cfg, cam, _ = _case("shadows")
-    with pytest.raises(NotImplementedError, match="queue 2 item 3"):
-        T.render_frame(ts, T.Camera.create(**cam),
-                       dataclasses.replace(T.RenderConfig(**cfg), backend="pallas"))
+    c = T.Camera.create(**cam, device="cpu")
+    got = T.render_frame(ts, c, dataclasses.replace(T.RenderConfig(**cfg),
+                                                    backend="pallas"))
+    want = render_frame_fused_reference(ts, c, T.RenderConfig(**cfg))
+    for f in ("color", "depth", "normal", "hit"):
+        assert torch.equal(getattr(got, f), getattr(want, f))
+
+
+def test_pallas_backend_raises():
+    """backend="pallas" raises only where the port has no counterpart of
+    the TPU kernel: its debug counter planes."""
+    _, ts = _scenes(False)
+    cfg, cam, _ = _case("shadows")
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        T.render_frame(ts, T.Camera.create(**cam, device="cpu"),
+                       dataclasses.replace(T.RenderConfig(**cfg), backend="pallas",
+                                           debug_counters=True))

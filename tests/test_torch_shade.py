@@ -43,7 +43,7 @@ def test_shade_pass_reference_matches_jax_kernel(terrain, textured):
     albedo = (np.random.default_rng(1).uniform(0.2, 0.9, (N, N, 3)).astype(np.float32)
               if textured else None)
     js = jax_make_scene(terrain, albedo=albedo)
-    ts = make_scene(terrain, albedo=albedo)
+    ts = make_scene(terrain, albedo=albedo, device="cpu")
     lanes = _lanes(2)
     want = jax_shade_pass(js.packed.shade, js.packed.albedo if textured else None,
                           *map(jnp.asarray, lanes), m5=js.packed.m5,
@@ -57,7 +57,7 @@ def test_shade_pass_reference_matches_jax_kernel(terrain, textured):
 
 
 def test_shade_pass_cpu_uses_plain_version(terrain):
-    ts = make_scene(terrain)
+    ts = make_scene(terrain, device="cpu")
     lanes = [torch.from_numpy(a) for a in _lanes(3)]
     before = shade_pass.launches
     for a, b in zip(shade_pass(*lanes, ts.gx, ts.gy),
