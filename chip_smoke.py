@@ -10,13 +10,21 @@ drives both render paths through the normal entry points:
 
   - the compact path: B3 (a 4096^2 DEM at 1920x1080 with Phong, shadows
     and the sky early-out) under backend "auto", timed; march_pass and
-    shade_pass held against their plain versions at its shapes; B2 and B3
-    frames against the torch oracle;
+    shade_pass held against their plain versions at its shapes, march_pass
+    also on 1, 33 and 300,000 rays and at a budget that ends rays inside a
+    chunk; B2 and B3 frames against the torch oracle;
   - the fused path: B1 (256^2, 512x512, Lambert) under "auto", which takes
     the fused kernel, against the torch oracle; B3 through backend
     "pallas", timed and held against the compact frame; the fused kernel
     against its plain version on the B1 frame and on a 16-row band of B3
-    at the horizon; B2 under both backends.
+    at the horizon; B2 under both backends;
+  - the kernels' counting instances: per-ray steps and cell tests equal to
+    the plain version's counts, the full B3 frame's work and from it each
+    kernel's bound on that frame, and the warp efficiency of one thread per
+    ray without refill;
+  - where the time goes: the device time of each launch of one compact B3
+    frame, B3 compact and fused timed in turns, and profiles of a frame of
+    each path.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 results (time, plain time, launches, error and the bound of each), and last
@@ -104,6 +112,45 @@ def kernel_ms(fn, kernel: str, reps: int) -> float:
     return us / 1e3 / reps
 
 
+def launch_times(fn, names, frames: int = 3) -> list:
+    """[(kernel name, device ms), ...] of each launch, in launch order, of
+    the kernels whose names contain one of `names`, in one call of fn(): the
+    mean over `frames` calls, from torch.profiler's device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e.time_range.start, name, e.time_range.elapsed_us() / 1e3)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA
+                 for name in names if name in e.name)
+    if not evs or len(evs) % frames:
+        raise RuntimeError(f"the profiler recorded {len(evs)} launches of {names} "
+                           f"in {frames} calls")
+    k = len(evs) // frames
+    return [(evs[i][1], sum(evs[f * k + i][2] for f in range(frames)) / frames)
+            for i in range(k)]
+
+
+def warp_efficiency(steps, groups) -> float:
+    """Steps over the lane-steps that one thread per ray spends when a warp
+    lasts as long as its longest ray: sum(steps) / (32 x sum over warps of
+    the warp's longest ray). `steps` is a list of per-ray step tensors, each
+    cut into warps by `groups` (a function from it to a (warps, 32) or
+    (warps, 32, k) tensor whose k columns are marches the old kernel ran one
+    after the other)."""
+    import torch
+    total = lanes = 0
+    for st in steps:
+        total += int(st.sum(dtype=torch.int64))
+        lanes += 32 * int(groups(st).amax(dim=1).sum(dtype=torch.int64))
+    return total / lanes
+
+
 def median_ms(fn, reps: int) -> tuple[float, list]:
     """Median over `reps` single calls of fn(), each timed by CUDA events."""
     times = sorted(event_ms(fn, 1) for _ in range(reps))
@@ -154,7 +201,8 @@ def compare_march(label, rays, state, scene, budgets, counter=None):
     worst = 0.0
     alive_in = state[0] != 0
     for b in budgets:
-        sk, rk = march_pass(rays, state, res, scene.pyr_flat, scene.heights, budget=b, **kw)
+        sk, rk = march_pass(rays, state, res, scene.pyr_flat, scene.heights, scene.corners,
+                            budget=b, **kw)
         torch.cuda.synchronize()
         sr, rr = march_pass_reference(rays, state, res, scene.pyr_flat, scene.heights,
                                       budget=b, **kw,
@@ -165,7 +213,8 @@ def compare_march(label, rays, state, scene, budgets, counter=None):
                 bad = int((a[sel] != c[sel]).sum())
                 raise AssertionError(f"march_pass {label} budget {b}: plane {name} "
                                      f"differs on {bad} lanes")
-            worst = max(worst, float((a[sel].double() - c[sel].double()).abs().max()))
+            if a[sel].numel():
+                worst = max(worst, float((a[sel].double() - c[sel].double()).abs().max()))
         log(f"  march_pass {label} budget {b}: 9 planes equal; "
             f"{int(alive_in.sum())} rays alive in, {int(sk[0].sum())} alive out, "
             f"{int(rk[0].sum())} hits")
@@ -274,19 +323,40 @@ def main() -> int:
     srays_p = tuple(r.index_select(0, idx).contiguous() for r in rays)
     st0 = init_state(srays_p, None, scene.pyr_flat[-1], n=scene.n, m=scene.m,
                      levels=scene.levels)
-    budgets = (1, 7, 64, UNBUDGETED)
-    work_k1 = WorkCounter(scene.pyr_flat.shape[0], scene.n, dev)
+    # budget 37 ends rays inside the kernel's second chunk of steps
+    budgets = (1, 7, 37, 64, UNBUDGETED)
+    work_k1 = WorkCounter(scene.pyr_flat.shape[0], scene.n, dev, lanes=N_SAMPLE)
     err_primary, res0 = compare_march("primary", srays_p, st0, scene, budgets, work_k1)
     # from a mid-march state as well: the kernel's own state after 64 steps
-    mid = march_pass(srays_p, st0, res0, scene.pyr_flat, scene.heights, n=scene.n,
-                     m=scene.m, levels=scene.levels, budget=64)[0]
+    mid = march_pass(srays_p, st0, res0, scene.pyr_flat, scene.heights, scene.corners,
+                     n=scene.n, m=scene.m, levels=scene.levels, budget=64)[0]
     err_mid, _ = compare_march("primary, from step 64", srays_p, mid, scene, (7, UNBUDGETED))
+    # the persistent kernel on one ray, one warp and a lane, and on more rays
+    # than one resident wave of the card holds (132 SMs x 2,048 threads)
+    err_edge = 0.0
+    for count, bs in ((1, (37, UNBUDGETED)), (33, (37, UNBUDGETED)), (300_000, (37,))):
+        # one or 33 rays from the lower screen, where they hit, or rays all over it
+        pick_e = (3 * p // 4 + torch.arange(count, device=dev) if count < N_SAMPLE
+                  else torch.arange(count, device=dev) * (p // count))
+        e_rays = tuple(r.index_select(0, pick_e).contiguous() for r in rays)
+        e_st = init_state(e_rays, None, scene.pyr_flat[-1], n=scene.n, m=scene.m,
+                          levels=scene.levels)
+        err_edge = max(err_edge, compare_march(f"{count} rays", e_rays, e_st, scene, bs)[0])
 
-    args = (srays_p, st0, res0, scene.pyr_flat, scene.heights)
+    args = (srays_p, st0, res0, scene.pyr_flat, scene.heights, scene.corners)
     kw = dict(n=scene.n, m=scene.m, levels=scene.levels, budget=UNBUDGETED)
+    # the counting instance: each ray's steps and cell tests equal the plain
+    # version's on the sample
+    cnt = torch.empty((2, N_SAMPLE), dtype=torch.int32, device=dev)
+    march_pass(*args, **kw, counts=cnt)
+    if not (torch.equal(cnt[0], work_k1.lane_steps) and torch.equal(cnt[1], work_k1.lane_tests)):
+        raise AssertionError("march_pass counting instance: per-ray counts differ from the "
+                             "plain version's")
+    log(f"  march_pass counting instance on the sample: {int(cnt[0].sum())} steps, "
+        f"{int(cnt[1].sum())} cell tests, per ray equal to the plain WorkCounter's")
     march_ms = kernel_ms(lambda: march_pass(*args, **kw), "march_pass_kernel", 10)
     march_call_ms = event_ms(lambda: march_pass(*args, **kw), 10)
-    march_plain_ms = event_ms(lambda: march_pass_reference(*args, **kw), 1)
+    march_plain_ms = event_ms(lambda: march_pass_reference(*args[:5], **kw), 1)
     # bytes: 15 planes in, 9 out, and the distinct pyramid and height values read
     k1_bound = bound(N_SAMPLE * 4 * (15 + 9) + work_k1.unique_bytes(),
                      int(work_k1.steps) * OPS_PER_STEP + int(work_k1.tests) * OPS_PER_TEST)
@@ -333,7 +403,7 @@ def main() -> int:
     sh_state = tuple(s.index_select(0, pick).contiguous() for s in sstate)
     err_shadow, res_sh = compare_march("shadow", sh_rays, sh_state, scene, budgets)
     shadow_ms = event_ms(lambda: march_pass(sh_rays, sh_state, res_sh, scene.pyr_flat,
-                                            scene.heights, **kw), 10)
+                                            scene.heights, scene.corners, **kw), 10)
     log(f"march_pass, {sh_rays[0].shape[0]} B3 shadow rays unbudgeted: kernel "
         f"{shadow_ms:.3f} ms  [{card}]")
     torch.cuda.synchronize()
@@ -421,10 +491,27 @@ def main() -> int:
     phase("7. render_tile vs its plain version")
 
     def compare_fused(label, sc, cm, cf, row0=None, fh=None):
+        """The kernel against its plain version on one frame or band, and its
+        counting instance: the same planes, and per pixel the primary and
+        shadow marches' steps and cell tests of the plain version. Returns
+        (largest colour/normal difference, (primary, shadow) counters, the
+        plain planes)."""
         got = fused_planes(sc, cm, cf, row0, fh, cells=True)
+        cnt = torch.empty((4, cf.height, cf.width), dtype=torch.int32, device=dev)
+        counted = fused_planes(sc, cm, cf, row0, fh, cells=True, counts=cnt)
         torch.cuda.synchronize()
-        work = WorkCounter(sc.pyr_flat.shape[0], sc.n, dev)
-        want = fused_reference_planes(sc, cm, cf, row0, fh, counter=work)
+        lanes = cf.height * cf.width
+        works = [WorkCounter(sc.pyr_flat.shape[0], sc.n, dev, lanes=lanes) for _ in range(2)]
+        want = fused_reference_planes(sc, cm, cf, row0, fh, counter=works[0],
+                                      shadow_counter=works[1])
+        for a, b in zip(got, counted):
+            if not (a is None and b is None) and not torch.equal(a, b):
+                raise AssertionError(f"render_tile {label}: the counting instance's planes "
+                                     f"differ from the timed one's")
+        for k, lane in enumerate(x for w in works for x in (w.lane_steps, w.lane_tests)):
+            if not torch.equal(cnt[k].reshape(-1), lane):
+                raise AssertionError(f"render_tile {label}: counts plane {k} differs from "
+                                     f"the plain version's per-pixel counts")
         color, depth, normal, hit_k, cell = got
         for name, a, b in (("hit", hit_k.reshape(-1), want[3]),
                            ("hit cell", cell.reshape(-1, 2), want[4])) + (
@@ -438,19 +525,24 @@ def main() -> int:
         if err > 1e-6:
             raise AssertionError(f"render_tile {label}: colour or normal differs by {err}")
         hits = want[3]
+        steps = sum(int(w.steps) for w in works)
+        tests = sum(int(w.tests) for w in works)
         log(f"  render_tile {label}: hit, hit cells{', depth' if cf.aux_buffers else ''} "
             f"equal, max colour/normal diff {err:.3g} (bar 1e-6); {int(hits.sum())} hits, "
-            f"{int(work.steps)} march steps, {int(work.tests)} cell tests")
-        return err, work, want
+            f"{steps} march steps, {tests} cell tests; the counting instance's per-pixel "
+            f"counts equal the plain version's")
+        return err, works, want
 
-    def fused_bound(sc, cf, work, want):
+    def fused_bound(sc, cf, works, want):
         p_ = cf.width * cf.height
         hx_, hy_ = want[4][:, 0], want[4][:, 1]
         grads = corner_samples(want[3], hx_, hy_, sc.n) * (8 + (12 if cf.texture else 0))
         out = p_ * (16 + (16 if cf.aux_buffers else 0))
-        return bound(4 * 32 + work.unique_bytes() + grads + out,
-                     int(work.steps) * OPS_PER_STEP + int(work.tests) * OPS_PER_TEST
-                     + p_ * OPS_PER_PIXEL)
+        terrain = 4 * int((sum(w.pyr_reads for w in works) > 0).sum()
+                          + (sum(w.height_reads for w in works) > 0).sum())
+        return bound(4 * 32 + terrain + grads + out,
+                     sum(int(w.steps) * OPS_PER_STEP + int(w.tests) * OPS_PER_TEST
+                         for w in works) + p_ * OPS_PER_PIXEL)
 
     err_b1, work_b1, want_b1 = compare_fused("B1 frame, lambert", scene1, cam1, cfg1)
     scene1t = T.make_scene(terr1, albedo=bench_albedo(terr1), device=dev)
@@ -503,9 +595,90 @@ def main() -> int:
     k_all = kernel_ms(lambda: render_frame_fused(scene, cam, cfg_f), "render_tile_kernel", 3)
     log(f"B3 fused kernel alone: {k_all:.3f} ms with shadow rays, {k_ns:.3f} ms without  "
         f"[{card}]")
+    # each launch of one compact B3 frame: pass 0, the sorted rounds, the
+    # shade pass, the shadow rounds
+    per_launch = launch_times(lambda: T.render_frame(scene, cam, cfg),
+                              ("march_pass_kernel", "shade_pass_kernel"))
+    k1_frame_ms = sum(ms for name, ms in per_launch if name == "march_pass_kernel")
+    log("B3 compact frame, device ms per launch: "
+        + ", ".join(f"{name.split('_kernel')[0]} {ms:.4f}" for name, ms in per_launch)
+        + f"; march_pass {k1_frame_ms:.4f} ms over "
+        f"{sum(name == 'march_pass_kernel' for name, _ in per_launch)} launches  [{card}]")
+    # the two paths in turns on this card: compact, fused, fused, compact
+    for label, cf3 in (("compact", cfg), ("fused", cfg_f), ("fused", cfg_f), ("compact", cfg)):
+        t_ms, t_times = median_ms(lambda: T.render_frame(scene, cam, cf3), 5)
+        log(f"B3 {label} in turns: {t_ms:.3f} ms/frame (median of 5: "
+            f"{[round(t, 3) for t in t_times]})  [{card}]")
     profile_frames("B1 auto (fused)", lambda: T.render_frame(scene1, cam1, cfg1), b1_ms)
     profile_frames("B3 pallas (fused)", lambda: T.render_frame(scene, cam, cfg_f), b3f_ms)
     profile_frames("B3 auto (compact)", lambda: T.render_frame(scene, cam, cfg), b3c_ms)
+
+    # ---- 10. the work of the full B3 frame, counted on the card ----------
+    phase("10. the full B3 frame, counted by the kernels")
+    # K1: the five launches of one compact frame, by the counting instance
+    sched = dict(cell_intersect=cfg.cell_intersect, clip=None, first_budget=FIRST_BUDGET,
+                 round_budget=ROUND_BUDGET)
+    k1_counts = []
+    hit_i, t_hit, hx, hy = march_rounds(rays, st_full, scene, rounds=ROUNDS, moving=(3, 4, 5),
+                                        counts=k1_counts, **sched)
+    hit = hit_i != 0
+    n_primary = len(k1_counts)
+    points, fx, fy = hit_points(rays, hit, t_hit, hx, hy)
+    srays, sstate = shadow_start(points, shade_pass(hit_i, hx, hy, fx, fy, scene.gx,
+                                                    scene.gy, None)[:3], hit, hx, hy, scene)
+    march_rounds(srays, sstate, scene, rounds=min(ROUNDS, 2), moving=(0, 1, 2),
+                 skip_pass0=True, counts=k1_counts, **sched)
+    if not torch.equal(hit.reshape(fr.hit.shape), fr.hit):
+        raise AssertionError("the counted compact march does not give the frame's hits")
+    tot = [[int(c[k].sum(dtype=torch.int64)) for c in k1_counts] for k in (0, 1)]
+    for k, c in enumerate(k1_counts):
+        log(f"  march_pass launch {k + 1} ({'primary' if k < n_primary else 'shadow'}): "
+            f"{int((c[0] > 0).sum())} rays stepped, {tot[0][k]} steps, {tot[1][k]} cell tests")
+    k1_frame_bound = bound(len(k1_counts) * p * 4 * (15 + 9),
+                           sum(tot[0]) * OPS_PER_STEP + sum(tot[1]) * OPS_PER_TEST)
+
+    def warps_of(st):
+        return torch.nn.functional.pad(st, (0, -st.shape[0] % 32)).reshape(-1, 32)
+
+    k1_eff = warp_efficiency([c[0] for c in k1_counts], warps_of)
+    prim_steps = sum(tot[0][:n_primary])
+    entered = int((sum(c[0] for c in k1_counts[:n_primary]) > 0).sum())
+    log(f"march_pass, the full B3 frame: {sum(tot[0])} steps, {sum(tot[1])} cell tests over "
+        f"{len(k1_counts)} launches; primary rays {prim_steps / p:.1f} steps per pixel, "
+        f"{prim_steps / max(entered, 1):.1f} per ray that stepped ({entered}); bound "
+        f"{k1_frame_bound[0]:.4f} ms ({k1_frame_bound[1]}) against {k1_frame_ms:.4f} ms; "
+        f"one thread per ray, 32 lanes in launch order, would keep {100 * k1_eff:.1f}% of "
+        f"its lanes busy  [{card}]")
+
+    # K3: the B3 frame under "pallas", by the counting instance
+    c4 = torch.empty((4, cfg.height, cfg.width), dtype=torch.int32, device=dev)
+    _, _, _, hit3, cell3 = fused_planes(scene, cam, cfg_f, cells=True, counts=c4)
+    if not torch.equal(hit3, fr.hit):
+        raise AssertionError("the counted fused frame does not give the frame's hits")
+    t3 = [int(c4[k].sum(dtype=torch.int64)) for k in range(4)]
+    # the primary rays of both paths are the same bits, so they take the same steps
+    k1_prim = [sum(tot[0][:n_primary]), sum(tot[1][:n_primary])]
+    if t3[:2] != k1_prim:
+        raise AssertionError(f"fused frame's primary counts {t3[:2]} differ from the "
+                             f"compact frame's {k1_prim}")
+    grads3 = corner_samples(hit3.reshape(-1), cell3[..., 0].reshape(-1),
+                            cell3[..., 1].reshape(-1), scene.n) * 8
+    k3_frame_bound = bound(4 * 32 + p * 16 + grads3, (t3[0] + t3[2]) * OPS_PER_STEP
+                           + (t3[1] + t3[3]) * OPS_PER_TEST + p * OPS_PER_PIXEL)
+
+    def patches_of(st):  # (2, H, W) primary and shadow steps -> (warps, 32, 2)
+        h_, w_ = st.shape[1:]
+        st = torch.nn.functional.pad(st, (0, -w_ % 8, 0, -h_ % 4))
+        return (st.reshape(2, st.shape[1] // 4, 4, st.shape[2] // 8, 8)
+                .permute(1, 3, 2, 4, 0).reshape(-1, 32, 2))
+
+    k3_eff = warp_efficiency([c4[0::2]], patches_of)
+    log(f"render_tile, the full B3 frame: primary {t3[0]} steps, {t3[1]} cell tests; shadow "
+        f"{t3[2]} steps, {t3[3]} cell tests (compact: {sum(tot[0][n_primary:])}, "
+        f"{sum(tot[1][n_primary:])}); bound "
+        f"{k3_frame_bound[0]:.4f} ms ({k3_frame_bound[1]}) against {k_all:.4f} ms; one thread "
+        f"per pixel on 8x4 patches, primary then shadow march, would keep "
+        f"{100 * k3_eff:.1f}% of its lanes busy  [{card}]")
 
     phase("done")
     kernels = [
@@ -513,7 +686,7 @@ def main() -> int:
          "source": "hmrt_tpu_torch/kernels/csrc/march_pass.cu",
          "replaces": "hmrt_tpu/kernels/compact.py:80",
          "launches": launches["march_pass"],
-         "max_abs_err": max(err_primary, err_mid, err_shadow),
+         "max_abs_err": max(err_primary, err_mid, err_shadow, err_edge),
          "ms": march_ms, "plain_ms": march_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "shade_pass", "route": "cuda",

@@ -10,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hmrt_tpu_torch.core.pyramid import build_pyramid_flat, next_pow2, num_levels
+from hmrt_tpu_torch.core.pyramid import (build_pyramid_flat, corner_records, next_pow2,
+                                         num_levels)
 from hmrt_tpu_torch.device import resolve
 from hmrt_tpu_torch.types import Camera, Light, Scene
 
@@ -54,7 +55,7 @@ def make_scene(heights, albedo=None, light: Light | None = None,
     m = next_pow2(n - 1)
     ht = torch.from_numpy(np.ascontiguousarray(h)).to(device)
     gx, gy = corner_grads(ht)
-    return Scene(heights=ht, pyr_flat=build_pyramid_flat(ht),
+    return Scene(heights=ht, pyr_flat=build_pyramid_flat(ht), corners=corner_records(ht, m),
                  albedo=None if albedo is None else _planar_albedo(albedo, n, device),
                  light=light if light is not None else Light.create(device=device),
                  gx=gx, gy=gy, n=n, m=m, levels=num_levels(m))
@@ -75,6 +76,7 @@ def scene_from_arrays(heights, pyr_flat, albedo, light: dict, *, n: int,
         raise ValueError(f"heights must be ({n}, {n}), got {tuple(ht.shape)}")
     gx, gy = corner_grads(ht)
     return Scene(heights=ht, pyr_flat=_tensor(pyr_flat, device),
+                 corners=corner_records(ht, m),
                  albedo=None if albedo is None else _tensor(albedo, device),
                  light=Light(**{k: _tensor(light[k], device) for k in
                                 ("sun_dir", "sun_color", "sky_top",

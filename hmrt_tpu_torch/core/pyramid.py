@@ -54,6 +54,20 @@ def build_pyramid_flat(heights: torch.Tensor) -> torch.Tensor:
     return torch.cat([lvl.reshape(-1) for lvl in build_levels(heights)])
 
 
+def corner_records(heights: torch.Tensor, m: int) -> torch.Tensor:
+    """Per-cell corner records, (N, N) -> contiguous (m, m, 4): record
+    [cy, cx] holds (z00, z10, z01, z11) = heights[cy, cx], [cy, cx+1],
+    [cy+1, cx], [cy+1, cx+1], the order the intersectors take. Cells padded
+    beyond N-1 hold NEG_INF in all four slots, so the max of a record
+    equals pyramid level 0 bit for bit, padding included. The CUDA march
+    reads a level-0 cell's max and its exact test from one 16-byte record."""
+    c = heights.shape[0] - 1
+    rec = torch.full((m, m, 4), NEG_INF, dtype=heights.dtype, device=heights.device)
+    for k, (y, x) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+        rec[:c, :c, k] = heights[y:y + c, x:x + c]
+    return rec
+
+
 def flat_index(m: int, level, cy, cx):
     """Index into the flat pyramid; level/cy/cx may be int tensors."""
     mm = m * m

@@ -32,15 +32,16 @@ NVCC_FLAGS = ["-O3", "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signature of every kernel entry point: argument types, in order
 SIGNATURES = {
-    # 24 state/ray planes, pyr_flat, heights; p n m levels budget
-    # intersector; box_lo box_hi; stream
-    "hmrt_march_pass": [_P] * 26 + [_I] * 6 + [_F] * 2 + [_P],
+    # 24 state/ray planes, pyr_flat, corners; p m levels budget
+    # intersector; box_lo box_hi; ray counter, counts or null, stream
+    "hmrt_march_pass": [_P] * 26 + [_I] * 5 + [_F] * 2 + [_P] * 3,
     # hit hx hy fx fy gx gy albedo, 6 outputs; p n; stream
     "hmrt_shade_pass": [_P] * 14 + [_I] * 2 + [_P],
-    # params pyr heights gx gy albedo, color hit depth normal cell;
+    # params pyr corners gx gy albedo, color hit depth normal cell;
     # H W full_h n m levels intersector phong shadows fog;
-    # ambient specular shininess fog_density box_lo box_hi; stream
-    "hmrt_render_tile": [_P] * 11 + [_I] * 10 + [_F] * 6 + [_P],
+    # ambient specular shininess fog_density box_lo box_hi;
+    # pixel counter, counts or null, stream
+    "hmrt_render_tile": [_P] * 11 + [_I] * 10 + [_F] * 6 + [_P] * 3,
 }
 
 

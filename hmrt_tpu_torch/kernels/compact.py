@@ -84,17 +84,28 @@ def column_key(state, m5: int):
 
 def march_rounds(rays, state, scene: Scene, *, cell_intersect: str, clip,
                  first_budget: int, rounds: int, round_budget: int,
-                 moving: tuple, skip_pass0: bool = False):
+                 moving: tuple, skip_pass0: bool = False, counts: list | None = None):
     """Pass 0 in launch order, then `rounds` sorted rounds (the last one
     unbudgeted). `moving` names the ray planes that differ per ray and so
     ride the sort; the others are one value broadcast. Returns the result
-    planes (hit, t_hit, hx, hy) in launch order."""
-    res = empty_results(rays[0].shape[0], rays[0].device)
+    planes (hit, t_hit, hx, hy) in launch order. `counts`, a list, takes
+    each pass's (2, P) per-ray steps and cell tests, in that pass's lane
+    order (march_pass's counting instance)."""
+    p = rays[0].shape[0]
+    res = empty_results(p, rays[0].device)
     kw = dict(n=scene.n, m=scene.m, levels=scene.levels,
               cell_intersect=cell_intersect, clip=clip)
+
+    def run(rays, state, res, budget):
+        cnt = None
+        if counts is not None:
+            cnt = torch.empty((2, p), dtype=torch.int32, device=rays[0].device)
+            counts.append(cnt)
+        return march_pass(rays, state, res, scene.pyr_flat, scene.heights, scene.corners,
+                          budget=budget, counts=cnt, **kw)
+
     if not skip_pass0 and first_budget > 0:
-        state, res = march_pass(rays, state, res, scene.pyr_flat, scene.heights,
-                                budget=first_budget, **kw)
+        state, res = run(rays, state, res, first_budget)
     m5 = max(scene.m // 32, 1)
     perm_tot = None
     for r in range(rounds):
@@ -104,9 +115,8 @@ def march_rounds(rays, state, scene: Scene, *, cell_intersect: str, clip,
         state = tuple(x.index_select(0, perm) for x in state)
         res = tuple(x.index_select(0, perm) for x in res)
         perm_tot = perm if perm_tot is None else perm_tot.index_select(0, perm)
-        state, res = march_pass(rays, state, res, scene.pyr_flat, scene.heights,
-                                budget=UNBUDGETED if r == rounds - 1 else round_budget,
-                                **kw)
+        state, res = run(rays, state, res,
+                         UNBUDGETED if r == rounds - 1 else round_budget)
     # back to launch order: lane k of the sorted planes is launch lane perm_tot[k]
     return tuple(torch.empty_like(x).index_copy_(0, perm_tot, x) for x in res)
 

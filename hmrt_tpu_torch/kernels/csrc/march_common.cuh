@@ -1,5 +1,6 @@
 // The per-ray max-mip march, shared by the march pass (march_pass.cu) and
-// the fused tile kernel (render_tile.cu).
+// the fused tile kernel (render_tile.cu), and the warp-level work queue both
+// of them run on.
 //
 // One thread marches one ray: `march_steps` takes up to `budget` steps of
 // the max-mip march (the body of hmrt_tpu/traversal/march.py::march_maxmip
@@ -9,6 +10,30 @@
 // -prec-div=true and -prec-sqrt=true keep the bits, because a contracted
 // multiply-add or an approximate division moves a grazing hit by an ulp and
 // flips it.
+//
+// What the march reads. A level-0 cell is one 16-byte corner record
+// (Scene.corners, core/pyramid.py corner_records): its four corner heights
+// in the intersectors' order, NEG_INF on padded cells. The step takes the
+// cell's max from it (the max of the four, which is pyramid level 0 bit for
+// bit) and the exact test from the same registers: one load per level-0
+// step instead of two dependent ones (the cell's max, then its heights).
+// Levels >= 1 read the flat pyramid.
+//
+// Prefetched level-0 runs. While a ray stays at level 0, the cells it
+// visits next follow from its geometry alone (the level-0 DDA: no loaded
+// value enters them), and a level-0 step that does not end the ray either
+// ascends or moves to exactly that next cell. So the march keeps the
+// records of the next RING cells in registers and issues each load RING
+// steps before the step that tests it. RING = 2 was measured on the H100
+// (PERF.md, kernel_times.py): deeper rings cost registers, and so warps,
+// and were no faster (3 and 4 even, 5 to 8 slower). The step loop is
+// unrolled RING times so that every ring slot is a fixed register: a
+// rotating index would put
+// the ring in local memory, and shifting the ring down would wait on each
+// pending load. The cells are still tested one at a time, in order, by the
+// same step; the ring changes when a load is issued, never what is
+// computed. A hit, an ascent or the end of the ray drops the ring, and the
+// loads still in flight are wasted.
 //
 // Everything here is `static`: each .cu file is its own translation unit
 // (no -rdc) and gets its own inlined copy.
@@ -28,6 +53,9 @@ static constexpr float ONE_PLUS_EPS = (float)(1.0 + 1.0e-6);
 static constexpr float ONE_MINUS_EPS = (float)(1.0 - 1.0e-6);
 // the step budget that resolves every ray (march_pass.py UNBUDGETED)
 static constexpr int UNBUDGETED = 1 << 22;
+// level-0 records kept in flight per ray (see above; measured)
+static constexpr int RING = 2;
+static constexpr unsigned FULL_WARP = 0xffffffffu;
 
 enum Intersector { TRIANGLE = 0, BILINEAR = 1, FLAT = 2 };
 
@@ -38,22 +66,33 @@ struct MarchRay {
   float t1;            // exit t of the terrain box (or the clip window)
 };
 
-// Per-ray march state and hit results (the planes of march_pass.py).
+// Per-ray march state (the state planes of march_pass.py).
 struct MarchState {
   int alive;
   float t;
   int lvl, icx, icy;
+};
+
+// A hit (the result planes of march_pass.py), set by the step that finds
+// it. A hit ends the ray, so callers keep one per chunk of steps.
+struct MarchHit {
   int hit;
   float t_hit;
   int hx, hy;
 };
 
-// What the march reads: the flat level-major max pyramid and the heights.
+// What the march reads: the flat level-major max pyramid (levels >= 1) and
+// the (m, m) level-0 corner records.
 struct Terrain {
-  const float* pyr;
-  const float* heights;
-  int n, m, levels, kind;
-  float gmax;  // the pyramid top
+  const float* __restrict__ pyr;
+  const float4* __restrict__ corners;
+  int m, levels, kind;
+};
+
+// What a counting instance records per ray: steps taken and exact cell
+// tests (the per-lane form of traversal/march.py WorkCounter).
+struct Work {
+  int steps, tests;
 };
 
 static __device__ __forceinline__ float safe(float x) { return fabsf(x) < TINY ? TINY : x; }
@@ -161,94 +200,154 @@ static __device__ __forceinline__ int ascent_levels(int b) {
   return ((b & 1) == 0) + ((b & 3) == 0) + ((b & 7) == 0);
 }
 
+// step_geometry: the exit t of cell (icx, icy) of side `side_f`, the
+// neighbour cell across that exit and the crossed boundary index. The
+// level-0 prefetch calls it with side 1, the value (float)(1 << 0) the step
+// passes at level 0, so both find the same next cell.
+struct CellExit {
+  float t;
+  int nx, ny, bnd;
+};
+
+static __device__ __forceinline__ CellExit cell_exit(const MarchRay& r, int icx, int icy,
+                                                     float side_f) {
+  bool pos_x = r.dx > 0.0f, pos_y = r.dy > 0.0f;
+  int bx = icx + (pos_x ? 1 : 0);
+  int by = icy + (pos_y ? 1 : 0);
+  float tx = ((float)bx * side_f - r.ox) * r.inv_x;
+  float ty = ((float)by * side_f - r.oy) * r.inv_y;
+  if (fabsf(r.dx) < TINY) tx = BIG_T;
+  if (fabsf(r.dy) < TINY) ty = BIG_T;
+  bool axis_x = tx <= ty;
+  CellExit e;
+  e.t = fminf(tx, ty);
+  e.nx = axis_x ? icx + (pos_x ? 1 : -1) : icx;
+  e.ny = axis_x ? icy : icy + (pos_y ? 1 : -1);
+  e.bnd = axis_x ? bx : by;
+  return e;
+}
+
+// The corner record of level-0 cell (cx, cy), clamped into the grid as the
+// pyramid read is, through the read-only path.
+static __device__ __forceinline__ float4 cell_record(const Terrain& g, int cx, int cy) {
+  cx = min(max(cx, 0), g.m - 1);
+  cy = min(max(cy, 0), g.m - 1);
+  return __ldg(g.corners + ((long long)cy * g.m + cx));
+}
+
 // Up to `budget` max-mip steps of one ray; a ray that is not alive is left
-// as it is. Each step reads one pyramid cell, and at level 0 the 4 corner
-// heights of the cell when the max does not let the ray skip it.
-static __device__ __forceinline__ void march_steps(const MarchRay& r, MarchState& s,
-                                                   int budget, const Terrain& g) {
+// as it is. A hit ends the ray and sets `h`. `gmax` is the pyramid top.
+// Returns the steps taken. COUNT instances add them, and the exact cell
+// tests, to `w`.
+template <bool COUNT>
+static __device__ __forceinline__ int march_steps(const MarchRay& r, MarchState& s, MarchHit& h,
+                                                  int budget, const Terrain& g, float gmax,
+                                                  Work& w) {
   const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
-  const float inv_x = r.inv_x, inv_y = r.inv_y, t1 = r.t1;
-  const int n = g.n, m = g.m, levels = g.levels;
+  const float t1 = r.t1;
+  const int m = g.m, levels = g.levels;
   const long long mm = (long long)m * m;
   int alive = s.alive;
   float t = s.t;
   int lvl = s.lvl, icx = s.icx, icy = s.icy;
 
-  for (int st = 0; st < budget && alive; ++st) {
-    // step_geometry
-    float side_f = (float)(1 << lvl);
-    bool pos_x = dx > 0.0f, pos_y = dy > 0.0f;
-    int bx = icx + (pos_x ? 1 : 0);
-    int by = icy + (pos_y ? 1 : 0);
-    float tx = ((float)bx * side_f - ox) * inv_x;
-    float ty = ((float)by * side_f - oy) * inv_y;
-    if (fabsf(dx) < TINY) tx = BIG_T;
-    if (fabsf(dy) < TINY) ty = BIG_T;
-    bool axis_x = tx <= ty;
-    float t_exit = fminf(tx, ty);
-    int nx = axis_x ? icx + (pos_x ? 1 : -1) : icx;
-    int ny = axis_x ? icy : icy + (pos_y ? 1 : -1);
-    int bnd = axis_x ? bx : by;
+  float4 q[RING];      // records of the current level-0 cell and the next ones
+  int qx = 0, qy = 0;  // the cell of the last record issued
+  bool ring = false;   // q is live: this step's cell is at level 0 and its record is in q
+  int st = 0;
+  while (st < budget && alive) {
+    // slot j of the ring is the record of the cell of the step j (mod RING)
+    // steps into the run; each slot is issued RING steps before it is read
+#pragma unroll
+    for (int j = 0; j < RING; ++j) {
+      if (st >= budget || !alive) break;
+      const CellExit e = cell_exit(r, icx, icy, (float)(1 << lvl));
+      float t_exit_c = fminf(e.t, t1);
+      float zmin = oz + fminf(t * dz, t_exit_c * dz);
 
-    float t_exit_c = fminf(t_exit, t1);
-    float zmin = oz + fminf(t * dz, t_exit_c * dz);
+      const bool at_fine = lvl == 0;
+      float cmax;
+      float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (at_fine) {
+        if (!ring) {  // entering a level-0 run: issue this cell and the next RING-1
+          qx = icx;
+          qy = icy;
+          q[j] = cell_record(g, qx, qy);
+#pragma unroll
+          for (int k = 1; k < RING; ++k) {
+            const CellExit f = cell_exit(r, qx, qy, 1.0f);
+            qx = f.nx;
+            qy = f.ny;
+            q[(j + k) % RING] = cell_record(g, qx, qy);
+          }
+          ring = true;
+        }
+        c = q[j];
+        cmax = fmaxf(fmaxf(c.x, c.y), fmaxf(c.z, c.w));
+      } else {
+        int side = m >> lvl;
+        int cyc = min(max(icy, 0), side - 1);
+        int cxc = min(max(icx, 0), side - 1);
+        long long off = ((mm - (mm >> (2 * lvl))) * 4) / 3;
+        cmax = __ldg(g.pyr + off + (long long)cyc * side + cxc);
+      }
 
-    int side = m >> lvl;
-    int cyc = min(max(icy, 0), side - 1);
-    int cxc = min(max(icx, 0), side - 1);
-    long long off = ((mm - (mm >> (2 * lvl))) * 4) / 3;
-    float cmax = g.pyr[off + (long long)cyc * side + cxc];
+      bool skip = zmin > cmax;
+      bool descend = !skip && !at_fine;
+      bool hit_now = false;
+      float t_c = BIG_T;
+      if (!skip && at_fine) {
+        if (COUNT) ++w.tests;
+        float t_lo = t - T_TOL, t_hi = t_exit_c + T_TOL;
+        if (g.kind == TRIANGLE)
+          intersect_triangles(ox, oy, oz, dx, dy, dz, icx, icy, c.x, c.y, c.z, c.w, t_lo, t_hi,
+                              hit_now, t_c);
+        else if (g.kind == BILINEAR)
+          intersect_bilinear(ox, oy, oz, dx, dy, dz, icx, icy, c.x, c.y, c.z, c.w, t_lo, t_hi,
+                             hit_now, t_c);
+        else
+          intersect_flat(ox, oy, oz, dx, dy, dz, c.x, c.y, c.z, c.w, t_lo, t_hi, hit_now, t_c);
+      }
 
-    bool skip = zmin > cmax;
-    bool at_fine = lvl == 0;
-    bool descend = !skip && !at_fine;
-    bool hit_now = false;
-    float t_c = BIG_T;
-    if (!skip && at_fine) {
-      int cx = min(max(icx, 0), n - 2);
-      int cy = min(max(icy, 0), n - 2);
-      long long base = (long long)cy * n + cx;
-      float z00 = g.heights[base], z10 = g.heights[base + 1];
-      float z01 = g.heights[base + n], z11 = g.heights[base + n + 1];
-      float t_lo = t - T_TOL, t_hi = t_exit_c + T_TOL;
-      if (g.kind == TRIANGLE)
-        intersect_triangles(ox, oy, oz, dx, dy, dz, icx, icy, z00, z10, z01, z11, t_lo, t_hi,
-                            hit_now, t_c);
-      else if (g.kind == BILINEAR)
-        intersect_bilinear(ox, oy, oz, dx, dy, dz, icx, icy, z00, z10, z01, z11, t_lo, t_hi,
-                           hit_now, t_c);
-      else
-        intersect_flat(ox, oy, oz, dx, dy, dz, z00, z10, z01, z11, t_lo, t_hi, hit_now, t_c);
-    }
-
-    if (hit_now) {
-      alive = 0;
-      s.hit = 1;
-      s.t_hit = t_c;
-      s.hx = icx;
-      s.hy = icy;
-    } else if (descend) {
-      // descend_cell: the child containing the position at t
-      float s_child = (float)(1 << (lvl - 1));
-      float px = ox + t * dx;
-      float py = oy + t * dy;
-      int cx2 = 2 * icx, cy2 = 2 * icy;
-      icx = cx2 + (px >= (float)(cx2 + 1) * s_child ? 1 : 0);
-      icy = cy2 + (py >= (float)(cy2 + 1) * s_child ? 1 : 0);
-      lvl = lvl - 1;
-    } else {
-      // advance, ascending on a skip by the crossed boundary's alignment
-      int asc = skip ? ascent_levels(bnd) : 0;
-      asc = min(asc, (levels - 1) - lvl);
-      lvl = lvl + asc;
-      icx = nx >> asc;  // arithmetic shift: nx may be -1
-      icy = ny >> asc;
-      t = fmaxf(t, t_exit_c);
-      int new_side = m >> lvl;
-      bool escaped = (oz + t * dz > g.gmax) && (dz > 0.0f);
-      bool out = (t_exit >= t1 - EPS_EXIT) || icx < 0 || icx >= new_side || icy < 0 ||
-                 icy >= new_side || escaped;
-      if (out) alive = 0;
+      if (hit_now) {
+        alive = 0;
+        h = MarchHit{1, t_c, icx, icy};
+      } else if (descend) {
+        // descend_cell: the child containing the position at t
+        float s_child = (float)(1 << (lvl - 1));
+        float px = ox + t * dx;
+        float py = oy + t * dy;
+        int cx2 = 2 * icx, cy2 = 2 * icy;
+        icx = cx2 + (px >= (float)(cx2 + 1) * s_child ? 1 : 0);
+        icy = cy2 + (py >= (float)(cy2 + 1) * s_child ? 1 : 0);
+        lvl = lvl - 1;
+      } else {
+        // advance, ascending on a skip by the crossed boundary's alignment
+        int asc = skip ? ascent_levels(e.bnd) : 0;
+        asc = min(asc, (levels - 1) - lvl);
+        lvl = lvl + asc;
+        icx = e.nx >> asc;  // arithmetic shift: nx may be -1
+        icy = e.ny >> asc;
+        t = fmaxf(t, t_exit_c);
+        int new_side = m >> lvl;
+        bool escaped = (oz + t * dz > gmax) && (dz > 0.0f);
+        bool out = (e.t >= t1 - EPS_EXIT) || icx < 0 || icx >= new_side || icy < 0 ||
+                   icy >= new_side || escaped;
+        if (out) {
+          alive = 0;
+        } else if (lvl == 0) {
+          // still in the run: the next cell's record is in slot j + 1;
+          // slot j takes the cell RING steps ahead
+          const CellExit f = cell_exit(r, qx, qy, 1.0f);
+          qx = f.nx;
+          qy = f.ny;
+          q[j] = cell_record(g, qx, qy);
+        } else {
+          ring = false;
+        }
+      }
+      if (COUNT) ++w.steps;
+      ++st;
     }
   }
   s.alive = alive;
@@ -256,4 +355,44 @@ static __device__ __forceinline__ void march_steps(const MarchRay& r, MarchState
   s.lvl = lvl;
   s.icx = icx;
   s.icy = icy;
+  return st;
+}
+
+// ---- the warp-level work queue of the persistent kernels ----------------
+//
+// Each warp loops: its idle lanes claim the next items of a stream of
+// `total` work items from a device counter (one atomicAdd by the first idle
+// lane for all of them; each takes base + its rank among the idle lanes),
+// every lane holding an item marches it a chunk of steps, and a lane whose
+// item is finished writes it back and goes idle. A warp claims only when at
+// least `min_idle` lanes are idle, and once the counter has passed `total`
+// (`more` false, warp-uniform) it claims no more. Every lane of the warp
+// must call it together. Claims are consecutive runs of the stream, so a
+// warp's items are neighbours (sorted rays, or the pixels of a patch).
+static __device__ __forceinline__ int claim_item(int* next, int total, bool idle, int min_idle,
+                                                 bool& more) {
+  const unsigned mask = __ballot_sync(FULL_WARP, idle);
+  const int n_idle = __popc(mask);
+  if (!more || n_idle < min_idle) return -1;
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(mask) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(next, n_idle);
+  base = __shfl_sync(FULL_WARP, base, leader);
+  more = base + n_idle < total;
+  const int k = base + __popc(mask & ((1u << lane) - 1u));
+  return idle && k < total ? k : -1;
+}
+
+// Blocks of a persistent launch: as many as fit on the card at once (one
+// resident wave), and no more than the items need.
+template <typename Kernel>
+static int persistent_blocks(Kernel kernel, int threads, long long items) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  long long want = (items + threads - 1) / threads;
+  long long wave = (long long)(per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+  return (int)(want < wave ? want : wave);
 }

@@ -1,4 +1,4 @@
-// The fused render: one thread per pixel does the whole frame's work.
+// The fused render: every pixel's whole work in one kernel.
 //
 // Replaces the TPU kernel hmrt_tpu/kernels/raycast.py::_render_kernel
 // (launched by raycast.py::_render_pallas_jit). Per pixel: the primary ray
@@ -15,18 +15,36 @@
 // not carried over. The coarse VMEM buffer, the column-cascade demand loop
 // with its DMA and semaphores, n_col, the ascent cap and the tile height
 // existed because the TPU has no gather; they only decide which rays step
-// when, so they cannot change a hit. Here the pyramid, the heights and the
-// gradient planes are read with plain global loads (march_common.cuh,
-// shade_common.cuh: the same code as the march and shade passes).
+// when, so they cannot change a hit. Here the pyramid, the level-0 corner
+// records and the gradient planes are read with plain loads
+// (march_common.cuh, shade_common.cuh: the same code as the march and shade
+// passes).
 //
-// What bounds it on the H100: like the march pass, dependent global loads
-// and divergence, not bytes or operations. Each thread walks a chain of
-// dependent loads (cell max -> skip test -> next cell) for its primary ray
-// and again for its shadow ray, and a warp lasts as long as its longest
-// ray; there is no sort between passes to regroup the long rays. What this
-// first design does about it: only coherent warps. A block of 256 threads
-// covers a 32 x 8 pixel tile and each warp an 8 x 4 patch, so the rays of
-// a warp start close together and march through nearby terrain.
+// What bounds it on the H100: like the march pass, the steps themselves,
+// not bytes, and the warps the registers leave room for; an 8 x 4 patch
+// keeps 98% of its lanes busy even with the primary and the shadow march
+// run one after the other (PERF.md). What this design does:
+//   - the level-0 corner records, prefetched along the ray (march_common.cuh);
+//   - persistent warps over a patch-major pixel stream: the pixels are
+//     numbered by 8 x 4 patches in row-major order of patches, the 32 pixels
+//     of a patch consecutive. One resident wave of warps claims runs of that
+//     stream from a device counter as the march pass claims rays: a fresh
+//     warp takes a whole patch, so its rays start together and march
+//     through nearby terrain (a partial refill would take the next pixels,
+//     in the neighbouring patch);
+//   - primary and shadow rays in one step loop: each lane is idle, on its
+//     primary ray or on its shadow ray, and all lanes holding a ray march
+//     the same CHUNK of steps, so a lane on its shadow ray does not wait for
+//     a neighbour's primary ray or the other way round. A finished primary
+//     ray computes its shade data and either turns into its shadow ray or
+//     writes its pixel; a finished shadow ray writes its pixel; the lane is
+//     then refilled;
+//   - few registers: the pixel's primary result waits in shared memory
+//     during its shadow march, and the direction and shade data are
+//     computed again when the pixel is written.
+// The constants are those of the march pass, measured on the B3 frame
+// (kernel_times.py, PERF.md): refilling before the whole warp is idle was
+// slower here too.
 //
 // Exactness: the ray directions equal Camera.rays bit for bit (the same
 // expressions in the same order; 1/W and 1/full_h are the f32 reciprocals
@@ -47,14 +65,21 @@ constexpr int P_EYE = 0, P_RIGHT = 3, P_UP = 6, P_FWD = 9, P_TANHALF = 12, P_ASP
               P_GMAX = 29, P_ROW0 = 30;
 constexpr float SHADOW_EPS = 1e-2f;  // core/renderer.py SHADOW_EPS
 
-// a block of 256 threads covers a 32 x 8 pixel tile: its 8 warps are laid
-// out 4 across and 2 down, each on an 8 x 4 patch
-constexpr int TILE_X = 32, TILE_Y = 8, THREADS = TILE_X * TILE_Y;
+constexpr int THREADS = 64;
+// a patch: 8 x 4 pixels, one warp's worth
+constexpr int PATCH_X = 8, PATCH_Y = 4;
+// steps a lane marches between two looks at the queue
+constexpr int CHUNK = 256;
+// idle lanes of a warp that make it claim new pixels
+constexpr int REFILL_MIN = 32;
+// blocks an SM must hold at once: caps the registers a thread may use
+// (1: no cap; a cap that buys more warps made ptxas spill)
+constexpr int MIN_BLOCKS = 1;
+
+enum Phase { IDLE = 0, PRIMARY = 1, SHADOW = 2 };
 
 struct TileArgs {
   const float* params;
-  const float* pyr;
-  const float* heights;
   const float* gx;
   const float* gy;
   const float* albedo;  // planar (3, N*N), or null: untextured
@@ -63,19 +88,29 @@ struct TileArgs {
   float* depth;         // (H, W) or null
   float* normal;        // (H, W, 3) or null
   int* cell;            // (H, W, 2) hit cell (hx, hy), or null
-  int H, W, full_h, n, m, levels, kind;
+  int* counts;          // (4, H, W) primary steps, tests, shadow steps, tests (COUNT only)
+  int H, W, full_h, n;
   int phong, shadows, fog;
   float ambient, specular, shininess, fog_density, box_lo, box_hi;
 };
 
-__global__ void __launch_bounds__(THREADS) render_tile_kernel(TileArgs a) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int j = blockIdx.x * TILE_X + (warp & 3) * 8 + (lane & 7);
-  const int i = blockIdx.y * TILE_Y + (warp >> 2) * 4 + (lane >> 3);
-  if (i >= a.H || j >= a.W) return;
-  const float* P = a.params;
+// What a lane keeps of its pixel across the shadow march: the primary
+// result, in shared memory (it is touched only when the lane changes phase).
+// The primary direction and the shade data are computed again from it when
+// the pixel is written (the same expressions, so the same bits). Both keep
+// registers free for the march, and so more warps on each SM.
+struct Pixel {
+  int idx;      // i * W + j
+  float t_hit;  // the primary result
+  int hit, hx, hy;
+};
 
-  // ---- raygen: Camera.rays' expressions (types.py) ----
+struct Dir {
+  float x, y, z;
+};
+
+// raygen: Camera.rays' expressions (types.py) for pixel (i, j)
+__device__ __forceinline__ Dir pixel_dir(const TileArgs& a, const float* P, int i, int j) {
   const float inv_w = 1.0f / (float)a.W;
   const float inv_fh = 1.0f / (float)a.full_h;
   float ndc_x = ((float)j + 0.5f) * inv_w * 2.0f - 1.0f;
@@ -86,53 +121,41 @@ __global__ void __launch_bounds__(THREADS) render_tile_kernel(TileArgs a) {
   float dy = P[P_FWD + 1] + sx * P[P_RIGHT + 1] + sy * P[P_UP + 1];
   float dz = P[P_FWD + 2] + sx * P[P_RIGHT + 2] + sy * P[P_UP + 2];
   float nrm = sqrtf(dx * dx + dy * dy + dz * dz);
-  dx = dx / nrm;
-  dy = dy / nrm;
-  dz = dz / nrm;
-  const float ox = P[P_EYE + 0], oy = P[P_EYE + 1], oz = P[P_EYE + 2];
-  const float gmax = P[P_GMAX];
-  const Terrain g{a.pyr, a.heights, a.n, a.m, a.levels, a.kind, gmax};
+  return Dir{dx / nrm, dy / nrm, dz / nrm};
+}
 
-  // ---- primary march from the pyramid top, with the sky early-out ----
-  MarchRay r{ox, oy, oz, dx, dy, dz, 1.0f / safe(dx), 1.0f / safe(dy), 0.0f};
-  float t0;
-  ray_box(ox, oy, r.inv_x, r.inv_y, a.box_lo, a.box_hi, t0, r.t1);
-  bool valid = (r.t1 > t0) && !((oz + t0 * dz > gmax) && (dz >= 0.0f));
-  // the top level has one cell: the entry cell is (0, 0)
-  MarchState s{valid ? 1 : 0, valid ? t0 : BIG_T, a.levels - 1, 0, 0, 0, BIG_T, 0, 0};
-  march_steps(r, s, UNBUDGETED, g);
-  const bool hit = s.hit != 0;
+// The primary hit point (the eye on a miss) and the normal and albedo there.
+struct HitShade {
+  float px, py, pz;
+  ShadeData d;
+};
 
-  // ---- shade data at the hit point ----
-  float ts = hit ? s.t_hit : 0.0f;
-  float px = ox + ts * dx;
-  float py = oy + ts * dy;
-  float pz = oz + ts * dz;
-  float fx = fminf(fmaxf(px - (float)s.hx, 0.0f), 1.0f);
-  float fy = fminf(fmaxf(py - (float)s.hy, 0.0f), 1.0f);
-  ShadeData d = shade_lane(hit, s.hx, s.hy, fx, fy, a.gx, a.gy, a.albedo, a.n);
+__device__ __forceinline__ HitShade shade_hit(const TileArgs& a, const float* P, const Dir& dir,
+                                              const Pixel& px) {
+  const bool hit = px.hit != 0;
+  float ts = hit ? px.t_hit : 0.0f;
+  HitShade h;
+  h.px = P[P_EYE + 0] + ts * dir.x;
+  h.py = P[P_EYE + 1] + ts * dir.y;
+  h.pz = P[P_EYE + 2] + ts * dir.z;
+  float fx = fminf(fmaxf(h.px - (float)px.hx, 0.0f), 1.0f);
+  float fy = fminf(fmaxf(h.py - (float)px.hy, 0.0f), 1.0f);
+  h.d = shade_lane(hit, px.hx, px.hy, fx, fy, a.gx, a.gy, a.albedo, a.n);
+  return h;
+}
 
+// Colour of a pixel whose marches are done, and its outputs.
+__device__ __forceinline__ void write_pixel(const TileArgs& a, const float* P, const Pixel& px,
+                                            bool occ) {
+  const int i = px.idx / a.W;
+  const Dir dir = pixel_dir(a, P, i, px.idx - i * a.W);
+  const ShadeData d = shade_hit(a, P, dir, px).d;
+  const bool hit = px.hit != 0;
+  const float ts = hit ? px.t_hit : 0.0f;
   const float lx = P[P_SUN + 0], ly = P[P_SUN + 1], lz = P[P_SUN + 2];
   float diff = fmaxf(d.nx * lx + d.ny * ly + d.nz * lz, 0.0f);
+  if (occ) diff = 0.0f;
 
-  // ---- shadow ray from just above the hit, at level 0 in the hit cell ----
-  bool occ = false;
-  if (a.shadows && hit) {
-    float sxo = px + lx * SHADOW_EPS + d.nx * SHADOW_EPS;
-    float syo = py + ly * SHADOW_EPS + d.ny * SHADOW_EPS;
-    float szo = pz + lz * SHADOW_EPS + d.nz * SHADOW_EPS;
-    MarchRay sr{sxo, syo, szo, lx, ly, lz, 1.0f / safe(lx), 1.0f / safe(ly), 0.0f};
-    float st0;
-    ray_box(sxo, syo, sr.inv_x, sr.inv_y, a.box_lo, a.box_hi, st0, sr.t1);
-    bool sv = (sr.t1 > st0) && !((szo + st0 * lz > gmax) && (lz >= 0.0f));
-    MarchState ss{sv ? 1 : 0, sv ? st0 : BIG_T, 0, min(max(s.hx, 0), a.m - 1),
-                  min(max(s.hy, 0), a.m - 1), 0, BIG_T, 0, 0};
-    march_steps(sr, ss, UNBUDGETED, g);
-    occ = ss.hit != 0;
-    if (occ) diff = 0.0f;
-  }
-
-  // ---- colour ----
   const float sr_ = P[P_SUNCOL + 0], sg_ = P[P_SUNCOL + 1], sb_ = P[P_SUNCOL + 2];
   float cr = d.ar * (a.ambient + diff * sr_);
   float cg = d.ag * (a.ambient + diff * sg_);
@@ -143,7 +166,7 @@ __global__ void __launch_bounds__(THREADS) render_tile_kernel(TileArgs a) {
     float rx = 2.0f * ndl * d.nx - lx;
     float ry = 2.0f * ndl * d.ny - ly;
     float rz = 2.0f * ndl * d.nz - lz;
-    float rdv = fmaxf(rx * -dx + ry * -dy + rz * -dz, 0.0f);
+    float rdv = fmaxf(rx * -dir.x + ry * -dir.y + rz * -dir.z, 0.0f);
     float spec = ndl > 0.0f ? powf(rdv, a.shininess) : 0.0f;
     if (occ) spec = 0.0f;
     cr = cr + a.specular * spec * sr_;
@@ -157,44 +180,154 @@ __global__ void __launch_bounds__(THREADS) render_tile_kernel(TileArgs a) {
     cb = cb * f + P[P_FOGCOL + 2] * (1 - f);
   }
   if (!hit) {
-    float u = sqrtf(fminf(fmaxf(dz, 0.0f), 1.0f));
+    float u = sqrtf(fminf(fmaxf(dir.z, 0.0f), 1.0f));
     cr = P[P_SKYHOR + 0] * (1.0f - u) + P[P_SKYTOP + 0] * u;
     cg = P[P_SKYHOR + 1] * (1.0f - u) + P[P_SKYTOP + 1] * u;
     cb = P[P_SKYHOR + 2] * (1.0f - u) + P[P_SKYTOP + 2] * u;
   }
 
-  const long long px_i = (long long)i * a.W + j;
+  const long long px_i = px.idx;
   a.color[px_i * 3 + 0] = fminf(fmaxf(cr, 0.0f), 1.0f);
   a.color[px_i * 3 + 1] = fminf(fmaxf(cg, 0.0f), 1.0f);
   a.color[px_i * 3 + 2] = fminf(fmaxf(cb, 0.0f), 1.0f);
   a.hit[px_i] = hit ? 1 : 0;
-  if (a.depth != nullptr) a.depth[px_i] = hit ? s.t_hit : __int_as_float(0x7f800000);  // +inf
+  if (a.depth != nullptr) a.depth[px_i] = hit ? px.t_hit : __int_as_float(0x7f800000);  // +inf
   if (a.normal != nullptr) {
     a.normal[px_i * 3 + 0] = hit ? d.nx : 0.0f;
     a.normal[px_i * 3 + 1] = hit ? d.ny : 0.0f;
     a.normal[px_i * 3 + 2] = hit ? d.nz : 0.0f;
   }
   if (a.cell != nullptr) {
-    a.cell[px_i * 2 + 0] = s.hx;
-    a.cell[px_i * 2 + 1] = s.hy;
+    a.cell[px_i * 2 + 0] = px.hx;
+    a.cell[px_i * 2 + 1] = px.hy;
   }
+}
+
+template <bool COUNT>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    render_tile_kernel(const TileArgs a, const Terrain g, int* next) {
+  __shared__ Pixel lane_pixel[THREADS];
+  Pixel& px = lane_pixel[threadIdx.x];
+  const float* P = a.params;
+  const float gmax = P[P_GMAX];
+  const int patches_x = (a.W + PATCH_X - 1) / PATCH_X;
+  const int total = patches_x * ((a.H + PATCH_Y - 1) / PATCH_Y) * 32;
+  const long long plane = (long long)a.H * a.W;
+
+  int phase = IDLE;
+  int used = 0;      // steps of the lane's current ray
+  bool more = true;  // the counter still hands out pixels (warp-uniform)
+  MarchRay r{};
+  MarchState s{};
+  Work w{0, 0};
+  for (;;) {
+    const int k = claim_item(next, total, phase == IDLE, REFILL_MIN, more);
+    if (k >= 0) {
+      const int patch = k >> 5, within = k & 31;
+      const int j = (patch % patches_x) * PATCH_X + (within & (PATCH_X - 1));
+      const int i = (patch / patches_x) * PATCH_Y + (within >> 3);
+      if (i < a.H && j < a.W) {
+        // ---- the primary ray from the pyramid top, with the sky early-out ----
+        const Dir d = pixel_dir(a, P, i, j);
+        r = MarchRay{P[P_EYE + 0], P[P_EYE + 1], P[P_EYE + 2], d.x, d.y, d.z,
+                     1.0f / safe(d.x), 1.0f / safe(d.y), 0.0f};
+        float t0;
+        ray_box(r.ox, r.oy, r.inv_x, r.inv_y, a.box_lo, a.box_hi, t0, r.t1);
+        bool valid = (r.t1 > t0) && !((r.oz + t0 * d.z > gmax) && (d.z >= 0.0f));
+        // the top level has one cell: the entry cell is (0, 0)
+        s = MarchState{valid ? 1 : 0, valid ? t0 : BIG_T, g.levels - 1, 0, 0};
+        px.idx = i * a.W + j;
+        phase = PRIMARY;
+        used = 0;
+        w = Work{0, 0};
+      }
+    }
+    // a warp with no ray and no pixel left to claim is done; one whose
+    // claim fell on the ragged edge only claims again
+    if (!__any_sync(FULL_WARP, phase != IDLE)) {
+      if (!more) break;
+      continue;
+    }
+
+    // a hit ends its ray, so it is used in the chunk that finds it
+    MarchHit h{0, BIG_T, 0, 0};
+    if (phase != IDLE) used += march_steps<COUNT>(r, s, h, min(CHUNK, UNBUDGETED - used), g,
+                                                  gmax, w);
+    const bool ended = phase != IDLE && (!s.alive || used >= UNBUDGETED);
+
+    if (ended && phase == SHADOW) {
+      if (COUNT) {
+        a.counts[2 * plane + px.idx] = w.steps;
+        a.counts[3 * plane + px.idx] = w.tests;
+      }
+      write_pixel(a, P, px, h.hit != 0);
+      phase = IDLE;
+    } else if (ended && phase == PRIMARY) {
+      px.t_hit = h.t_hit;
+      px.hit = h.hit;
+      px.hx = h.hx;
+      px.hy = h.hy;
+      if (COUNT) {
+        a.counts[px.idx] = w.steps;
+        a.counts[plane + px.idx] = w.tests;
+        a.counts[2 * plane + px.idx] = 0;
+        a.counts[3 * plane + px.idx] = 0;
+      }
+      bool shadow = false;
+      if (a.shadows && h.hit) {
+        // ---- the shadow ray from just above the hit, at level 0 in the hit cell ----
+        const HitShade hs = shade_hit(a, P, Dir{r.dx, r.dy, r.dz}, px);
+        const float lx = P[P_SUN + 0], ly = P[P_SUN + 1], lz = P[P_SUN + 2];
+        float sxo = hs.px + lx * SHADOW_EPS + hs.d.nx * SHADOW_EPS;
+        float syo = hs.py + ly * SHADOW_EPS + hs.d.ny * SHADOW_EPS;
+        float szo = hs.pz + lz * SHADOW_EPS + hs.d.nz * SHADOW_EPS;
+        r = MarchRay{sxo, syo, szo, lx, ly, lz, 1.0f / safe(lx), 1.0f / safe(ly), 0.0f};
+        float st0;
+        ray_box(sxo, syo, r.inv_x, r.inv_y, a.box_lo, a.box_hi, st0, r.t1);
+        // a shadow ray that starts outside the box or above the terrain
+        // occludes nothing and is not marched
+        shadow = (r.t1 > st0) && !((szo + st0 * lz > gmax) && (lz >= 0.0f));
+        s = MarchState{1, st0, 0, min(max(h.hx, 0), g.m - 1), min(max(h.hy, 0), g.m - 1)};
+      }
+      if (shadow) {
+        phase = SHADOW;
+        used = 0;
+        w = Work{0, 0};
+      } else {
+        write_pixel(a, P, px, false);
+        phase = IDLE;
+      }
+    }
+  }
+}
+
+template <bool COUNT>
+int launch(const TileArgs& a, const Terrain& g, int* next, cudaStream_t stream) {
+  const long long items = (long long)((a.W + PATCH_X - 1) / PATCH_X) *
+                          ((a.H + PATCH_Y - 1) / PATCH_Y) * 32;
+  const int blocks = persistent_blocks(render_tile_kernel<COUNT>, THREADS, items);
+  render_tile_kernel<COUNT><<<blocks, THREADS, 0, stream>>>(a, g, next);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int hmrt_render_tile(const float* params, const float* pyr, const float* heights,
+// `next` is a zeroed int32 on the device (the pixel counter); `counts` is
+// null or an int32 (4, H, W) plane that takes each pixel's primary steps,
+// primary cell tests, shadow steps and shadow cell tests.
+extern "C" int hmrt_render_tile(const float* params, const float* pyr, const float* corners,
                                 const float* gx, const float* gy, const float* albedo,
                                 float* color, int* hit, float* depth, float* normal, int* cell,
                                 int H, int W, int full_h, int n, int m, int levels,
                                 int intersector, int phong, int shadows, int fog, float ambient,
                                 float specular, float shininess, float fog_density,
-                                float box_lo, float box_hi, void* stream) {
+                                float box_lo, float box_hi, int* next, int* counts,
+                                void* stream) {
   if (H <= 0 || W <= 0) return (int)cudaSuccess;
-  TileArgs a{params, pyr,    heights, gx, gy,   albedo, color,  hit,     depth,
-             normal, cell,   H,       W,  full_h, n,    m,      levels,  intersector,
-             phong,  shadows, fog,    ambient, specular, shininess, fog_density, box_lo,
-             box_hi};
-  dim3 grid((W + TILE_X - 1) / TILE_X, (H + TILE_Y - 1) / TILE_Y);
-  render_tile_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  TileArgs a{params,  gx,     gy,      albedo,   color,     hit,         depth,  normal,
+             cell,    counts, H,       W,        full_h,    n,           phong,  shadows,
+             fog,     ambient, specular, shininess, fog_density, box_lo, box_hi};
+  Terrain g{pyr, reinterpret_cast<const float4*>(corners), m, levels, intersector};
+  cudaStream_t st = (cudaStream_t)stream;
+  return counts != nullptr ? launch<true>(a, g, next, st) : launch<false>(a, g, next, st);
 }

@@ -11,7 +11,13 @@ Planes, each 1-D of length P (the JAX package's order and dtypes):
   results (hit, t_hit, hx, hy)               i32, f32, i32, i32
 Every alive ray takes up to `budget` steps of the max-mip march; the
 budget is per ray, so a pass with budget b followed by one with budget c
-equals one pass with budget b + c, and UNBUDGETED resolves every ray.
+equals one pass with budget b + c, and UNBUDGETED resolves every ray. The
+kernel relies on it twice over: its persistent warps march each ray in
+chunks and take the rays in whatever order lanes come free.
+
+The kernel reads level 0 from the scene's corner records (`Scene.corners`)
+and the levels above from `pyr_flat`; the plain version reads `pyr_flat`
+and `heights`, the function the records are held against.
 """
 
 from __future__ import annotations
@@ -55,16 +61,34 @@ def march_pass_reference(rays, state, results, pyr_flat, heights, *, n: int,
             (st["hit"].to(torch.int32), st["t_hit"], st["hx"], st["hy"]))
 
 
-def _check_inputs(rays, state, results, pyr_flat, heights, n, m, levels, budget):
+def check_records(corners: torch.Tensor, m: int) -> None:
+    """Raise unless `corners` is the record plane the kernels read: a
+    contiguous f32 (m, m, 4) whose start is 16-byte aligned (each record is
+    one float4 load)."""
+    if corners.shape != (m, m, 4) or corners.dtype != torch.float32 \
+            or not corners.is_contiguous():
+        raise ValueError(f"corners: want contiguous f32 ({m}, {m}, 4), got "
+                         f"{corners.dtype} {tuple(corners.shape)}")
+    if corners.data_ptr() % 16:
+        raise ValueError("corners: the record plane must start on a 16-byte boundary")
+
+
+def check_counts(counts: torch.Tensor, shape: tuple, dev) -> None:
+    """Raise unless `counts` is a contiguous int32 plane of `shape` on `dev`."""
+    if counts.shape != shape or counts.dtype != torch.int32 \
+            or not counts.is_contiguous() or counts.device != dev:
+        raise ValueError(f"counts: want contiguous int32 {shape} on {dev}, got "
+                         f"{counts.dtype} {tuple(counts.shape)} on {counts.device}")
+
+
+def _check_inputs(rays, state, results, pyr_flat, corners, n, m, levels, budget):
     p = rays[0].shape[0]
     dtypes = (torch.float32,) * 6 + STATE_DTYPES + RESULT_DTYPES
     for i, (x, dt) in enumerate(zip((*rays, *state, *results), dtypes)):
         if x.shape != (p,) or x.dtype != dt or not x.is_contiguous():
             raise ValueError(f"plane {i}: want contiguous {dt} of shape ({p},), got "
                              f"{x.dtype} {tuple(x.shape)}")
-    if heights.shape != (n, n) or heights.dtype != torch.float32 \
-            or not heights.is_contiguous():
-        raise ValueError(f"heights: want contiguous f32 ({n}, {n})")
+    check_records(corners, m)
     if pyr_flat.shape != (flat_size(m),) or pyr_flat.dtype != torch.float32 \
             or not pyr_flat.is_contiguous():
         raise ValueError(f"pyr_flat: want contiguous f32 ({flat_size(m)},) for m={m}")
@@ -78,32 +102,45 @@ def _check_inputs(rays, state, results, pyr_flat, heights, n, m, levels, budget)
             raise ValueError(f"levels in [{lo}, {hi}] outside [0, {levels - 1}]")
 
 
-def march_pass(rays, state, results, pyr_flat, heights, *, n: int, m: int,
+def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: int,
                levels: int, budget: int, cell_intersect: str = "triangle",
-               clip=None):
+               clip=None, counts: torch.Tensor | None = None):
     """One budgeted march pass. Returns (new_state, new_results).
 
     CPU tensors run `march_pass_reference`; CUDA tensors launch the kernel
-    (building it on first use) or raise."""
-    dev = _build.device_of([*rays, *state, *results, pyr_flat, heights])
+    (building it on first use) or raise. `corners` is the scene's (m, m, 4)
+    corner-record plane. `counts`, an int32 (2, P) output, takes each ray's
+    steps and exact cell tests in this pass (the kernel's counting
+    instance; the timed path passes none)."""
+    p = rays[0].shape[0]
+    dev = _build.device_of([*rays, *state, *results, pyr_flat, heights, corners])
+    if counts is not None:
+        check_counts(counts, (2, p), dev)
     if dev.type == "cpu":
-        return march_pass_reference(rays, state, results, pyr_flat, heights,
-                                    n=n, m=m, levels=levels, budget=budget,
-                                    cell_intersect=cell_intersect, clip=clip)
+        work = None if counts is None else WorkCounter(pyr_flat.shape[0], n, dev, lanes=p)
+        out = march_pass_reference(rays, state, results, pyr_flat, heights,
+                                   n=n, m=m, levels=levels, budget=budget,
+                                   cell_intersect=cell_intersect, clip=clip, counter=work)
+        if work is not None:
+            counts.copy_(torch.stack([work.lane_steps, work.lane_tests]))
+        return out
     if dev.type != "cuda":
         raise ValueError(f"march_pass runs on cpu or cuda, not {dev}")
-    _check_inputs(rays, state, results, pyr_flat, heights, n, m, levels, budget)
+    _check_inputs(rays, state, results, pyr_flat, corners, n, m, levels, budget)
     lib = _build.library()
     outs = [torch.empty_like(x) for x in (*state, *results)]
     lo, hi = (0.0, float(n - 1)) if clip is None else clip
     with torch.cuda.device(dev):
+        next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
         err = lib.hmrt_march_pass(
             *[x.data_ptr() for x in (*rays, *state, *results, *outs)],
-            pyr_flat.data_ptr(), heights.data_ptr(), rays[0].shape[0], n, m, levels,
-            budget, INTERSECTOR_IDS[cell_intersect], float(lo), float(hi),
+            pyr_flat.data_ptr(), corners.data_ptr(), p, m, levels, budget,
+            INTERSECTOR_IDS[cell_intersect], float(lo), float(hi), next_ray.data_ptr(),
+            None if counts is None else counts.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "march_pass")
-    march_pass.launches += 1
+    if p:  # an empty pass launches nothing
+        march_pass.launches += 1
     return tuple(outs[:5]), tuple(outs[5:])
 
 

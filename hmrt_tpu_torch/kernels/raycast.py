@@ -1,4 +1,4 @@
-"""Kernel 3: the fused render, one thread per pixel.
+"""Kernel 3: the fused render, each pixel's whole work in one kernel.
 
 `render_frame_fused` launches the CUDA kernel `csrc/render_tile.cu` for a
 CUDA scene and runs its plain torch version, `render_frame_fused_reference`,
@@ -22,9 +22,11 @@ from hmrt_tpu_torch.config import RenderConfig
 from hmrt_tpu_torch.kernels import _build
 from hmrt_tpu_torch.kernels.compact import (empty_results, init_state, shade_frame,
                                             to_frame)
-from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass_reference
+from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, check_counts, check_records,
+                                               march_pass_reference)
 from hmrt_tpu_torch.kernels.shade_pass import shade_pass_reference
 from hmrt_tpu_torch.traversal.intersect import INTERSECTOR_IDS
+from hmrt_tpu_torch.traversal.march import WorkCounter
 from hmrt_tpu_torch.types import Camera, Frame, Scene, recip_f32
 
 # params vector layout (f32[32]), as hmrt_tpu/kernels/raycast.py
@@ -85,29 +87,31 @@ def params_rays(params: torch.Tensor, height: int, width: int, full_height: int)
 
 
 def fused_reference_planes(scene: Scene, camera: Camera, config: RenderConfig,
-                           row0=None, full_height: int | None = None, counter=None):
+                           row0=None, full_height: int | None = None, counter=None,
+                           shadow_counter=None):
     """The plain version of the kernel: flat (color[P,3], depth[P],
     normal[P,3], hit[P] bool, cell[P,2]) of the frame or band. `counter`
-    (a traversal.march.WorkCounter) records the work of both marches."""
+    (a traversal.march.WorkCounter) records the work of both marches, or
+    of the primary march alone when `shadow_counter` takes the shadow
+    march's."""
     H, W = config.height, config.width
     fh = full_height or H
     params = make_params(scene, camera, config, row0, fh)
     rays = params_rays(params, H, W, fh)
     kw = dict(n=scene.n, m=scene.m, levels=scene.levels, budget=UNBUDGETED,
-              cell_intersect=config.cell_intersect, clip=config.clip_box,
-              counter=counter)
+              cell_intersect=config.cell_intersect, clip=config.clip_box)
 
-    def march(rays_, state):
+    def march(rays_, state, work):
         res = empty_results(rays_[0].shape[0], rays_[0].device)
         return march_pass_reference(rays_, state, res, scene.pyr_flat, scene.heights,
-                                    **kw)[1]
+                                    counter=work, **kw)[1]
 
     state0 = init_state(rays, None, params[_P_GMAX], n=scene.n, m=scene.m,
                         levels=scene.levels, clip=config.clip_box)
-    hit_i, t_hit, hx, hy = march(rays, state0)
+    hit_i, t_hit, hx, hy = march(rays, state0, counter)
     color, depth, normal, hit = shade_frame(
         scene, config, rays, hit_i, t_hit, hx, hy, shade=shade_pass_reference,
-        shadow_hits=lambda srays, sstate: march(srays, sstate)[0])
+        shadow_hits=lambda srays, sstate: march(srays, sstate, shadow_counter or counter)[0])
     return color, depth, normal, hit, torch.stack([hx, hy], dim=-1)
 
 
@@ -128,14 +132,14 @@ def _check_config(config: RenderConfig):
 
 def _check_inputs(scene: Scene, camera: Camera, config: RenderConfig):
     n = scene.n
-    planes = [scene.heights, scene.pyr_flat, scene.gx, scene.gy]
+    check_records(scene.corners, scene.m)
+    planes = [scene.pyr_flat, scene.gx, scene.gy]
     if config.texture and scene.albedo is not None:
         planes.append(scene.albedo)
     for x in planes:
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError("scene planes must be contiguous f32")
-    if scene.heights.shape != (n, n) or scene.gx.shape != (n, n) \
-            or scene.gy.shape != (n, n) or n < 2:
+    if scene.gx.shape != (n, n) or scene.gy.shape != (n, n) or n < 2:
         raise ValueError(f"scene planes must be ({n}, {n})")
     if scene.m.bit_length() != scene.levels or n - 1 > scene.m:
         raise ValueError(f"inconsistent geometry n={n} m={scene.m} levels={scene.levels}")
@@ -144,21 +148,33 @@ def _check_inputs(scene: Scene, camera: Camera, config: RenderConfig):
 
 
 def fused_planes(scene: Scene, camera: Camera, config: RenderConfig, row0=None,
-                 full_height: int | None = None, cells: bool = False):
+                 full_height: int | None = None, cells: bool = False,
+                 counts: torch.Tensor | None = None):
     """(color (H,W,3), depth (H,W) or None, normal (H,W,3) or None,
     hit (H,W) bool, cell (H,W,2) or None) of the fused render. Depth and
     normals come with config.aux_buffers, the hit cells with `cells`.
+    `counts`, an int32 (4, H, W) output, takes each pixel's primary steps,
+    primary cell tests, shadow steps and shadow cell tests (the kernel's
+    counting instance; the timed path passes none).
 
     A CPU scene runs the plain version; a CUDA scene launches the kernel
-    (building it on first use) or raises."""
+    (building it on first use) or raises. The kernel reads the scene's
+    corner records and pyramid, the plain version its pyramid and heights."""
     _check_config(config)
     H, W = config.height, config.width
     fh = full_height or H
     dev = scene.device
     aux = config.aux_buffers
+    if counts is not None:
+        check_counts(counts, (4, H, W), dev)
     if dev.type == "cpu":
+        works = None if counts is None else [
+            WorkCounter(scene.pyr_flat.shape[0], scene.n, dev, lanes=H * W) for _ in range(2)]
         color, depth, normal, hit, cell = fused_reference_planes(
-            scene, camera, config, row0, fh)
+            scene, camera, config, row0, fh, *(works or ()))
+        if works is not None:
+            counts.copy_(torch.stack([x for w in works for x in (w.lane_steps, w.lane_tests)])
+                         .reshape(4, H, W))
         return (color.reshape(H, W, 3), depth.reshape(H, W) if aux else None,
                 normal.reshape(H, W, 3) if aux else None, hit.reshape(H, W),
                 cell.reshape(H, W, 2) if cells else None)
@@ -181,14 +197,16 @@ def fused_planes(scene: Scene, camera: Camera, config: RenderConfig, row0=None,
         return None if x is None else x.data_ptr()
 
     with torch.cuda.device(dev):
+        next_pixel = torch.zeros(1, dtype=torch.int32, device=dev)
         err = lib.hmrt_render_tile(
-            params.data_ptr(), scene.pyr_flat.data_ptr(), scene.heights.data_ptr(),
+            params.data_ptr(), scene.pyr_flat.data_ptr(), scene.corners.data_ptr(),
             scene.gx.data_ptr(), scene.gy.data_ptr(), ptr(albedo), color.data_ptr(),
             hit.data_ptr(), ptr(depth), ptr(normal), ptr(cell), H, W, fh, scene.n,
             scene.m, scene.levels, INTERSECTOR_IDS[config.cell_intersect],
             int(config.shading == "phong"), int(config.shadows), int(config.fog),
             config.ambient, config.specular, config.shininess, config.fog_density,
-            float(lo), float(hi), torch.cuda.current_stream(dev).cuda_stream)
+            float(lo), float(hi), next_pixel.data_ptr(), ptr(counts),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "render_tile")
     render_frame_fused.launches += 1
     return color, depth, normal, hit != 0, cell

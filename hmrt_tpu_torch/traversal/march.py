@@ -136,14 +136,21 @@ class WorkCounter:
     """What a masked max-mip march does, counted on its device without a
     wait: the steps taken (one per alive lane per step), the exact cell
     tests, and which pyramid entries and height samples it reads. A
-    kernel's bound in bytes and operations is computed from these."""
+    kernel's bound in bytes and operations is computed from these. With
+    `lanes`, it also keeps each lane's steps and tests (`lane_steps`,
+    `lane_tests`, int32[lanes]): what the kernels' counting instances
+    write per ray."""
 
-    def __init__(self, pyr_size: int, n: int, device):
+    def __init__(self, pyr_size: int, n: int, device, lanes: int | None = None):
         self.n = n
         self.steps = torch.zeros((), dtype=torch.int64, device=device)
         self.tests = torch.zeros((), dtype=torch.int64, device=device)
         self.pyr_reads = torch.zeros(pyr_size, dtype=torch.int32, device=device)
         self.height_reads = torch.zeros(n * n, dtype=torch.int32, device=device)
+        self.lane_steps = self.lane_tests = None
+        if lanes is not None:
+            self.lane_steps = torch.zeros(lanes, dtype=torch.int32, device=device)
+            self.lane_tests = torch.zeros(lanes, dtype=torch.int32, device=device)
 
     def observe(self, alive, idx, test, icx, icy):
         """One step: every alive lane reads pyramid entry `idx`; the lanes
@@ -151,6 +158,9 @@ class WorkCounter:
         n = self.n
         self.steps += alive.sum()
         self.tests += test.sum()
+        if self.lane_steps is not None:
+            self.lane_steps += alive.to(torch.int32)
+            self.lane_tests += test.to(torch.int32)
         self.pyr_reads.index_add_(0, idx, alive.to(torch.int32))
         base = torch.clamp(icy, 0, n - 2) * n + torch.clamp(icx, 0, n - 2)
         for off in (0, 1, n, n + 1):

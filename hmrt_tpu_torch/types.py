@@ -129,10 +129,13 @@ class Scene:
     n = height-sample grid side N; m = padded power-of-two cell-grid side;
     levels = pyramid levels (level 0 is m x m, the last is 1 x 1).
     gx, gy are the per-sample central-difference gradients the shade
-    kernel interpolates (api/scene.py corner_grads)."""
+    kernel interpolates (api/scene.py corner_grads). corners holds each
+    cell's four corner heights as one record (core/pyramid.py
+    corner_records), the layout the CUDA march reads level 0 from."""
 
     heights: torch.Tensor          # (N, N) f32 height samples
     pyr_flat: torch.Tensor         # (T,) f32 flat level-major max pyramid
+    corners: torch.Tensor          # (m, m, 4) f32 per-cell corner records
     albedo: torch.Tensor | None    # (3, N*N) planar f32 texture, or None
     light: Light
     gx: torch.Tensor               # (N, N) f32 d(height)/dx per sample

@@ -1,0 +1,138 @@
+#!/usr/bin/env python3
+"""Device times of the two march kernels on the B3 frame, on one CUDA card.
+
+Run from the root of a checkout:
+
+    python3 kernel_times.py [--root DIR] [VARIANT ...]
+
+It builds the B3 scene (bench/configs.py) and prints one JSON line per
+variant: the device ms of each march_pass launch of one compact frame and
+their sum, the render_tile kernel's device ms on the B3 frame (backend
+"pallas") and on the B1 frame (torch.profiler, the kernel alone), the B3
+frame's ms through each path (CUDA events, median of 5), and the registers
+ptxas gave each kernel, beside the card's name and power limit.
+
+--root DIR imports hmrt_tpu_torch from another checkout, e.g. an older
+commit unpacked with `git archive` into a directory that .gitignore lists,
+so two versions can be timed on one card in one call.
+
+A VARIANT is "base" (the kernels as they are) or NAME=VALUE[,NAME=VALUE]:
+the kernels are rebuilt from a copy of csrc/ in which each design constant
+`constexpr int NAME = ...;` takes VALUE (e.g. RING=2,CHUNK=128); the
+sources of the checkout are not changed. Variants need the checkout's own
+package (no --root).
+"""
+
+import argparse
+import ctypes
+import dataclasses
+import json
+import re
+import shutil
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+
+
+def variant_library(build, spec: str):
+    """The kernel library built from csrc/ with the constants of `spec`
+    replaced, and its ptxas log."""
+    src = Path(build.CSRC)
+    out = Path(build.BUILD_DIR) / "variants" / re.sub(r"[^A-Za-z0-9]+", "_", spec)
+    shutil.rmtree(out, ignore_errors=True)
+    (out / "csrc").mkdir(parents=True)
+    for f in src.iterdir():
+        text = f.read_text()
+        for item in spec.split(","):
+            name, value = item.split("=")
+            text = re.sub(rf"(constexpr int {name} = )\d+;", rf"\g<1>{int(value)};", text)
+        (out / "csrc" / f.name).write_text(text)
+    missing = [item.split("=")[0] for item in spec.split(",")
+               if not any(re.search(rf"constexpr int {item.split('=')[0]} = ",
+                                    f.read_text()) for f in src.iterdir())]
+    if missing:
+        raise ValueError(f"no design constant named {missing} in {src}")
+    lib = ctypes.CDLL(str(build.build(out / "csrc", out)))
+    for name, argtypes in build.SIGNATURES.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    return lib, sorted(out.glob("*.log"))[-1].read_text()
+
+
+def registers(log: str) -> dict:
+    """{kernel name: [registers, bytes of spill stores]} of the timed
+    (non-counting) instances in a ptxas log."""
+    regs = {}
+    entry, spill = None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            for k in ("march_pass_kernel", "render_tile_kernel"):
+                if k in entry and "ILb1E" not in entry:
+                    regs[k] = [int(m.group(1)), spill]
+    return regs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(HERE), help="checkout to import hmrt_tpu_torch from")
+    ap.add_argument("variants", nargs="*", default=["base"])
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(HERE))
+    from chip_smoke import card_line, kernel_ms, launch_times, median_ms
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    import hmrt_tpu_torch as T
+    from hmrt_tpu_torch.bench.configs import BENCH_CONFIGS, bench_scene
+    from hmrt_tpu_torch.kernels import _build
+    from hmrt_tpu_torch.kernels.raycast import render_frame_fused
+    if args.root != str(HERE) and args.variants != ["base"]:
+        raise SystemExit("variants rebuild this checkout's kernels: drop --root")
+
+    dev = torch.device("cuda")
+    card = card_line()
+    b3, b1 = BENCH_CONFIGS["B3"], BENCH_CONFIGS["B1"]
+    scene, cam, _ = bench_scene(b3, device=dev)
+    scene1, cam1, _ = bench_scene(b1, device=dev)
+    cfg_c = b3.render
+    cfg_f = dataclasses.replace(cfg_c, backend="pallas")
+    base_lib = _build.library()
+    base_log = sorted(Path(_build.BUILD_DIR).glob("*.log"))[-1].read_text()
+    for spec in args.variants:
+        if spec == "base":
+            lib, log = base_lib, base_log
+        else:
+            lib, log = variant_library(_build, spec)
+        _build.library = lambda lib=lib: lib
+        per_launch = launch_times(lambda: T.render_frame(scene, cam, cfg_c),
+                                  ("march_pass_kernel",))
+        k3 = kernel_ms(lambda: render_frame_fused(scene, cam, cfg_f), "render_tile_kernel", 5)
+        k3_b1 = kernel_ms(lambda: render_frame_fused(scene1, cam1, b1.render),
+                          "render_tile_kernel", 20)
+        frames = {}
+        for label, cf in (("compact", cfg_c), ("fused", cfg_f), ("fused", cfg_f),
+                          ("compact", cfg_c)):
+            frames.setdefault(label, []).append(
+                median_ms(lambda: T.render_frame(scene, cam, cf), 5)[0])
+        print(json.dumps({
+            "root": args.root, "variant": spec, "card": card,
+            "march_pass_ms_per_launch": [ms for _, ms in per_launch],
+            "march_pass_ms_per_frame": sum(ms for _, ms in per_launch),
+            "render_tile_ms_b3": k3, "render_tile_ms_b1": k3_b1,
+            "frame_ms_compact": frames["compact"], "frame_ms_fused": frames["fused"],
+            "registers": registers(log)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

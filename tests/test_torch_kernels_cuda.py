@@ -21,6 +21,7 @@ from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, march_pass,
 from hmrt_tpu_torch.kernels.raycast import (fused_planes, fused_reference_planes,
                                             render_frame_fused)
 from hmrt_tpu_torch.kernels.shade_pass import shade_pass, shade_pass_reference
+from hmrt_tpu_torch.traversal.march import WorkCounter
 
 pytestmark = pytest.mark.cuda
 
@@ -50,24 +51,94 @@ def _empty_results(p, dev):
 
 
 @pytest.mark.parametrize("ci", ["triangle", "bilinear", "flat"])
-@pytest.mark.parametrize("budget", [1, 7, 64, UNBUDGETED])
+@pytest.mark.parametrize("budget", [1, 7, 37, 64, UNBUDGETED])
 @pytest.mark.parametrize("n", [128, 1024])
 def test_march_kernel_equals_plain(cuda, n, budget, ci):
     """All 9 output planes equal, bit for bit, from the initial state and
-    from a mid-march state."""
+    from a mid-march state (budget 37 ends rays in the middle of the
+    kernel's second chunk)."""
     sc = _scene(n, cuda)
     rays = _rays(n, cuda)
     st = init_state(rays, None, sc.pyr_flat[-1], n=sc.n, m=sc.m, levels=sc.levels)
     res = _empty_results(rays[0].shape[0], cuda)
     kw = dict(n=sc.n, m=sc.m, levels=sc.levels, cell_intersect=ci)
     for _ in range(2):
-        sk, rk = march_pass(rays, st, res, sc.pyr_flat, sc.heights, budget=budget, **kw)
+        sk, rk = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners, budget=budget,
+                            **kw)
         torch.cuda.synchronize()
         sr, rr = march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights,
                                       budget=budget, **kw)
         for a, b in zip(sk + rk, sr + rr):
             assert torch.equal(a, b)
         st, res = sk, rk
+
+
+@pytest.mark.parametrize("p", [0, 1, 33, 300_000])
+def test_march_kernel_equals_plain_at_ray_counts(cuda, p):
+    """The persistent kernel on no ray, one ray, a warp and a lane, and more
+    rays than one resident wave of the card holds (132 SMs x 2,048 threads
+    is 270,336): all 9 planes equal, unbudgeted and at a budget that ends
+    rays inside a chunk."""
+    sc = _scene(128, cuda)
+    rays = _rays(128, cuda, p=max(p, 1), seed=5)
+    rays = tuple(x[:p].contiguous() for x in rays)
+    st = init_state(rays, None, sc.pyr_flat[-1], n=sc.n, m=sc.m, levels=sc.levels)
+    res = _empty_results(p, cuda)
+    kw = dict(n=sc.n, m=sc.m, levels=sc.levels)
+    for budget in (37, UNBUDGETED):
+        before = march_pass.launches
+        sk, rk = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners,
+                            budget=budget, **kw)
+        torch.cuda.synchronize()
+        assert march_pass.launches == before + (1 if p else 0)
+        sr, rr = march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights,
+                                      budget=budget, **kw)
+        for a, b in zip(sk + rk, sr + rr):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("budget", [37, UNBUDGETED])
+def test_march_kernel_counts_equal_work_counter(cuda, budget):
+    """The counting instance: per-ray steps and cell tests equal the plain
+    version's per-lane counts, and the planes equal the timed instance's."""
+    sc = _scene(1024, cuda)
+    rays = _rays(1024, cuda, p=20_000, seed=6)
+    st = init_state(rays, None, sc.pyr_flat[-1], n=sc.n, m=sc.m, levels=sc.levels)
+    res = _empty_results(20_000, cuda)
+    kw = dict(n=sc.n, m=sc.m, levels=sc.levels, budget=budget)
+    counts = torch.full((2, 20_000), -1, dtype=torch.int32, device=cuda)
+    got = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners, counts=counts, **kw)
+    timed = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners, **kw)
+    torch.cuda.synchronize()
+    work = WorkCounter(sc.pyr_flat.shape[0], sc.n, cuda, lanes=20_000)
+    march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights, counter=work, **kw)
+    for a, b in zip(got[0] + got[1], timed[0] + timed[1]):
+        assert torch.equal(a, b)
+    assert torch.equal(counts[0], work.lane_steps) and torch.equal(counts[1], work.lane_tests)
+    assert int(counts[0].sum()) == int(work.steps) and int(counts[1].sum()) == int(work.tests)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "strided", "misaligned"])
+def test_kernels_reject_bad_record_plane(cuda, bad):
+    """Both wrappers raise on a record plane the kernels cannot read as
+    float4 records, before any launch."""
+    sc = _scene(128, cuda)
+    m = sc.m
+    planes = {"shape": torch.zeros((m, m, 3), device=cuda),
+              "dtype": sc.corners.double(),
+              "strided": torch.zeros((m, m, 8), device=cuda)[..., :4],
+              "misaligned": torch.zeros(m * m * 4 + 1, device=cuda)[1:].view(m, m, 4)}
+    rays = _rays(128, cuda, p=256)
+    st = init_state(rays, None, sc.pyr_flat[-1], n=sc.n, m=sc.m, levels=sc.levels)
+    m0, f0 = march_pass.launches, render_frame_fused.launches
+    with pytest.raises(ValueError, match="corners"):
+        march_pass(rays, st, _empty_results(256, cuda), sc.pyr_flat, sc.heights,
+                   planes[bad], n=sc.n, m=sc.m, levels=sc.levels, budget=UNBUDGETED)
+    cam = T.Camera.create(eye=(64.0, -40.0, 60.0), target=(64.0, 64.0, 5.0), device=cuda)
+    with pytest.raises(ValueError, match="corners"):
+        fused_planes(dataclasses.replace(sc, corners=planes[bad]), cam,
+                     T.RenderConfig(width=32, height=8))
+    assert (march_pass.launches, render_frame_fused.launches) == (m0, f0)
 
 
 @pytest.mark.parametrize("textured", [False, True])
@@ -100,7 +171,7 @@ def test_march_kernel_clip_window_equals_plain(cuda, ci):
     res = _empty_results(rays[0].shape[0], cuda)
     kw = dict(n=sc.n, m=sc.m, levels=sc.levels, cell_intersect=ci, clip=clip,
               budget=UNBUDGETED)
-    got = march_pass(rays, st, res, sc.pyr_flat, sc.heights, **kw)
+    got = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners, **kw)
     torch.cuda.synchronize()
     want = march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights, **kw)
     for a, b in zip(got[0] + got[1], want[0] + want[1]):
@@ -114,7 +185,7 @@ def test_march_kernel_rejects_bad_levels(cuda):
     st[2] = torch.full_like(st[2], sc.levels)
     with pytest.raises(ValueError, match="levels"):
         march_pass(rays, tuple(st), _empty_results(1024, cuda), sc.pyr_flat, sc.heights,
-                   n=sc.n, m=sc.m, levels=sc.levels, budget=1)
+                   sc.corners, n=sc.n, m=sc.m, levels=sc.levels, budget=1)
 
 
 CAMERAS = {
@@ -175,6 +246,9 @@ FUSED_CASES = {
     "texture": dict(texture=True),
     "aux": dict(aux_buffers=True, shadows=True),
     "odd_resolution": dict(width=100, height=37, shadows=True, aux_buffers=True),
+    "ragged_patches": dict(width=67, height=5, shading="phong", shadows=True,
+                           aux_buffers=True),
+    "one_pixel": dict(width=1, height=1, shadows=True, aux_buffers=True),
     "bilinear": dict(cell_intersect="bilinear", shadows=True, aux_buffers=True),
     "clip": dict(clip_box=(8.0, 50.0), shadows=True, aux_buffers=True),
 }
@@ -211,6 +285,28 @@ def test_fused_kernel_equals_plain(cuda, n, case):
     torch.cuda.synchronize()
     assert render_frame_fused.launches == before + 1
     _assert_fused_equal(got, fused_reference_planes(sc, cam, cfg), cfg.aux_buffers)
+
+
+@pytest.mark.parametrize("shadows", [False, True])
+def test_fused_kernel_counts_equal_work_counter(cuda, shadows):
+    """The counting instance of the fused kernel: per pixel, the primary and
+    the shadow march's steps and cell tests equal the plain version's
+    per-lane counts (on a frame whose H and W are not multiples of the
+    8 x 4 patch), and the planes equal the timed instance's."""
+    sc, cam = _fused_scene(128, cuda)
+    cfg = T.RenderConfig(width=101, height=46, shading="phong", shadows=shadows,
+                         aux_buffers=True)
+    counts = torch.full((4, 46, 101), -1, dtype=torch.int32, device=cuda)
+    got = fused_planes(sc, cam, cfg, cells=True, counts=counts)
+    timed = fused_planes(sc, cam, cfg, cells=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, timed):
+        assert torch.equal(a, b)
+    works = [WorkCounter(sc.pyr_flat.shape[0], sc.n, cuda, lanes=46 * 101) for _ in range(2)]
+    want = fused_reference_planes(sc, cam, cfg, counter=works[0], shadow_counter=works[1])
+    _assert_fused_equal(got, want, True)
+    for k, lane in enumerate(x for w in works for x in (w.lane_steps, w.lane_tests)):
+        assert torch.equal(counts[k].reshape(-1), lane)
 
 
 @pytest.mark.parametrize("n", [65, 128])

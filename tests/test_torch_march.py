@@ -156,21 +156,70 @@ def _passes(ts, rays, state, budget, ci, clip=None):
     raise AssertionError("passes did not terminate")
 
 
+def _refill_march(ts, rays, state, ci, seed, limit):
+    """March the rays as the persistent kernels schedule them: again and
+    again a random subset of the unfinished rays, in shuffled order, takes a
+    chunk of a random number of steps, each ray's total capped at its budget
+    `limit` (so a budget can run out in the middle of a chunk), until every
+    ray is dead or has used its budget. Returns (state, results)."""
+    rng = np.random.default_rng(seed)
+    p = rays[0].shape[0]
+    st, res = [x.clone() for x in state], list(_empty_results(p))
+    used = np.zeros(p, np.int64)
+    for _ in range(100_000):
+        open_ = np.nonzero((st[0].numpy() != 0) & (used < limit))[0]
+        if not open_.size:
+            return st, res
+        take = rng.permutation(open_)[:int(rng.integers(1, open_.size + 1))]
+        steps = np.minimum(int(rng.integers(1, 40)), limit - used[take])
+        for b in np.unique(steps):
+            idx = torch.from_numpy(take[steps == b])
+            s, r = march_pass_reference(
+                tuple(x.index_select(0, idx) for x in rays),
+                tuple(x.index_select(0, idx) for x in st),
+                tuple(x.index_select(0, idx) for x in res), ts.pyr_flat, ts.heights,
+                n=ts.n, m=ts.m, levels=ts.levels, budget=int(b), cell_intersect=ci)
+            for planes, new in ((st, s), (res, r)):
+                for x, y in zip(planes, new):
+                    x.index_copy_(0, idx, y)
+            used[take[steps == b]] += int(b)  # exact for the rays still alive
+    raise AssertionError("the refill march did not terminate")
+
+
 @pytest.mark.parametrize("ci", INTERSECTORS)
-@pytest.mark.parametrize("budget", [1, 7, 64])
+@pytest.mark.parametrize("budget", [1, 7, 64, "refill", "refill-budget-13"])
 def test_budgeted_passes_equal_unbudgeted_and_jax(scenes, budget, ci):
     """The per-ray budget invariant the kernel rests on: repeated passes of
-    any budget equal one unbudgeted pass, which equals JAX march_maxmip."""
+    any budget equal one unbudgeted pass, which equals JAX march_maxmip.
+    The "refill" cases march as the persistent warps do (random chunks,
+    shuffled subsets, random order); with a budget of 13 steps per ray
+    they equal one pass of budget 13, in all nine planes, and the JAX march
+    capped at 13 steps."""
     js, ts = scenes
     jr, tr = _rays("mixed", seed=3)
     st0 = init_state(tr, None, ts.pyr_flat[-1], n=ts.n, m=ts.m, levels=ts.levels)
-    _, res_b = _passes(ts, tr, st0, budget, ci)
-    _, res_u = _passes(ts, tr, st0, UNBUDGETED, ci)
+    max_steps = 8 * N + 256
+    if budget == "refill":
+        _, res_b = _refill_march(ts, tr, st0, ci, seed=0, limit=UNBUDGETED)
+    elif budget == "refill-budget-13":
+        max_steps = 13
+        st_b, res_b = _refill_march(ts, tr, st0, ci, seed=1, limit=13)
+    else:
+        _, res_b = _passes(ts, tr, st0, budget, ci)
+    if budget == "refill-budget-13":
+        st_u, res_u = march_pass_reference(tr, st0, _empty_results(N_RAYS), ts.pyr_flat,
+                                           ts.heights, n=ts.n, m=ts.m, levels=ts.levels,
+                                           budget=13, cell_intersect=ci)
+        for a, b in zip(st_b, st_u):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+        assert st_u[0].any()  # some rays ran out of budget
+    else:
+        _, res_u = _passes(ts, tr, st0, UNBUDGETED, ci)
     for a, b in zip(res_b, res_u):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     want = jax_march_maxmip(*map(jnp.asarray, jr), js.pyr_flat,
                             js.heights.reshape(-1), n=N, m=js.m, levels=js.levels,
-                            max_steps=8 * N + 256, cell_intersect=ci)
+                            max_steps=max_steps, cell_intersect=ci)
     np.testing.assert_array_equal(res_u[0].numpy() != 0, np.asarray(want.hit))
     np.testing.assert_array_equal(res_u[2].numpy(), np.asarray(want.cx))
     np.testing.assert_array_equal(res_u[3].numpy(), np.asarray(want.cy))
@@ -226,7 +275,7 @@ def test_march_pass_cpu_uses_plain_version(scenes):
     res0 = _empty_results(N_RAYS)
     before = march_pass.launches
     kw = dict(n=ts.n, m=ts.m, levels=ts.levels, budget=9)
-    a = march_pass(tr, st0, res0, ts.pyr_flat, ts.heights, **kw)
+    a = march_pass(tr, st0, res0, ts.pyr_flat, ts.heights, ts.corners, **kw)
     b = march_pass_reference(tr, st0, res0, ts.pyr_flat, ts.heights, **kw)
     for x, y in zip(a[0] + a[1], b[0] + b[1]):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
