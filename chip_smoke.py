@@ -24,7 +24,20 @@ drives both render paths through the normal entry points:
     ray without refill;
   - where the time goes: the device time of each launch of one compact B3
     frame, B3 compact and fused timed in turns, and profiles of a frame of
-    each path.
+    each path;
+  - the animation path: B4 (an 8192^2 map with albedo texture, fog and
+    Phong at 1280x720) along its scripted orbit through render_frame
+    (compact: march_pass and the textured shade_pass), frames against the
+    torch oracle, march_pass against its plain version on a sample of the
+    frame's rays that holds its longest ones, the textured shade_pass
+    against its plain version on every lane, the frame's march work and
+    bound, a profile;
+  - the bench runner (bench/runner.py) for B1-B5, one JSON row each;
+  - the out-of-core tiled renderer: B4 in 2048-cell tiles and B3 with
+    shadows (the shadow sweep on march_pass), each against the resident
+    frame, every pixel outside the bars traced to the f32 cell test; and
+    march_pass against its plain version on a B4 tile's sub-scene under
+    its clip window.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 results (time, plain time, launches, error and the bound of each), and last
@@ -43,18 +56,6 @@ ROOT = Path(__file__).resolve().parent
 N_SAMPLE = 65536   # rays per kernel-vs-plain march comparison
 STATE = ("alive", "t", "lvl", "icx", "icy")
 RESULTS = ("hit", "t_hit", "hx", "hy")
-
-# The least time the card could take for a kernel's work: the larger of its
-# bytes over the memory rate and its operations over the f32 rate (NVIDIA
-# H100 SXM data sheet: 3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores).
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# Operations per unit of work, counted from the CUDA sources (float and
-# integer arithmetic, compares and selects alike, all at the f32 rate):
-OPS_PER_STEP = 50    # one max-mip step of march_common.cuh without the cell test
-OPS_PER_TEST = 50    # the exact triangle test of a level-0 cell
-OPS_PER_SHADE = 40   # shade_lane of shade_common.cuh on a hit
-OPS_PER_PIXEL = 150  # render_tile.cu outside the marches: raygen, box, shade, colour
 
 
 def log(*a):
@@ -78,12 +79,6 @@ def event_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """(bound in ms, what bounds it) for the given bytes and operations."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def corner_samples(hit, hx, hy, n: int) -> int:
@@ -181,12 +176,13 @@ def profile_frames(label, fn, frame_ms, frames: int = 3):
         log(f"    {t:9.4f} ms  {key[:90]}")
 
 
-def compare_march(label, rays, state, scene, budgets, counter=None):
+def compare_march(label, rays, state, scene, budgets, counter=None, clip=None):
     """march_pass kernel vs march_pass_reference from the same state, for
     each budget: state planes equal on the lanes alive at the start, the
     alive plane and the results equal everywhere. `counter` records the
-    work of the unbudgeted plain run. Returns the largest absolute
-    difference over all planes (0.0 when exact)."""
+    work of the unbudgeted plain run; `clip` is the cell window of both.
+    Returns the largest absolute difference over all planes (0.0 when
+    exact) and the empty result planes both started from."""
     import torch
     from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, march_pass,
                                                    march_pass_reference)
@@ -197,16 +193,19 @@ def compare_march(label, rays, state, scene, budgets, counter=None):
            torch.full((p,), BIG_T, device=dev),
            torch.zeros(p, dtype=torch.int32, device=dev),
            torch.zeros(p, dtype=torch.int32, device=dev))
-    kw = dict(n=scene.n, m=scene.m, levels=scene.levels)
+    kw = dict(n=scene.n, m=scene.m, levels=scene.levels, clip=clip)
     worst = 0.0
     alive_in = state[0] != 0
     for b in budgets:
         sk, rk = march_pass(rays, state, res, scene.pyr_flat, scene.heights, scene.corners,
                             budget=b, **kw)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
         sr, rr = march_pass_reference(rays, state, res, scene.pyr_flat, scene.heights,
                                       budget=b, **kw,
                                       counter=counter if b == UNBUDGETED else None)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
         for name, a, c in zip(STATE + RESULTS, sk + rk, sr + rr):
             sel = alive_in if name in STATE[1:] else slice(None)
             if not torch.equal(a[sel], c[sel]):
@@ -217,11 +216,244 @@ def compare_march(label, rays, state, scene, budgets, counter=None):
                 worst = max(worst, float((a[sel].double() - c[sel].double()).abs().max()))
         log(f"  march_pass {label} budget {b}: 9 planes equal; "
             f"{int(alive_in.sum())} rays alive in, {int(sk[0].sum())} alive out, "
-            f"{int(rk[0].sum())} hits")
+            f"{int(rk[0].sum())} hits (plain version {plain_s:.1f} s)")
     return worst, res
+
+TILE = 2048  # cells per tile edge in the tiled phase
+
+
+def tile_rays(rays, x0, y0):
+    """Ray planes moved into the frame of the tile at (y0, x0): its
+    sub-scene starts one margin sample before the tile, an exact shift."""
+    return (rays[0] - (x0 - 1), rays[1] - (y0 - 1)) + tuple(rays[2:])
+
+
+def march_to_end(rays, scene, clip=None):
+    """The kernel's march of `rays` on `scene` to the end, from the pyramid
+    top: (hit bool, t, hx, hy)."""
+    from hmrt_tpu_torch.kernels.compact import empty_results, init_state
+    from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass
+    state = init_state(rays, None, scene.pyr_flat[-1], n=scene.n, m=scene.m,
+                       levels=scene.levels, clip=clip)
+    hit, t, hx, hy = march_pass(rays, state, empty_results(rays[0].shape[0], rays[0].device),
+                                scene.pyr_flat, scene.heights, scene.corners, n=scene.n,
+                                m=scene.m, levels=scene.levels, budget=UNBUDGETED, clip=clip)[1]
+    return hit != 0, t, hx, hy
+
+
+def cell_triangles(rays, cx, cy, heights):
+    """The exact test of cell (cx, cy) per ray, step by step as
+    `intersect_triangles` (traversal/intersect.py) takes it in f32, for its
+    two triangles: the plane crossings t, whether each crossing lies inside
+    its triangle, the least slack of its three containment tests in float64
+    (negative: outside) and the crossing's larger |x|, |y|; each (2, P).
+    Also the test's own verdict with the window [0, BIG_T]; the replica
+    must agree with it."""
+    import numpy as np
+    import torch
+    from hmrt_tpu_torch.traversal.intersect import BIG_T, _safe, intersect_triangles
+    ox, oy, oz, dx, dy, dz = rays
+    n = heights.shape[1]
+    hf = heights.reshape(-1)
+    base = cy.long() * n + cx.long()
+    z = tuple(hf[base + o] for o in (0, 1, n, n + 1))
+    z00, z10, z01, z11 = z
+    fx, fy = cx.to(torch.float32), cy.to(torch.float32)
+    lo, hi, lo2 = (float(np.float32(v)) for v in (-1e-6, 1.0 + 1e-6, 1.0 - 1e-6))
+    ts, inside, slack, mag = [], [], [], []
+    for k, (a, gx, gy) in enumerate(((z00, z10 - z00, z01 - z00),
+                                     (z10 - z11 + z01, z11 - z01, z11 - z10))):
+        t = (a + gx * (ox - fx) + gy * (oy - fy) - oz) / _safe(dz - gx * dx - gy * dy)
+        px, py = ox + t * dx, oy + t * dy
+        u, v = (px - fx).double(), (py - fy).double()
+        w = (px - fx + (py - fy)).double()
+        sl = (torch.stack([u - lo, v - lo, hi - w]) if k == 0
+              else torch.stack([hi - u, hi - v, w - lo2])).amin(0)
+        ts.append(t)
+        inside.append(sl >= 0)
+        slack.append(sl)
+        mag.append(torch.maximum(px.abs(), py.abs()).double())
+    ts, inside = torch.stack(ts), torch.stack(inside)
+    verdict = intersect_triangles(ox, oy, oz, dx, dy, dz, cx, cy, *z,
+                                  torch.zeros_like(ox), torch.full_like(ox, BIG_T))[0]
+    if not torch.equal(verdict, (inside & (ts >= 0) & (ts <= BIG_T)).any(0)):
+        raise AssertionError("the replica of the exact cell test disagrees with it")
+    return ts, inside, torch.stack(slack), torch.stack(mag), verdict
+
+
+def ulp32(x):
+    """The spacing of f32 numbers at magnitude x (float64 tensor)."""
+    import torch
+    return torch.exp2(torch.floor(torch.log2(torch.clamp_min(x, 1.0))) - 23)
+
+
+def check_tiled(label, sc, cm, cf, source, cap, run_path, paths, card, **kw):
+    """The tiled frame (tiles of TILE cells) against the resident one, with
+    the JAX package's tiled bars: hit equal, depth within 1e-4 relative,
+    colour within 2e-4. Also: the march_pass launches of the tile renders
+    (3 each) and of the shadow sweep (2 per tile marched), one shade_pass
+    per tile render; culling changes no hit or depth.
+
+    The exact cell test rounds in f32 at the magnitude of the coordinates
+    it is given, and the tiles move the camera by an exact integer offset
+    (ROADMAP.md section 3), so a few pixels (at most `cap`) may fall
+    outside the bars, each for that reason only:
+      - the resident march and each tile's march (in its frame, under its
+        clip window) of the pixel's ray give the two frames' hits exactly,
+        the tiled one as the nearest of all the tiles';
+      - a hit or depth that differs: at the nearer frame's hit cell, the
+        plane crossings of both frames are the same bits, the cell test
+        hits in that frame and misses in the other, and the two differ in
+        the containment of one triangle, with both slacks within 2 f32
+        ulps (at the crossing's coordinates) of its edge;
+      - a colour alone (by at most 1e-3): the same hit cell and depth,
+        the same gradients and albedo at its corners in the tile as in the
+        map, in-cell offsets that differ by at most 2 ulps between the
+        frames, and from each frame's offsets the shade pass gives that
+        frame's normal exactly (and the two normals differ).
+    Returns each tile's sub-scene, {(y0, x0): Scene}."""
+    import dataclasses
+    import torch
+    import hmrt_tpu_torch as T
+    from hmrt_tpu_torch.api.tiled import TileSceneCache, _tile_origins
+    from hmrt_tpu_torch.kernels.compact import primary_rays
+    from hmrt_tpu_torch.kernels.shade_pass import shade_pass
+    cfa = dataclasses.replace(cf, aux_buffers=True)
+    res = T.render_frame(sc, cm, cfa)
+    stats = {}
+    t1 = time.perf_counter()
+    tl = run_path(label, lambda: T.render_frame_tiled(source, cm, cfa, tile=TILE,
+                                                      _stats=stats, **kw),
+                  ("march_pass", "shade_pass"), ("render_tile",))
+    first_s = time.perf_counter() - t1
+    got = paths[label]
+    want_k1 = 3 * stats["tiles_rendered"] + 2 * stats.get("shadow_tiles_marched", 0)
+    if (got["march_pass"], got["shade_pass"]) != (want_k1, stats["tiles_rendered"]):
+        raise AssertionError(f"{label}: launches {got} for {stats}")
+    # every tile, culled or not, kept for the checks below
+    cache = TileSceneCache(64)
+    full = T.render_frame_tiled(source, cm, cfa, tile=TILE, cull=False, cache=cache, **kw)
+    if not (torch.equal(full.hit, tl.hit) and torch.equal(full.depth, tl.depth)):
+        raise AssertionError(f"{label}: culling changed the hit or depth of "
+                             f"{int((full.depth != tl.depth).sum())} pixels")
+    dc_cull = float((full.color - tl.color).abs().max())
+    if dc_cull > 2e-4:
+        raise AssertionError(f"{label}: culling changed the colour by {dc_cull}")
+    tiles = {(y0, x0): cache.peek((y0, x0, "full"))
+             for y0, x0 in _tile_origins(sc.n, TILE)}
+    del cache, full
+
+    def planes(f):
+        return (torch.where(f.hit, f.depth, torch.inf).reshape(-1).double(),
+                f.color.reshape(-1, 3).double())
+
+    (t_res, c_res), (t_tl, c_tl) = planes(res), planes(tl)
+    same = (torch.isinf(t_res) & torch.isinf(t_tl)) | (
+        torch.isfinite(t_res) & torch.isfinite(t_tl) & ((t_tl - t_res).abs() <= 1e-4 * t_res))
+    bad = ~(same & ((c_tl - c_res).abs().amax(-1) <= 2e-4))
+    n_bad, pixels = int(bad.sum()), cf.width * cf.height
+    n_hit = int((res.hit != tl.hit).sum())
+    if n_bad > cap:
+        raise AssertionError(f"{label}: {n_bad} pixels outside the bars ({n_hit} differ in "
+                             f"hit) of {pixels}, more than {cap}")
+    if n_bad:
+        idx = torch.nonzero(bad).squeeze(1)
+        rays = tuple(r.index_select(0, idx).contiguous() for r in primary_rays(cm, cfa))
+        # the two frames' hits from the marches themselves
+        h_r, t_r, hx_r, hy_r = march_to_end(rays, sc)
+        t_r = torch.where(h_r, t_r, torch.inf)
+        t_k = torch.full_like(t_r, torch.inf)
+        cx_k, cy_k = torch.full_like(hx_r, -1), torch.full_like(hy_r, -1)
+        clip = (1.0, 1.0 + TILE)
+        for (y0, x0), sub in tiles.items():
+            h, t, hx, hy = march_to_end(tile_rays(rays, x0, y0), sub, clip)
+            t = torch.where(h, t, torch.inf)
+            closer = t < t_k
+            t_k = torch.where(closer, t, t_k)
+            cx_k = torch.where(closer, hx + (x0 - 1), cx_k)
+            cy_k = torch.where(closer, hy + (y0 - 1), cy_k)
+        if not (torch.equal(t_r.double(), t_res[idx]) and torch.equal(t_k.double(), t_tl[idx])):
+            raise AssertionError(f"{label}: the marches of the {n_bad} pixels outside the bars "
+                                 "do not give the frames' hits")
+        # the nearer frame's hit cell, and the tiles that hold it
+        near_res = t_r < t_k
+        cx = torch.where(near_res, hx_r, cx_k)
+        cy = torch.where(near_res, hy_r, cy_k)
+        differs = t_r != t_k
+        nrm_res, nrm_tl = (f.normal.reshape(-1, 3)[idx] for f in (res, tl))
+        dcol = (c_tl[idx] - c_res[idx]).abs().amax(-1)
+        w_t, w_in, w_sl, w_mag, w_hit = cell_triangles(rays, cx, cy, sc.heights)
+        if not torch.equal(w_hit, near_res | ~differs):
+            raise AssertionError(f"{label}: the cell test in world coordinates does not give "
+                                 "the resident frame's verdict at the nearer hit cell")
+        explained = torch.zeros_like(differs)
+        tile_hit = torch.zeros_like(differs)
+        for (y0, x0), sub in tiles.items():
+            mine = (cx >= x0) & (cx < x0 + TILE) & (cy >= y0) & (cy < y0 + TILE)
+            lcx = torch.where(mine, cx - (x0 - 1), 1)
+            lcy = torch.where(mine, cy - (y0 - 1), 1)
+            l_t, l_in, l_sl, _, l_hit = cell_triangles(tile_rays(rays, x0, y0), lcx, lcy,
+                                                       sub.heights)
+            tile_hit |= mine & l_hit
+            # a hit or depth that differs: the same crossings, and one
+            # triangle's containment flips within 2 ulps of its edge
+            tol = 2 * ulp32(w_mag)
+            flip = ((l_in != w_in) & (w_sl.abs() <= tol) & (l_sl.abs() <= tol)).any(0)
+            deciding = mine & differs & (l_hit != w_hit)
+            bits = (l_t == w_t).all(0)
+            explained |= deciding & bits & flip
+            # a colour alone: the same hit in both frames, the tile's
+            # gradients and albedo at the cell's corners equal the map's,
+            # the in-cell offsets differ by rounding, and the shade pass at
+            # each frame's offsets gives that frame's normal, bit for bit
+            g = [torch.stack([x.reshape(-1)[(cy_ * n_ + cx_).long() + o] for o in
+                              (0, 1, n_, n_ + 1)]) for x, cx_, cy_, n_ in
+                 ((sc.gx, cx, cy, sc.n), (sc.gy, cx, cy, sc.n),
+                  (sub.gx, lcx, lcy, sub.n), (sub.gy, lcx, lcy, sub.n))]
+            data = (g[0] == g[2]).all(0) & (g[1] == g[3]).all(0)
+            if cf.texture:
+                for c in range(3):
+                    data &= (sc.albedo[c][(cy * sc.n + cx).long()]
+                             == sub.albedo[c][(lcy * sub.n + lcx).long()])
+            t_hit = torch.where(torch.isfinite(t_r), t_r, 0.0)
+            lr = tile_rays(rays, x0, y0)
+            off_w = [torch.clamp(rays[i] + t_hit * rays[3 + i] - c.float(), 0.0, 1.0)
+                     for i, c in ((0, cx), (1, cy))]
+            off_l = [torch.clamp(lr[i] + t_hit * lr[3 + i] - c.float(), 0.0, 1.0)
+                     for i, c in ((0, lcx), (1, lcy))]
+            d_off = torch.maximum((off_w[0] - off_l[0]).abs(), (off_w[1] - off_l[1]).abs())
+            rounding = (d_off > 0) & (d_off.double() <= 2 * ulp32(w_mag.amax(0)))
+            ones = torch.ones_like(cx)
+            n_w = torch.stack(shade_pass(ones, cx, cy, *off_w, sc.gx, sc.gy, None)[:3], -1)
+            n_l = torch.stack(shade_pass(ones, lcx, lcy, *off_l, sub.gx, sub.gy, None)[:3], -1)
+            normals = ((n_w == nrm_res).all(-1) & (n_l == nrm_tl).all(-1)
+                       & (n_w != n_l).any(-1))
+            explained |= (mine & ~differs & (cx_k == hx_r) & (cy_k == hy_r) & data & rounding
+                          & normals & (dcol <= 1e-3))
+        if not bool(explained.all()):
+            bad_px = idx[~explained].tolist()
+            raise AssertionError(f"{label}: {len(bad_px)} of the {n_bad} pixels outside the "
+                                 f"bars are not explained by the f32 cell test: {bad_px[:10]}")
+        if not torch.equal(tile_hit, ~near_res | ~differs):
+            raise AssertionError(f"{label}: the tiles' cell tests do not give the tiled "
+                                 "frame's verdict at the nearer hit cell")
+        log(f"  {label}: {n_bad} pixels outside the bars ({n_hit} differ in hit) of "
+            f"{pixels}: {int(differs.sum())} where one triangle's containment flips within 2 ulps of its "
+            f"edge between the frames (the resident frame nearer on "
+            f"{int(near_res.sum())}), {int((~differs).sum())} by the in-cell offsets' rounding alone")
+    keep = ~bad & torch.isfinite(t_res)
+    dd = float(((t_tl - t_res).abs() / t_res)[keep].max())
+    dc = float((c_tl - c_res).abs().amax(-1)[~bad].max())
+    t_ms = event_ms(lambda: T.render_frame_tiled(source, cm, cfa, tile=TILE, **kw), 1)
+    log(f"{label} vs resident: within the bars on {pixels - n_bad} of {pixels} pixels "
+        f"(depth {dd:.3g} relative, colour {dc:.3g}); culling changes no hit or depth, "
+        f"colour by {dc_cull:.3g}; {stats}; first frame {first_s:.2f} s, a second "
+        f"{t_ms:.1f} ms (events), {cf.width}x{cf.height}  [{card}]")
+    return tiles
 
 
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -233,12 +465,17 @@ def main() -> int:
     import hmrt_tpu_torch as T
     if not Path(T.__file__).resolve().is_relative_to(ROOT):
         raise RuntimeError(f"hmrt_tpu_torch imported from {T.__file__}, not this checkout")
+    from hmrt_tpu_torch.api.flythrough import frame_camera, orbit_flythrough
     from hmrt_tpu_torch.bench.configs import BENCH_CONFIGS, bench_albedo, bench_scene
+    from hmrt_tpu_torch.bench.floor import (OPS_PER_ALBEDO, OPS_PER_PIXEL, OPS_PER_SHADE,
+                                            OPS_PER_STEP, OPS_PER_TEST, bound, count_frame)
+    from hmrt_tpu_torch.bench.runner import ROW_KEYS, run_bench
     from hmrt_tpu_torch.core.renderer import render_frame_oracle
     from hmrt_tpu_torch.kernels import _build
     from hmrt_tpu_torch.kernels.compact import (FIRST_BUDGET, ROUND_BUDGET, ROUNDS,
-                                                hit_points, init_state, march_rounds,
-                                                primary_rays, shadow_start)
+                                                empty_results, hit_points, init_state,
+                                                march_rounds, primary_rays,
+                                                shadow_start)
     from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, march_pass,
                                                    march_pass_reference)
     from hmrt_tpu_torch.kernels.raycast import (fused_planes, fused_reference_planes,
@@ -252,12 +489,37 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  device {kind}")
 
-    def reset_counts():
-        for f in (march_pass, shade_pass, render_frame_fused):
+    kernel_fns = {"march_pass": march_pass, "shade_pass": shade_pass,
+                  "render_tile": render_frame_fused}
+    paths = {}  # launches of each kernel on each path, each run from counts of 0
+
+    def run_path(label, fn, want, none=()):
+        """Drive one path with every launch count set to 0 just before and
+        read just after; the kernels in `want` must have launched, those in
+        `none` must not."""
+        for f in kernel_fns.values():
             f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: f.launches for k, f in kernel_fns.items()}
+        paths[label] = got
+        log(f"{label}: launches {got}")
+        for k in want:
+            if got[k] <= 0:
+                raise AssertionError(f"{label}: {k} was not launched")
+        for k in none:
+            if got[k]:
+                raise AssertionError(f"{label}: {k} was launched")
+        return out
 
     def phase(name):
         log(f"---- {name}  (at {time.perf_counter() - t_start:.1f} s)")
+
+    def log_launch_counts(fc):
+        steps, tests = fc.totals(0), fc.totals(1)
+        for k, c in enumerate(fc.counts):
+            log(f"  march_pass launch {k + 1} ({'primary' if k < fc.n_primary else 'shadow'}): "
+                f"{int((c[0] > 0).sum())} rays stepped, {steps[k]} steps, {tests[k]} cell tests")
 
     # ---- 1. build the kernels from the checkout's sources ----------------
     phase("1. build")
@@ -273,21 +535,13 @@ def main() -> int:
     b3 = BENCH_CONFIGS["B3"]
     cfg = b3.render
     t0 = time.perf_counter()
-    scene, cam, _ = bench_scene(b3, device=dev)
+    scene, cam, terr3 = bench_scene(b3, device=dev)
     torch.cuda.synchronize()
     log(f"B3 scene: {scene.n}^2 samples, m={scene.m}, {scene.levels} levels, "
         f"built in {time.perf_counter() - t0:.2f} s")
 
-    reset_counts()
-    fr = T.render_frame(scene, cam, cfg)
-    torch.cuda.synchronize()
-    launches = {"march_pass": march_pass.launches, "shade_pass": shade_pass.launches}
-    log(f"B3 main path launches: {launches}, render_tile {render_frame_fused.launches}")
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"{k} was not launched by render_frame")
-    if render_frame_fused.launches:
-        raise AssertionError("B3 under 'auto' launched the fused kernel")
+    fr = run_path("B3 main path (render_frame, auto)", lambda: T.render_frame(scene, cam, cfg),
+                  ("march_pass", "shade_pass"), ("render_tile",))
 
     def check_frame(label, f, cf):
         color = f.color
@@ -445,16 +699,8 @@ def main() -> int:
     b1 = BENCH_CONFIGS["B1"]
     cfg1 = b1.render
     scene1, cam1, terr1 = bench_scene(b1, device=dev)
-    reset_counts()
-    fr1 = T.render_frame(scene1, cam1, cfg1)
-    torch.cuda.synchronize()
-    launches["render_tile"] = render_frame_fused.launches
-    log(f"B1 main path launches: render_tile {render_frame_fused.launches}, march_pass "
-        f"{march_pass.launches}, shade_pass {shade_pass.launches}")
-    if render_frame_fused.launches <= 0:
-        raise AssertionError("render_tile was not launched by render_frame on B1")
-    if march_pass.launches or shade_pass.launches:
-        raise AssertionError("B1 under 'auto' launched the compact path's kernels")
+    fr1 = run_path("B1 main path (render_frame, auto)", lambda: T.render_frame(scene1, cam1, cfg1),
+                   ("render_tile",), ("march_pass", "shade_pass"))
     b1_frac = check_frame("B1", fr1, cfg1)
     b1_ms, b1_times = median_ms(lambda: T.render_frame(scene1, cam1, cfg1), 5)
     log_rate("B1 fused", b1_ms, b1_times, cfg1, b1_frac)
@@ -616,26 +862,14 @@ def main() -> int:
     # ---- 10. the work of the full B3 frame, counted on the card ----------
     phase("10. the full B3 frame, counted by the kernels")
     # K1: the five launches of one compact frame, by the counting instance
-    sched = dict(cell_intersect=cfg.cell_intersect, clip=None, first_budget=FIRST_BUDGET,
-                 round_budget=ROUND_BUDGET)
-    k1_counts = []
-    hit_i, t_hit, hx, hy = march_rounds(rays, st_full, scene, rounds=ROUNDS, moving=(3, 4, 5),
-                                        counts=k1_counts, **sched)
-    hit = hit_i != 0
-    n_primary = len(k1_counts)
-    points, fx, fy = hit_points(rays, hit, t_hit, hx, hy)
-    srays, sstate = shadow_start(points, shade_pass(hit_i, hx, hy, fx, fy, scene.gx,
-                                                    scene.gy, None)[:3], hit, hx, hy, scene)
-    march_rounds(srays, sstate, scene, rounds=min(ROUNDS, 2), moving=(0, 1, 2),
-                 skip_pass0=True, counts=k1_counts, **sched)
-    if not torch.equal(hit.reshape(fr.hit.shape), fr.hit):
+    # (bench/floor.py, as the runner's --floor counts them)
+    fc3 = count_frame(scene, cam, cfg)
+    k1_counts, n_primary = fc3.counts, fc3.n_primary
+    if not torch.equal(fc3.hit.reshape(fr.hit.shape), fr.hit):
         raise AssertionError("the counted compact march does not give the frame's hits")
-    tot = [[int(c[k].sum(dtype=torch.int64)) for c in k1_counts] for k in (0, 1)]
-    for k, c in enumerate(k1_counts):
-        log(f"  march_pass launch {k + 1} ({'primary' if k < n_primary else 'shadow'}): "
-            f"{int((c[0] > 0).sum())} rays stepped, {tot[0][k]} steps, {tot[1][k]} cell tests")
-    k1_frame_bound = bound(len(k1_counts) * p * 4 * (15 + 9),
-                           sum(tot[0]) * OPS_PER_STEP + sum(tot[1]) * OPS_PER_TEST)
+    tot = [fc3.totals(0), fc3.totals(1)]
+    log_launch_counts(fc3)
+    k1_frame_bound = fc3.bound()
 
     def warps_of(st):
         return torch.nn.functional.pad(st, (0, -st.shape[0] % 32)).reshape(-1, 32)
@@ -680,21 +914,184 @@ def main() -> int:
         f"per pixel on 8x4 patches, primary then shadow march, would keep "
         f"{100 * k3_eff:.1f}% of its lanes busy  [{card}]")
 
+    # ---- 11. B4 resident: the 8192^2 flythrough through render_frame -----
+    phase("11. B4 resident: the scripted orbit over the 8192^2 map")
+    b4 = BENCH_CONFIGS["B4"]
+    cfg4 = b4.render
+    t0 = time.perf_counter()
+    scene4, _, terr4 = bench_scene(b4, device=dev)
+    torch.cuda.synchronize()
+    b4_build_s = time.perf_counter() - t0
+    sizes = {"heights": scene4.heights, "pyramid": scene4.pyr_flat,
+             "corner records": scene4.corners, "gx, gy": (scene4.gx, scene4.gy),
+             "planar albedo": scene4.albedo}
+    mb = {k: sum(x.numel() * x.element_size() for x in (v if isinstance(v, tuple) else (v,)))
+          / 1e6 for k, v in sizes.items()}
+    log(f"B4 scene: {scene4.n}^2 samples, m={scene4.m}, {scene4.levels} levels, built in "
+        f"{b4_build_s:.2f} s (numpy fBm, albedo, upload, pyramid); on the card (MB): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in mb.items()) + f", total {sum(mb.values()):.1f}")
+    cams4 = orbit_flythrough(b4.map_n, float(terr4.max()), b4.frames, device=dev)
+    cam40 = frame_camera(cams4, 0)
+    fr4 = run_path("B4 main path (render_frame, auto, orbit frame 0)",
+                   lambda: T.render_frame(scene4, cam40, cfg4),
+                   ("march_pass", "shade_pass"), ("render_tile",))
+    b4_launches = paths["B4 main path (render_frame, auto, orbit frame 0)"]
+    b4_frac = check_frame("B4 orbit frame 0", fr4, cfg4)
+    b4_ms, b4_times = median_ms(lambda: T.render_frame(scene4, cam40, cfg4), 5)
+    log_rate("B4 orbit frame 0", b4_ms, b4_times, cfg4, b4_frac)
+    for i in (0, 4):
+        check_vs_oracle(f"B4 orbit frame {i} 8192^2 1280x720 phong+fog+texture", scene4,
+                        frame_camera(cams4, i), cfg4)
+
+    # the textured shade pass against its plain version on every lane
+    rays4 = primary_rays(cam40, cfg4)
+    p4 = rays4[0].shape[0]
+    st4 = init_state(rays4, None, scene4.pyr_flat[-1], n=scene4.n, m=scene4.m,
+                     levels=scene4.levels)
+    # march_pass against its plain version on B4's rays: a strided sample
+    # and every ray still marching after pass 0 and the first sorted round
+    # (a per-ray budget composes), the frame's longest rays
+    kw4 = dict(n=scene4.n, m=scene4.m, levels=scene4.levels)
+    after4 = march_pass(rays4, st4, empty_results(p4, dev), scene4.pyr_flat, scene4.heights,
+                        scene4.corners, budget=FIRST_BUDGET + ROUND_BUDGET, **kw4)[0]
+    long4 = torch.nonzero(after4[0] != 0).squeeze(1)
+    if not long4.numel():
+        raise AssertionError("B4 frame 0 has no ray left after the first sorted round")
+    pick4 = torch.unique(torch.cat([torch.arange(N_SAMPLE, device=dev) * (p4 // N_SAMPLE),
+                                    long4]))
+    err_b4, _ = compare_march(
+        f"B4 frame 0 ({long4.numel()} rays of > {FIRST_BUDGET + ROUND_BUDGET} steps among "
+        f"{pick4.numel()})", tuple(r.index_select(0, pick4).contiguous() for r in rays4),
+        tuple(s.index_select(0, pick4).contiguous() for s in st4), scene4,
+        (1, 37, UNBUDGETED))
+    hit_i4, t_hit4, hx4, hy4 = march_rounds(rays4, st4, scene4,
+                                            cell_intersect=cfg4.cell_intersect, clip=None,
+                                            first_budget=FIRST_BUDGET, rounds=ROUNDS,
+                                            round_budget=ROUND_BUDGET, moving=(3, 4, 5))
+    hit4 = hit_i4 != 0
+    if not torch.equal(hit4.reshape(fr4.hit.shape), fr4.hit):
+        raise AssertionError("primary march of the B4 frame is not reproducible")
+    _, fx4, fy4 = hit_points(rays4, hit4, t_hit4, hx4, hy4)
+    shade4 = (hit_i4, hx4, hy4, fx4, fy4, scene4.gx, scene4.gy, scene4.albedo)
+    got4 = shade_pass(*shade4)
+    torch.cuda.synchronize()
+    want4 = shade_pass_reference(*shade4)
+    err_shade_tex = max(float((a - b).abs().max()) for a, b in zip(got4, want4))
+    if err_shade_tex > 1e-6:
+        raise AssertionError(f"textured shade_pass differs from its plain version by "
+                             f"{err_shade_tex}")
+    log(f"  shade_pass, textured, on all {p4} B4 lanes ({int(hit4.sum())} hits): max "
+        f"|kernel - plain| {err_shade_tex:.3g} (bar 1e-6)")
+    shade_tex_ms = kernel_ms(lambda: shade_pass(*shade4), "shade_pass_kernel", 20)
+    shade_tex_plain_ms = event_ms(lambda: shade_pass_reference(*shade4), 5)
+    # bytes: 5 lane planes in, 6 out, and per distinct corner sample its two
+    # gradients and three albedo channels
+    k2_tex_bound = bound(p4 * 4 * (5 + 6) + (8 + 12) * corner_samples(hit4, hx4, hy4, scene4.n),
+                         int(hit4.sum()) * (OPS_PER_SHADE + OPS_PER_ALBEDO))
+    log(f"shade_pass, textured, {p4} B4 lanes: kernel {shade_tex_ms:.4f} ms, plain "
+        f"{shade_tex_plain_ms:.4f} ms; bound {k2_tex_bound[0]:.4f} ms ({k2_tex_bound[1]})  "
+        f"[{card}]")
+
+    # the B4 frame's march work, counted as the runner's --floor counts it,
+    # against the device time of its march_pass launches
+    fc4 = count_frame(scene4, cam40, cfg4)
+    if not torch.equal(fc4.hit.reshape(fr4.hit.shape), fr4.hit):
+        raise AssertionError("the counted B4 march does not give the frame's hits")
+    log_launch_counts(fc4)
+    k1_b4_bound = fc4.bound()
+    per_launch4 = launch_times(lambda: T.render_frame(scene4, cam40, cfg4),
+                               ("march_pass_kernel", "shade_pass_kernel"))
+    k1_b4_ms = sum(ms for name, ms in per_launch4 if name == "march_pass_kernel")
+    log("B4 frame, device ms per launch: "
+        + ", ".join(f"{name.split('_kernel')[0]} {ms:.4f}" for name, ms in per_launch4)
+        + f"; march_pass {k1_b4_ms:.4f} ms over {len(fc4.counts)} launches, "
+        f"{sum(fc4.totals(0))} steps, {sum(fc4.totals(1))} cell tests; bound "
+        f"{k1_b4_bound[0]:.4f} ms ({k1_b4_bound[1]})  [{card}]")
+    profile_frames("B4 auto (compact)", lambda: T.render_frame(scene4, cam40, cfg4), b4_ms)
+
+    # ---- 12. the bench runner: a row for each of B1-B5 -------------------
+    phase("12. the bench runner, B1-B5")
+    row_dir = ROOT / "build" / "bench_rows"
+    row_dir.mkdir(parents=True, exist_ok=True)
+    runner_kernels = {"B1": (("render_tile",), ("march_pass", "shade_pass")),
+                      "B2": (("march_pass", "shade_pass"), ("render_tile",)),
+                      "B3": (("march_pass", "shade_pass"), ("render_tile",)),
+                      "B4": (("march_pass", "shade_pass"), ("render_tile",)),
+                      "B5": (("march_pass", "shade_pass"), ("render_tile",))}
+    for name, (want, none) in runner_kernels.items():
+        out = row_dir / f"{name}.json"
+        row = run_path(f"runner {name}", lambda: run_bench(name, floor=name in ("B3", "B4"),
+                                                           out_path=str(out)), want, none)
+        log(json.dumps(row))
+        log(f"  [{card}]")
+        missing = [k for k in ROW_KEYS + ("device",) if k not in row]
+        if missing:
+            raise AssertionError(f"runner {name}: row lacks {missing}")
+        if json.loads(out.read_text()) != json.loads(json.dumps(row)):
+            raise AssertionError(f"runner {name}: the row on disk differs from the row")
+        if not (0 < row["ms_per_frame"] < 1e5) or row["chips"] != 1:
+            raise AssertionError(f"runner {name}: ms_per_frame {row['ms_per_frame']}")
+        extra = {"B3": ("lane_steps_per_frame", "march_bound_ms"),
+                 "B4": ("ms_per_frame_1920x1080", "lane_steps_per_frame"),
+                 "B5": ("note", "hit_frac")}.get(name, ())
+        if any(k not in row for k in extra):
+            raise AssertionError(f"runner {name}: row lacks one of {extra}")
+
+    # ---- 13. the out-of-core tiled renderer against the resident frame ---
+    phase("13. tiled: B4 in 2048-cell tiles, B3 with shadows")
+
+    # at most the pixels the tiled frames have shown outside the bars (35
+    # of B4's, 7 of B3's, the same in every call), with a little room
+    alb4 = np.ascontiguousarray(scene4.albedo.cpu().numpy().T.reshape(scene4.n, scene4.n, 3))
+    cache4 = check_tiled("B4 tiled (2048-cell tiles)", scene4, cam40, cfg4, terr4, 40, run_path,
+                         paths, card, albedo=alb4)
+    del alb4
+    # march_pass against its plain version on the sub-scene of the tile that
+    # the most rays enter, in its frame and under its clip window
+    clip = (1.0, 1.0 + TILE)
+    best = None
+    for (y0, x0), sub in cache4.items():
+        lr = tile_rays(rays4, x0, y0)
+        st = init_state(lr, None, sub.pyr_flat[-1], n=sub.n, m=sub.m, levels=sub.levels,
+                        clip=clip)
+        alive = torch.nonzero(st[0] != 0).squeeze(1)
+        if best is None or alive.numel() > best[0].numel():
+            best = (alive, (y0, x0), sub, lr, st)
+    alive, (y0, x0), sub, lr, st = best
+    pick = alive[torch.linspace(0, alive.numel() - 1, min(N_SAMPLE, alive.numel()),
+                                device=dev).long()]
+    err_tile, _ = compare_march(
+        f"B4 tile ({y0}, {x0}) sub-scene m={sub.m}, clip {clip}, {pick.numel()} of the "
+        f"{alive.numel()} rays that enter it",
+        tuple(r.index_select(0, pick).contiguous() for r in lr),
+        tuple(x.index_select(0, pick).contiguous() for x in st), sub, (1, 37, UNBUDGETED),
+        clip=clip)
+    del cache4, best, sub, lr, st
+    check_tiled("B3 tiled with shadows (2048-cell tiles)", scene, cam, cfg, terr3, 10, run_path,
+                paths, card)
+
     phase("done")
+    launches = {k: sum(got[k] for got in paths.values()) for k in kernel_fns}
+    log(f"launches over the {len(paths)} paths: {launches}")
     kernels = [
         {"name": "march_pass", "route": "cuda",
          "source": "hmrt_tpu_torch/kernels/csrc/march_pass.cu",
          "replaces": "hmrt_tpu/kernels/compact.py:80",
          "launches": launches["march_pass"],
-         "max_abs_err": max(err_primary, err_mid, err_shadow, err_edge),
+         "max_abs_err": max(err_primary, err_mid, err_shadow, err_edge, err_b4, err_tile),
          "ms": march_ms, "plain_ms": march_plain_ms,
-         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
+         "b4_frame_launches": b4_launches["march_pass"], "b4_frame_ms": k1_b4_ms,
+         "b4_frame_bound_ms": k1_b4_bound[0], "b4_frame_bound_by": k1_b4_bound[1]},
         {"name": "shade_pass", "route": "cuda",
          "source": "hmrt_tpu_torch/kernels/csrc/shade_pass.cu",
          "replaces": "hmrt_tpu/kernels/compact.py:562",
          "launches": launches["shade_pass"],
-         "max_abs_err": err_shade, "ms": shade_ms, "plain_ms": shade_plain_ms,
-         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
+         "max_abs_err": max(err_shade, err_shade_tex), "ms": shade_ms,
+         "plain_ms": shade_plain_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+         "library_ms": None, "textured_max_abs_err": err_shade_tex,
+         "textured_ms": shade_tex_ms, "textured_plain_ms": shade_tex_plain_ms,
+         "textured_bound_ms": k2_tex_bound[0], "textured_bound_by": k2_tex_bound[1]},
         {"name": "render_tile", "route": "cuda",
          "source": "hmrt_tpu_torch/kernels/csrc/render_tile.cu",
          "replaces": "hmrt_tpu/kernels/raycast.py:88",

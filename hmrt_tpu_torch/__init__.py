@@ -5,18 +5,25 @@ NVIDIA Hopper. It imports torch and never jax; the JAX package is the
 reference it is tested against. Entry points:
 
     procedural_terrain -> make_scene -> Camera -> render_frame -> Frame
+
+plus `flythrough`/`orbit_flythrough` (batched cameras), `render_frame_tiled`
+(out-of-core maps) and `save_state`/`load_state`.
 """
 
+from hmrt_tpu_torch.api.flythrough import flythrough, orbit_flythrough
 from hmrt_tpu_torch.api.scene import make_scene
+from hmrt_tpu_torch.api.tiled import render_frame_tiled
 from hmrt_tpu_torch.config import RenderConfig
 from hmrt_tpu_torch.core.pyramid import build_pyramid_flat
 from hmrt_tpu_torch.core.renderer import render_frame
 from hmrt_tpu_torch.io.heightmap import procedural_terrain
+from hmrt_tpu_torch.io.state import load_state, save_state
 from hmrt_tpu_torch.types import Camera, Frame, Light, Scene
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Camera", "Frame", "Light", "RenderConfig", "Scene",
-    "build_pyramid_flat", "make_scene", "procedural_terrain", "render_frame",
+    "build_pyramid_flat", "flythrough", "load_state", "make_scene", "orbit_flythrough",
+    "procedural_terrain", "render_frame", "render_frame_tiled", "save_state",
 ]

@@ -121,6 +121,19 @@ def march_rounds(rays, state, scene: Scene, *, cell_intersect: str, clip,
     return tuple(torch.empty_like(x).index_copy_(0, perm_tot, x) for x in res)
 
 
+def march_shadows(srays, sstate, scene: Scene, *, cell_intersect: str, clip,
+                  first_budget: int = FIRST_BUDGET, rounds: int = ROUNDS,
+                  round_budget: int = ROUND_BUDGET, counts: list | None = None):
+    """The shadow march of a compact frame: min(rounds, 2) sorted rounds
+    from the rays' start state and no pass 0. Only the origin planes differ
+    per ray (the direction is the sun's). Returns the hit plane in launch
+    order; `counts` as in `march_rounds`."""
+    return march_rounds(srays, sstate, scene, cell_intersect=cell_intersect, clip=clip,
+                        first_budget=first_budget, rounds=min(rounds, 2),
+                        round_budget=round_budget, moving=(0, 1, 2), skip_pass0=True,
+                        counts=counts)[0]
+
+
 def hit_points(rays, hit, t_hit, hx, hy):
     """World hit points (px, py, pz) and the offsets (fx, fy) inside the
     hit cell, clamped to [0, 1]."""
@@ -219,13 +232,15 @@ def to_frame(config: RenderConfig, color, depth, normal, hit) -> Frame:
 
 def render_frame_compact(scene: Scene, camera: Camera, config: RenderConfig, *,
                          first_budget: int = FIRST_BUDGET, rounds: int = ROUNDS,
-                         round_budget: int = ROUND_BUDGET) -> Frame:
+                         round_budget: int = ROUND_BUDGET, counts: dict | None = None) -> Frame:
     """Compacted-wavefront render (see the module docstring).
 
     first_budget: steps of pass 0 in launch order (0 skips it);
     rounds: sorted rounds, the last unbudgeted (at least 1);
     round_budget: steps of each earlier sorted round.
-    The shadow march takes min(rounds, 2) sorted rounds and no pass 0."""
+    The shadow march takes min(rounds, 2) sorted rounds and no pass 0.
+    counts: a dict whose "primary" and "shadow" lists take each march
+    launch's per-ray steps and cell tests (`march_rounds`; bench/floor.py)."""
     if rounds < 1 or first_budget < 0 or round_budget < 0:
         raise ValueError(f"bad schedule first_budget={first_budget} "
                          f"rounds={rounds} round_budget={round_budget}")
@@ -235,10 +250,10 @@ def render_frame_compact(scene: Scene, camera: Camera, config: RenderConfig, *,
 
     state0 = init_state(rays, None, scene.pyr_flat[-1], n=scene.n, m=scene.m,
                         levels=scene.levels, clip=config.clip_box)
-    hit_i, t_hit, hx, hy = march_rounds(rays, state0, scene, rounds=rounds,
-                                        moving=(3, 4, 5), **sched)
+    counts = counts if counts is not None else {"primary": None, "shadow": None}
+    hit_i, t_hit, hx, hy = march_rounds(rays, state0, scene, rounds=rounds, moving=(3, 4, 5),
+                                        counts=counts["primary"], **sched)
     return to_frame(config, *shade_frame(
         scene, config, rays, hit_i, t_hit, hx, hy, shade=shade_pass,
-        shadow_hits=lambda srays, sstate: march_rounds(
-            srays, sstate, scene, rounds=min(rounds, 2), moving=(0, 1, 2),
-            skip_pass0=True, **sched)[0]))
+        shadow_hits=lambda srays, sstate: march_shadows(
+            srays, sstate, scene, rounds=rounds, counts=counts["shadow"], **sched)))

@@ -368,3 +368,71 @@ def test_unbuildable_library_raises(cuda, tmp_path, monkeypatch):
         assert shade_pass.launches == before
     finally:
         _build.library.cache_clear()
+
+
+@pytest.mark.parametrize("backend", ["compact", "auto"])
+@pytest.mark.parametrize("shadows", [False, True])
+def test_tiled_on_card_equals_resident(cuda, backend, shadows):
+    """The tiled renderer on the card, each tile through the kernels
+    (compact: march_pass and shade_pass under the tile's clip window;
+    "auto" on these small tiles: render_tile), the shadow sweep through
+    march_pass: equal to the resident frame within the tiled bars."""
+    terr = T.procedural_terrain(129, seed=7)
+    albedo = np.random.default_rng(1).uniform(0.2, 0.9, (129, 129, 3)).astype(np.float32)
+    cam = T.Camera.create(eye=(64.5, -38.7, float(terr.max()) + 19.35),
+                          target=(64.5, 64.5, float(terr.mean())), device=cuda)
+    cfg = T.RenderConfig(width=96, height=64, shading="phong", fog=True, texture=True,
+                         shadows=shadows, aux_buffers=True, backend=backend)
+    res = T.render_frame(T.make_scene(terr, albedo=albedo, device=cuda), cam,
+                         dataclasses.replace(cfg, backend="compact"))
+    stats = {}
+    m0, f0 = march_pass.launches, render_frame_fused.launches
+    tl = T.render_frame_tiled(terr, cam, cfg, tile=64, albedo=albedo, _stats=stats,
+                              device=cuda)
+    torch.cuda.synchronize()
+    shadow_k1 = 2 * stats.get("shadow_tiles_marched", 0)
+    if backend == "compact":
+        assert march_pass.launches - m0 == 3 * stats["tiles_rendered"] + shadow_k1
+    else:
+        assert render_frame_fused.launches - f0 == stats["tiles_rendered"]
+        assert march_pass.launches - m0 == shadow_k1
+    assert torch.equal(tl.hit, res.hit)
+    h = res.hit
+    torch.testing.assert_close(tl.depth[h], res.depth[h], rtol=1e-4, atol=0)
+    assert float((tl.color - res.color).abs().max()) <= 2e-4
+
+
+def test_frame_counts_on_card_equal_plain(cuda):
+    """bench/floor.py on the card (the counting instance) and on the CPU
+    (the plain WorkCounter): the same per-ray counts in the launch-order
+    pass 0 and the same totals in every launch (the sorted passes may order
+    rays of equal keys differently on the two devices)."""
+    from hmrt_tpu_torch.bench.floor import count_frame
+    terr = T.procedural_terrain(128, seed=3)
+    cfg = T.RenderConfig(width=128, height=32, shading="phong", shadows=True)
+    got = {}
+    for dev in (cuda, "cpu"):
+        sc = T.make_scene(terr, device=dev)
+        cam = T.Camera.create(eye=(64, -42, float(terr.max()) + 21),
+                              target=(64, 64, float(terr.mean())), device=dev)
+        got[str(dev)] = count_frame(sc, cam, cfg)
+    a, b = got[str(cuda)], got["cpu"]
+    assert a.n_primary == b.n_primary and len(a.counts) == len(b.counts) == 5
+    assert torch.equal(a.hit.cpu(), b.hit)
+    assert torch.equal(a.counts[0].cpu(), b.counts[0])
+    assert a.totals(0) == b.totals(0) and a.totals(1) == b.totals(1)
+
+
+def test_runner_and_timing_on_card(cuda, tmp_path):
+    """A small B1 and B2 row on the card: the JAX row's keys, CUDA-event
+    times, the device's name; B2 renders through march_pass."""
+    from hmrt_tpu_torch.bench.runner import ROW_KEYS, run_bench
+    for name, k in (("B1", render_frame_fused), ("B2", march_pass)):
+        before = k.launches
+        row = run_bench(name, frames=2, scale=0.125, reps=2, floor=name == "B2",
+                        out_path=str(tmp_path / f"{name}.json"))
+        assert k.launches > before
+        assert set(ROW_KEYS) <= set(row) and row["backend"] == "cuda"
+        assert row["device"] == torch.cuda.get_device_name(0)
+        assert 0 < row["ms_per_frame"] and len(row["all_times_ms"]) == 2
+    assert row["lane_steps_per_frame"] == row["lane_steps_primary"] > 0
