@@ -37,7 +37,24 @@ drives both render paths through the normal entry points:
     shadows (the shadow sweep on march_pass), each against the resident
     frame, every pixel outside the bars traced to the f32 cell test; and
     march_pass against its plain version on a B4 tile's sub-scene under
-    its clip window.
+    its clip window;
+  - sharding (phase 14): B5's 8 bands of 270 rows through compact, B1's 8
+    bands of 64 rows and B3's 2 bands of 540 through the fused kernel,
+    stacked, against the one-card frames (hit, depth and hit cells equal);
+    render_frame_sharded of B5 on a one-rank NCCL group against
+    render_frame, both timed; two gloo ranks sharing the card (B5
+    band-sharded, B4's first 2 orbit frames frame-sharded, the scene
+    replicated from rank 0); B5 over every card where there are several;
+    the runner's frame-parallel B4 row;
+  - the entry points (phase 15): the render CLI as four subprocesses at
+    once (plain with --shadows --aux, --sharded, --tile on a .r32 file,
+    --flythrough), the viewer CLI's HTML and APNG, the HTTP viewer server
+    in a thread on 127.0.0.1 (GET /, /state, POST /frame draft and full,
+    a non-finite camera), each against render_frame at that camera; and
+    load_heightmap on a PNG, a PGM, a TIFF and an ESRI ASCII grid.
+
+`python3 chip_smoke.py --cards`, on a machine with several cards, runs only
+B5 band-sharded over every card against one card (phase 14(d)).
 
 It prints the card's name and power limit, one JSON line of per-kernel
 results (time, plain time, launches, error and the bound of each), and last
@@ -88,38 +105,84 @@ def corner_samples(hit, hx, hy, n: int) -> int:
     return int(torch.unique(torch.cat([base + o for o in (0, 1, n, n + 1)])).numel())
 
 
-def kernel_ms(fn, kernel: str, reps: int) -> float:
-    """Device time per call of the CUDA kernel whose name contains
-    `kernel`, over `reps` calls of fn(), from torch.profiler: the kernel
-    alone, without the wrapper's host work between launches."""
+PAD_S = 0.25        # idle host time at each end of a profiled window
+SPIN_CYCLES = 2e8   # ~0.1 s of spin kernel: the host queues the timed calls meanwhile
+
+
+def profiled(fn, calls: int, cuda_only: bool = True, counted=None):
+    """torch.profiler over `calls` calls of fn(), after one warm call, and
+    the launches that the wrapper `counted` made in those calls. The calls
+    sit between PAD_S of idle host time on each side: on the H100 machine a
+    window of a few ms late in a long run lost device events (of 20
+    launches of a ~40 us kernel, some in one call and none in the next), and
+    a wider window keeps them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    n0 = counted.launches if counted is not None else 0
+    acts = [ProfilerActivity.CUDA] + ([] if cuda_only else [ProfilerActivity.CPU])
+    with profile(activities=acts) as prof:
+        time.sleep(PAD_S)
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-             if kernel in e.key)
-    if us <= 0:
-        raise RuntimeError(f"the profiler recorded no device time for {kernel}")
-    return us / 1e3 / reps
+        time.sleep(PAD_S)
+    return prof, (counted.launches - n0 if counted is not None else None)
+
+
+def kernel_wrapper(kernel: str):
+    """The port's wrapper that launches (and counts) the CUDA kernel `kernel`."""
+    from hmrt_tpu_torch.kernels.march_pass import march_pass
+    from hmrt_tpu_torch.kernels.raycast import render_frame_fused
+    from hmrt_tpu_torch.kernels.shade_pass import shade_pass
+    return {"march_pass_kernel": march_pass, "shade_pass_kernel": shade_pass,
+            "render_tile_kernel": render_frame_fused}[kernel]
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device time per call of fn() by CUDA events, the calls queued behind
+    a spin kernel so that the host's work between launches stays off the
+    card's clock (unless fn() itself waits for the card)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(SPIN_CYCLES))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, kernel: str, reps: int) -> float:
+    """Device time per call of the CUDA kernel whose name contains
+    `kernel`, over `reps` calls of fn(): from torch.profiler when it
+    recorded every launch that the kernel's wrapper counted, the kernel
+    alone without the wrapper's host work between launches. Otherwise it
+    says so and times the calls by `queued_ms`, which also holds fn()'s
+    other device work."""
+    from torch.autograd import DeviceType
+    prof, launched = profiled(fn, reps, counted=kernel_wrapper(kernel))
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    if launched > 0 and len(us) == launched:
+        return sum(us) / 1e3 / reps
+    ms = queued_ms(fn, reps)
+    log(f"  the profiler recorded {len(us)} of {launched} launches of {kernel}: "
+        f"{ms:.4f} ms per call by events, queued behind a spin kernel")
+    return ms
 
 
 def launch_times(fn, names, frames: int = 3) -> list:
     """[(kernel name, device ms), ...] of each launch, in launch order, of
     the kernels whose names contain one of `names`, in one call of fn(): the
     mean over `frames` calls, from torch.profiler's device events."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
-            fn()
-        torch.cuda.synchronize()
+    prof, _ = profiled(fn, frames)
     evs = sorted((e.time_range.start, name, e.time_range.elapsed_us() / 1e3)
                  for e in prof.events() if e.device_type == DeviceType.CUDA
                  for name in names if name in e.name)
@@ -155,14 +218,7 @@ def median_ms(fn, reps: int) -> tuple[float, list]:
 def profile_frames(label, fn, frame_ms, frames: int = 3):
     """torch.profiler over `frames` calls of fn(): device time per frame by
     kernel, and the busy share of `frame_ms` (the frame's time by events)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
-            fn()
-        torch.cuda.synchronize()
+    prof, _ = profiled(fn, frames, cuda_only=False)
     rows = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3 / frames)
             for e in prof.key_averages()]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
@@ -452,9 +508,433 @@ def check_tiled(label, sc, cm, cf, source, cap, run_path, paths, card, **kw):
     return tiles
 
 
-def main() -> int:
+def quantise(x):
+    """The PNG writers' 8-bit quantisation of float values in [0, 1]."""
+    import numpy as np
+    return (np.clip(x, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+
+
+def compare_exact(label, pairs, close=(), bar=1e-6):
+    """Raise unless every (name, a, b) of `pairs` is equal, and every one
+    of `close` within `bar`; return the largest difference in `close`."""
+    import torch
+    for name, a, b in pairs:
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: {name} differs on {int((a != b).sum())} values")
+    err = max((float((a - b).abs().max()) for _, a, b in close), default=0.0)
+    if err > bar:
+        raise AssertionError(f"{label}: {[n for n, _, _ in close]} differ by {err} (bar {bar})")
+    return err
+
+
+def across_cards(card, scene, cam, terr_path, want5):
+    """B5 band-sharded over every card of the machine (NCCL), against the
+    one-card frame `want5` (sha256 of colour and hit), and the runner's B5
+    row on every card beside the one-card frame's time. `terr_path` holds
+    the B5 map for rank 0 to read. Returns the runner's row."""
+    from datetime import timedelta
+
+    import torch
+    import hmrt_tpu_torch as T
+    from hmrt_tpu_torch.bench.configs import BENCH_CONFIGS
+    from hmrt_tpu_torch.bench.runner import run_bench
+    from hmrt_tpu_torch.distrib.dryrun import frame_digest, render_sharded_jobs
+    from hmrt_tpu_torch.distrib.mesh import spawn
+    cards = torch.cuda.device_count()
+    cfg5 = BENCH_CONFIGS["B5"].render
+    cam_args = (tuple(cam.eye.tolist()), tuple(cam.target.tolist()), 55.0)
+    t0 = time.perf_counter()
+    (out,) = spawn(render_sharded_jobs, cards,
+                   args=([dict(source=str(terr_path), config=cfg5, camera=cam_args,
+                               keep=False)],),
+                   backend="nccl", timeout=timedelta(seconds=300), join_timeout=600)
+    if out["frame"]["hit_diff"] or out["frame"]["color_max_err"] > 1e-6 \
+            or out["frame_sha"] != frame_digest(want5.color, want5.hit):
+        raise AssertionError(f"B5 over {cards} cards differs from one card: {out['frame']}")
+    log(f"B5 band-sharded over {cards} cards (NCCL, {time.perf_counter() - t0:.1f} s with "
+        f"start-up): equal to the one-card frame (sha256 of colour and hit)")
+    one_ms, one_times = median_ms(lambda: T.render_frame(scene, cam, cfg5), 5)
+    row = run_bench("B5", out_path=str(ROOT / "build" / "smoke" / f"B5_{cards}cards.json"))
+    log(json.dumps(row))
+    if row["chips"] != cards or row["strategy"] != "band":
+        raise AssertionError(f"B5 over {cards} cards: row {row['chips']} {row['strategy']}")
+    log(f"B5 over {cards} cards: {row['ms_per_frame']:.3f} ms/frame (runner, each rep from a "
+        f"barrier to the slowest rank's end) against {one_ms:.3f} ms on one card "
+        f"({one_times}): {one_ms / row['ms_per_frame']:.2f}x  [{card}]")
+    return row
+
+
+def sharding_phase(run_path, card, scene, cam, terr3, scene1, cam1, cfg1, scene4, terr4,
+                   cams4):
+    """Phase 14: band and frame sharding on the card (see main's docstring).
+    Returns the largest colour/normal difference of the bands against the
+    one-card frames, by kernel."""
+    from datetime import timedelta
+
     import numpy as np
     import torch
+    import hmrt_tpu_torch as T
+    from hmrt_tpu_torch.api.flythrough import frame_camera
+    from hmrt_tpu_torch.bench.configs import BENCH_CONFIGS
+    from hmrt_tpu_torch.bench.runner import run_bench
+    from hmrt_tpu_torch.distrib.dryrun import frame_digest, render_sharded_jobs, scene_digest
+    from hmrt_tpu_torch.distrib.mesh import make_mesh, render_frame_sharded, spawn
+    from hmrt_tpu_torch.kernels.compact import (FIRST_BUDGET, ROUND_BUDGET, ROUNDS, init_state,
+                                                march_rounds, primary_rays,
+                                                render_frame_compact)
+    from hmrt_tpu_torch.kernels.raycast import fused_planes
+    dev = scene.device
+    b5, b4 = BENCH_CONFIGS["B5"], BENCH_CONFIGS["B4"]
+    cfg5 = b5.render
+    cfg5a = dataclasses.replace(cfg5, aux_buffers=True)
+    H5, W5, n_bands = cfg5.height, cfg5.width, 8
+    band = H5 // n_bands
+
+    # (a) B5's 8 bands of 270 rows through compact, against the one-card frame
+    def hit_cells(rays):
+        st = init_state(rays, None, scene.pyr_flat[-1], n=scene.n, m=scene.m,
+                        levels=scene.levels)
+        hit_i, _, hx, hy = march_rounds(rays, st, scene, cell_intersect=cfg5.cell_intersect,
+                                        clip=None, first_budget=FIRST_BUDGET, rounds=ROUNDS,
+                                        round_budget=ROUND_BUDGET, moving=(3, 4, 5))
+        return torch.stack([torch.where(hit_i != 0, hx, -1), torch.where(hit_i != 0, hy, -1)],
+                           -1)
+
+    full = T.render_frame(scene, cam, cfg5a)
+    full_cells = hit_cells(primary_rays(cam, cfg5)).reshape(H5, W5, 2)
+    bands, cells, sky = [], [], 0
+    for r in range(n_bands):
+        bc = dataclasses.replace(cfg5a, height=band)
+        bands.append(run_path(f"B5 compact band {r} (rows {r * band}-{(r + 1) * band - 1})",
+                              lambda: render_frame_compact(scene, cam, bc, row0=r * band,
+                                                           full_height=H5),
+                              ("march_pass", "shade_pass"), ("render_tile",)))
+        cells.append(hit_cells(primary_rays(cam, bc, r * band, H5)).reshape(band, W5, 2))
+        sky += not bool(bands[-1].hit.any())
+    stacked = {k: torch.cat([getattr(f, k) for f in bands]) for k in ("color", "depth",
+                                                                      "normal", "hit")}
+    err_c = compare_exact("B5 compact bands", [("hit", stacked["hit"], full.hit),
+                                               ("depth", stacked["depth"], full.depth),
+                                               ("hit cells", torch.cat(cells), full_cells)],
+                          [("colour", stacked["color"], full.color),
+                           ("normal", stacked["normal"], full.normal)])
+    log(f"B5 {n_bands} compact bands of {band} rows ({sky} of them sky only) stacked = the "
+        f"one-card frame: hit, depth and hit cells equal, max colour/normal diff {err_c:.3g} "
+        f"(bar 1e-6)")
+    # each band's time on one card: an n-way band split waits for its slowest
+    bc = dataclasses.replace(cfg5, height=band)
+    band_ms = [median_ms(lambda: render_frame_compact(scene, cam, bc, row0=r * band,
+                                                      full_height=H5), 3)[0]
+               for r in range(n_bands)]
+    frame_ms = median_ms(lambda: T.render_frame(scene, cam, cfg5), 3)[0]
+    log(f"B5 band ms on one card (median of 3, events; rows of {band} from the top): "
+        + ", ".join(f"{t:.3f}" for t in band_ms)
+        + f"; sum {sum(band_ms):.3f}, the frame {frame_ms:.3f}, the slowest band "
+        f"{max(band_ms):.3f} (an 8-way split at most {frame_ms / max(band_ms):.2f}x)  [{card}]")
+
+    # the fused kernel on B1 in 8 bands of 64 rows and B3 in 2 bands of 540
+    err_f = 0.0
+    for label, sc, cm, cf, k in (("B1", scene1, cam1, cfg1, 8),
+                                 ("B3", scene, cam, dataclasses.replace(
+                                     BENCH_CONFIGS["B3"].render, backend="pallas"), 2)):
+        cfa = dataclasses.replace(cf, aux_buffers=True)
+        want = fused_planes(sc, cm, cfa, cells=True)
+        hb = cf.height // k
+        parts = [run_path(f"{label} fused band {r} (rows {r * hb}-{(r + 1) * hb - 1})",
+                          lambda: fused_planes(sc, cm, dataclasses.replace(cfa, height=hb),
+                                               r * hb, cf.height, cells=True),
+                          ("render_tile",), ("march_pass", "shade_pass")) for r in range(k)]
+        got = [torch.cat([p[i] for p in parts]) for i in range(5)]
+        e = compare_exact(f"{label} fused bands", [("hit", got[3], want[3]),
+                                                   ("depth", got[1], want[1]),
+                                                   ("hit cells", got[4], want[4])],
+                          [("colour", got[0], want[0]), ("normal", got[2], want[2])])
+        err_f = max(err_f, e)
+        log(f"{label} fused in {k} bands of {hb} rows stacked = the one-card frame: hit, "
+            f"depth and hit cells equal, max colour/normal diff {e:.3g} (bar 1e-6)")
+
+    # (b) a one-rank NCCL group: the sharding layer around the same render
+    with make_mesh(dev, "nccl") as mesh:
+        fr_s = run_path("B5 render_frame_sharded, one-rank NCCL group",
+                        lambda: render_frame_sharded(scene, cam, cfg5a, mesh),
+                        ("march_pass", "shade_pass"), ("render_tile",))
+        compare_exact("B5 sharded on one rank", [(k, getattr(fr_s, k), getattr(full, k))
+                                                 for k in ("hit", "depth", "color", "normal")])
+        turns = []
+        for label, fn in (("render_frame", lambda: T.render_frame(scene, cam, cfg5)),
+                          ("render_frame_sharded", lambda: render_frame_sharded(
+                              scene, cam, cfg5, mesh)),
+                          ("render_frame_sharded", lambda: render_frame_sharded(
+                              scene, cam, cfg5, mesh)),
+                          ("render_frame", lambda: T.render_frame(scene, cam, cfg5))):
+            ms, _ = median_ms(fn, 5)
+            turns.append((label, ms))
+            log(f"  B5 {label}: {ms:.3f} ms/frame (median of 5, events)  [{card}]")
+    plain_ms = (turns[0][1] + turns[3][1]) / 2
+    sharded_ms = (turns[1][1] + turns[2][1]) / 2
+    log(f"B5 on a one-rank NCCL group: equal to render_frame (hit, depth, colour, normal); "
+        f"{sharded_ms:.3f} against {plain_ms:.3f} ms/frame, the sharding layer "
+        f"{sharded_ms - plain_ms:+.3f} ms  [{card}]")
+
+    # (c) two ranks sharing the card: gloo collectives, renders on the card
+    smoke = ROOT / "build" / "smoke"
+    smoke.mkdir(parents=True, exist_ok=True)
+    np.save(smoke / "b3.npy", terr3)
+    np.save(smoke / "b4.npy", terr4)
+    n3 = terr3.shape[0]
+    cam_args = ((n3 * 0.5, -n3 * 0.25, float(terr3.max()) + n3 * 0.06),
+                (n3 * 0.5, n3 * 0.5, float(terr3.mean())), 55.0)
+    jobs = [dict(source=str(smoke / "b3.npy"), config=cfg5, camera=cam_args, keep=False),
+            dict(source=str(smoke / "b4.npy"), config=b4.render,
+                 orbit=(b4.frames, 2, float(terr4.max())), keep=False)]
+    t0 = time.perf_counter()
+    out5, out4 = spawn(render_sharded_jobs, 2, args=(jobs,), backend="gloo",
+                       devices=[dev, dev], timeout=timedelta(seconds=300), join_timeout=600)
+    two_s = time.perf_counter() - t0
+    for label, out, sc in (("B5", out5, scene), ("B4", out4, scene4)):
+        dg = out["scene_digests"]
+        if not (dg == scene_digest(sc).cpu().numpy()).all():
+            raise AssertionError(f"{label}: the replicated scenes differ from this process's")
+    want5 = T.render_frame(scene, cam, cfg5)
+    if out5["frame"]["hit_diff"] or out5["frame"]["color_max_err"] > 1e-6 \
+            or out5["frame_sha"] != frame_digest(want5.color, want5.hit):
+        raise AssertionError(f"B5 on two gloo ranks differs from render_frame: {out5['frame']}")
+    want4 = [frame_digest(T.render_frame(scene4, frame_camera(cams4, i), b4.render).color)
+             for i in range(2)]
+    if out4["stack_sha"] != want4 or max(out4["stack_max_err"]) > 1e-6:
+        raise AssertionError(f"B4 orbit frames 0-1 on two gloo ranks differ: "
+                             f"{out4['stack_max_err']}")
+    log(f"two gloo ranks on the one card ({two_s:.1f} s with start-up, scene broadcast and "
+        f"checks): replicate_scene gave both ranks this process's scene bits (B5 and B4); "
+        f"B5 band-sharded equals render_frame on rank 0 and here (sha256 of colour and hit); "
+        f"B4 orbit frames 0-1 frame-sharded equal render_frame bit for bit")
+
+    # (d) every card, where there are several
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        across_cards(card, scene, cam, smoke / "b3.npy", want5)
+    else:
+        log("one card: B5 across cards not run here")
+
+    # (e) the runner's frame-parallel B4 row (one rank on one card)
+    row = run_path("runner B4 frame-dp", lambda: run_bench(
+        "B4", frame_sharded=True, out_path=str(smoke / "B4_frame_dp.json")),
+        ("march_pass", "shade_pass"), ("render_tile",))
+    log(json.dumps(row))
+    if row["strategy"] != "frame-dp" or row["chips"] != cards or row["frames"] % cards:
+        raise AssertionError(f"runner B4 frame-dp: {row['strategy']} on {row['chips']} chips")
+    log(f"runner B4 frame-dp: {row['ms_per_frame']:.3f} ms/frame over {row['frames']} frames "
+        f"on {row['chips']} rank(s)  [{card}]")
+    return {"compact_band_err": err_c, "fused_band_err": err_f}
+
+
+def write_tiff_f32(path, a):
+    """A single-strip little-endian f32 TIFF of the (H, W) array a."""
+    import struct
+    h, w = a.shape
+    data = a.astype("<f4").tobytes()
+    tags = [(256, 4, w), (257, 4, h), (258, 3, 32), (259, 3, 1), (273, 4, 0), (277, 3, 1),
+            (278, 4, h), (279, 4, len(data)), (339, 3, 3)]
+    start = 8 + 2 + 12 * len(tags) + 4
+    ifd = struct.pack("<H", len(tags)) + b"".join(
+        struct.pack("<HHI", t, typ, 1) + (struct.pack("<I", start if t == 273 else v)
+                                          if typ == 4 else struct.pack("<HH", v, 0))
+        for t, typ, v in tags) + struct.pack("<I", 0)
+    Path(path).write_bytes(b"II" + struct.pack("<HI", 42, 8) + ifd + data)
+
+
+def entry_points_phase(run_path, card, dev, scene, terr3):
+    """Phase 15: the render CLI (four runs at once, as subprocesses), the
+    viewer, the HTTP server in a thread and the loaders, each against the
+    in-process render of the same camera. Returns the server's launches."""
+    import importlib.util
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import hmrt_tpu_torch as T
+    from hmrt_tpu_torch.api.flythrough import frame_camera
+    from hmrt_tpu_torch.cli import serve
+    from hmrt_tpu_torch.cli.render import build_parser, camera_and_config, load_terrain
+    from hmrt_tpu_torch.cli.view import main as view_main
+    from hmrt_tpu_torch.io.heightmap import normalize_heights
+    from hmrt_tpu_torch.io.image import read_png, write_png16
+    smoke = ROOT / "build" / "smoke"
+    b3 = smoke / "b3.npy"      # written by phase 14
+    r32 = smoke / "b3.r32"
+    terr3.tofile(r32)
+    from hmrt_tpu_torch.bench.configs import BENCH_CONFIGS
+    r3, r4 = BENCH_CONFIGS["B3"].render, BENCH_CONFIGS["B4"].render
+    shape = ["--width", r3.width, "--height", r3.height]    # B3's frame
+    runs = {"plain": [b3, *shape, "--shadows", "--aux", "-o", smoke / "plain.png"],
+            "sharded": [b3, *shape, "--shadows", "--sharded", "-o", smoke / "sharded.png"],
+            "tile": [r32, *shape, "--tile", TILE, "-o", smoke / "tile.png"],
+            "flythrough": [b3, "--width", r4.width, "--height", r4.height, "--shadows",
+                           "--flythrough", 4, "-o", smoke / "fly.npy"]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen([sys.executable, "-m", "hmrt_tpu_torch.cli.render",
+                                  *map(str, argv)], cwd=ROOT, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for k, argv in runs.items()}
+    outs = {k: p.communicate(timeout=600)[0] for k, p in procs.items()}
+    cli_s = time.perf_counter() - t0
+    for k, p in procs.items():
+        log(f"  cli.render {k} (exit {p.returncode}): {outs[k].strip().splitlines()[-1:]}")
+        if p.returncode:
+            raise AssertionError(f"cli.render {k} failed:\n{outs[k][-3000:]}")
+
+    def reference(k):
+        args = build_parser().parse_args(list(map(str, runs[k])))
+        terr, source, _, n, zmax, zmean = load_terrain(args)
+        cam, cfg = camera_and_config(args, n, zmax, zmean, False, dev)
+        return terr, source, n, zmax, cam, cfg
+
+    terr, _, n, zmax, cam, cfg = reference("plain")
+    scene_l = T.make_scene(terr, device=dev)
+    fr = run_path("cli reference (render_frame)", lambda: T.render_frame(scene_l, cam, cfg),
+                  ("march_pass", "shade_pass"))
+    colour = quantise(fr.color.cpu().numpy())
+    for k in ("plain", "sharded"):
+        if not np.array_equal(read_png(str(smoke / f"{k}.png")), colour):
+            raise AssertionError(f"cli.render {k}: the PNG differs from render_frame's")
+    if not (np.array_equal(np.load(smoke / "plain_depth.npy"), fr.depth.cpu().numpy())
+            and np.array_equal(read_png(str(smoke / "plain_normal.png")),
+                               quantise(fr.normal.cpu().numpy() * 0.5 + 0.5))):
+        raise AssertionError("cli.render --aux: depth or normal differs from render_frame's")
+    _, source, _, _, cam_t, cfg_t = reference("tile")
+    fr_t = T.render_frame_tiled(source, cam_t, cfg_t, tile=TILE, device=dev)
+    tile_png = read_png(str(smoke / "tile.png"))
+    if not np.array_equal(tile_png, quantise(fr_t.color.cpu().numpy())):
+        raise AssertionError("cli.render --tile: the PNG differs from render_frame_tiled's")
+    resident = quantise(T.render_frame(scene, cam_t, cfg_t).color.cpu().numpy())
+    off = (np.abs(tile_png.astype(int) - resident).max(-1) > 1)
+    if off.sum() > 10:
+        raise AssertionError(f"cli.render --tile: {off.sum()} pixels over 1 LSB from resident")
+    stack = np.load(smoke / "fly.npy")
+    _, _, _, _, _, cfg_f = reference("flythrough")
+    cams = T.orbit_flythrough(n, zmax, 4, device=dev)
+    for i in range(4):
+        want = T.render_frame(scene_l, frame_camera(cams, i), cfg_f).color.cpu().numpy()
+        if not np.array_equal(stack[i], want):
+            raise AssertionError(f"cli.render --flythrough: frame {i} differs")
+    log(f"cli.render, 4 runs at once as subprocesses ({cli_s:.1f} s): the plain and --sharded "
+        f"PNGs equal render_frame's colour quantised, --aux depth and normals equal; --tile "
+        f"{TILE} on a .r32 equals render_frame_tiled's PNG ({int(off.sum())} pixels over 1 LSB "
+        f"from the resident frame); --flythrough 4 equals render_frame frame by frame")
+
+    # the viewer: .npy stack -> .html and .apng
+    html, apng = smoke / "fly.html", smoke / "fly.apng"
+    view_main([str(smoke / "fly.npy"), "-o", str(html)])
+    view_main([str(smoke / "fly.npy"), "-o", str(apng)])
+    if html.read_text().count("'iVBOR") != 4 or apng.read_bytes().count(b"fcTL") != 4 \
+            or not np.array_equal(read_png(str(apng)), quantise(stack[0])):
+        raise AssertionError("cli.view: the player or the APNG lacks the 4 frames")
+    log(f"cli.view: {html.name} ({html.stat().st_size} bytes, 4 frames) and {apng.name} "
+        f"(4 frames, the first equal to the stack's)")
+
+    # the viewer server on 127.0.0.1, port 0, in a thread
+    session = serve.make_session(serve.build_parser().parse_args([str(b3), "--shadows"]))
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(session))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        page = urllib.request.urlopen(base + "/", timeout=60).read()
+        state = json.loads(urllib.request.urlopen(base + "/state", timeout=60).read())
+        if b"hmrt_tpu viewer" not in page or len(state["eye"]) != 3:
+            raise AssertionError("serve: GET / or /state is wrong")
+
+        def post(body):
+            req = urllib.request.Request(base + "/frame", data=json.dumps(body).encode(),
+                                         method="POST")
+            return urllib.request.urlopen(req, timeout=120).read()
+
+        for draft in (True, False):
+            params = dict(state, draft=draft)
+            t1 = time.perf_counter()
+            png = run_path(f"serve POST /frame ({'draft' if draft else 'full'})",
+                           lambda: post(params), ("march_pass", "shade_pass"))
+            ms = (time.perf_counter() - t1) * 1e3
+            (smoke / "serve.png").write_bytes(png)
+            want = T.render_frame(session.scene, *session.camera(params))
+            if not np.array_equal(read_png(str(smoke / "serve.png")),
+                                  quantise(want.color.cpu().numpy())):
+                raise AssertionError(f"serve: the {'draft' if draft else 'full'} frame differs "
+                                     "from render_frame's")
+            log(f"  serve POST /frame draft={draft}: PNG equal to render_frame's, "
+                f"{ms:.1f} ms for the request (host clock)")
+        try:
+            post(dict(state, eye=[0.0, float("nan"), 1.0]))
+            raise AssertionError("serve: a non-finite eye did not fail")
+        except urllib.error.HTTPError as e:
+            if e.code != 500:
+                raise AssertionError(f"serve: a non-finite eye answered {e.code}") from None
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    log("serve: GET /, GET /state, POST /frame draft and full equal to render_frame, a "
+        "non-finite eye answers 500")
+
+    # the loaders, on files written here
+    a = terr3[:257, :257]   # a corner of the B3 map
+    u16 = np.round(a / a.max() * 65535).astype(np.uint16)
+    write_png16(str(smoke / "h.png"), u16)
+    (smoke / "h.pgm").write_bytes(b"P5\n%d %d\n65535\n" % a.shape[::-1]
+                                  + u16.astype(">u2").tobytes())
+    write_tiff_f32(smoke / "h.tif", a)
+    nd = a.copy()
+    nd[3, 5] = -9999.0
+    (smoke / "h.asc").write_text(
+        "ncols %d\nnrows %d\nxllcorner 0\nyllcorner 0\ncellsize 1\nNODATA_value -9999\n"
+        % a.shape[::-1]
+        + "".join(" ".join(f"{v:.9g}" for v in row) + "\n" for row in nd))
+    filled = np.where(nd == -9999.0, nd[nd != -9999.0].min(), nd)
+    for name, raw in (("h.png", u16), ("h.pgm", u16), ("h.tif", a), ("h.asc", filled)):
+        got = T.load_heightmap(str(smoke / name))
+        if not np.array_equal(got, normalize_heights(raw.astype(np.float32))):
+            raise AssertionError(f"load_heightmap {name}: differs from the written grid")
+    log(f"load_heightmap: PNG (16-bit), PGM (P5, 16-bit), TIFF (f32 strip) and ESRI ASCII "
+        f"(with a NODATA cell) read back equal to the grids written "
+        f"(Pillow {'absent' if importlib.util.find_spec('PIL') is None else 'present'})")
+
+
+
+
+def cards_only(card) -> int:
+    """`python3 chip_smoke.py --cards` on a machine with several cards:
+    phase 14(d) alone, B5 across every card against one card."""
+    import numpy as np
+    import torch
+    import hmrt_tpu_torch as T
+    from hmrt_tpu_torch.bench.configs import BENCH_CONFIGS, bench_scene
+    from hmrt_tpu_torch.kernels import _build
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise RuntimeError(f"--cards needs several cards, this machine has {cards}")
+    _build.library()
+    scene, cam, terr = bench_scene(BENCH_CONFIGS["B5"], device=torch.device("cuda"))
+    smoke = ROOT / "build" / "smoke"
+    smoke.mkdir(parents=True, exist_ok=True)
+    np.save(smoke / "b3.npy", terr)
+    across_cards(card, scene, cam, smoke / "b3.npy",
+                 T.render_frame(scene, cam, BENCH_CONFIGS["B5"].render))
+    log(card_line())
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": cards}}))
+    return 0
+
+
+def main(argv=None) -> int:
+    import numpy as np
+    import torch
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--cards"]):
+        print("usage: python3 chip_smoke.py [--cards]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -465,6 +945,8 @@ def main() -> int:
     import hmrt_tpu_torch as T
     if not Path(T.__file__).resolve().is_relative_to(ROOT):
         raise RuntimeError(f"hmrt_tpu_torch imported from {T.__file__}, not this checkout")
+    if argv:
+        return cards_only(card)
     from hmrt_tpu_torch.api.flythrough import frame_camera, orbit_flythrough
     from hmrt_tpu_torch.bench.configs import BENCH_CONFIGS, bench_albedo, bench_scene
     from hmrt_tpu_torch.bench.floor import (OPS_PER_ALBEDO, OPS_PER_PIXEL, OPS_PER_SHADE,
@@ -581,10 +1063,12 @@ def main() -> int:
     budgets = (1, 7, 37, 64, UNBUDGETED)
     work_k1 = WorkCounter(scene.pyr_flat.shape[0], scene.n, dev, lanes=N_SAMPLE)
     err_primary, res0 = compare_march("primary", srays_p, st0, scene, budgets, work_k1)
-    # from a mid-march state as well: the kernel's own state after 64 steps
+    # from a mid-march state as well: the kernel's own state after 64 steps,
+    # at budgets 7 and 37 (the unbudgeted march from the start is checked
+    # above; an unbudgeted plain march from here would take another ~15 s)
     mid = march_pass(srays_p, st0, res0, scene.pyr_flat, scene.heights, scene.corners,
                      n=scene.n, m=scene.m, levels=scene.levels, budget=64)[0]
-    err_mid, _ = compare_march("primary, from step 64", srays_p, mid, scene, (7, UNBUDGETED))
+    err_mid, _ = compare_march("primary, from step 64", srays_p, mid, scene, (7, 37))
     # the persistent kernel on one ray, one warp and a lane, and on more rays
     # than one resident wave of the card holds (132 SMs x 2,048 threads)
     err_edge = 0.0
@@ -939,7 +1423,7 @@ def main() -> int:
     b4_frac = check_frame("B4 orbit frame 0", fr4, cfg4)
     b4_ms, b4_times = median_ms(lambda: T.render_frame(scene4, cam40, cfg4), 5)
     log_rate("B4 orbit frame 0", b4_ms, b4_times, cfg4, b4_frac)
-    for i in (0, 4):
+    for i in (0,):   # each further orbit frame costs ~35 s of the torch oracle
         check_vs_oracle(f"B4 orbit frame {i} 8192^2 1280x720 phong+fog+texture", scene4,
                         frame_camera(cams4, i), cfg4)
 
@@ -1024,7 +1508,7 @@ def main() -> int:
                                                            out_path=str(out)), want, none)
         log(json.dumps(row))
         log(f"  [{card}]")
-        missing = [k for k in ROW_KEYS + ("device",) if k not in row]
+        missing = [k for k in ROW_KEYS + ("device", "strategy") if k not in row]
         if missing:
             raise AssertionError(f"runner {name}: row lacks {missing}")
         if json.loads(out.read_text()) != json.loads(json.dumps(row)):
@@ -1033,7 +1517,7 @@ def main() -> int:
             raise AssertionError(f"runner {name}: ms_per_frame {row['ms_per_frame']}")
         extra = {"B3": ("lane_steps_per_frame", "march_bound_ms"),
                  "B4": ("ms_per_frame_1920x1080", "lane_steps_per_frame"),
-                 "B5": ("note", "hit_frac")}.get(name, ())
+                 "B5": ("note", "hit_frac", "sharded_mesh1_ms", "band_h270_ms")}.get(name, ())
         if any(k not in row for k in extra):
             raise AssertionError(f"runner {name}: row lacks one of {extra}")
 
@@ -1070,6 +1554,16 @@ def main() -> int:
     check_tiled("B3 tiled with shadows (2048-cell tiles)", scene, cam, cfg, terr3, 10, run_path,
                 paths, card)
 
+    t14 = time.perf_counter()
+    phase("14. sharding on the card")
+    band_errs = sharding_phase(run_path, card, scene, cam, terr3, scene1, cam1, cfg1, scene4,
+                               terr4, cams4)
+    log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
+    t15 = time.perf_counter()
+    phase("15. the entry points on the card")
+    entry_points_phase(run_path, card, dev, scene, terr3)
+    log(f"phase 15 took {time.perf_counter() - t15:.1f} s")
+
     phase("done")
     launches = {k: sum(got[k] for got in paths.values()) for k in kernel_fns}
     log(f"launches over the {len(paths)} paths: {launches}")
@@ -1081,6 +1575,7 @@ def main() -> int:
          "max_abs_err": max(err_primary, err_mid, err_shadow, err_edge, err_b4, err_tile),
          "ms": march_ms, "plain_ms": march_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
+         "b5_bands_max_abs_err": band_errs["compact_band_err"],
          "b4_frame_launches": b4_launches["march_pass"], "b4_frame_ms": k1_b4_ms,
          "b4_frame_bound_ms": k1_b4_bound[0], "b4_frame_bound_by": k1_b4_bound[1]},
         {"name": "shade_pass", "route": "cuda",
@@ -1089,7 +1584,8 @@ def main() -> int:
          "launches": launches["shade_pass"],
          "max_abs_err": max(err_shade, err_shade_tex), "ms": shade_ms,
          "plain_ms": shade_plain_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
-         "library_ms": None, "textured_max_abs_err": err_shade_tex,
+         "library_ms": None, "b5_bands_max_abs_err": band_errs["compact_band_err"],
+         "textured_max_abs_err": err_shade_tex,
          "textured_ms": shade_tex_ms, "textured_plain_ms": shade_tex_plain_ms,
          "textured_bound_ms": k2_tex_bound[0], "textured_bound_by": k2_tex_bound[1]},
         {"name": "render_tile", "route": "cuda",
@@ -1098,7 +1594,8 @@ def main() -> int:
          "launches": launches["render_tile"],
          "max_abs_err": max(err_b1, err_b1all, err_band),
          "ms": fused_ms, "plain_ms": fused_plain_ms,
-         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
+         "bands_max_abs_err": band_errs["fused_band_err"]},
     ]
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -6,8 +6,10 @@ reference it is tested against. Entry points:
 
     procedural_terrain -> make_scene -> Camera -> render_frame -> Frame
 
-plus `flythrough`/`orbit_flythrough` (batched cameras), `render_frame_tiled`
-(out-of-core maps) and `save_state`/`load_state`.
+plus `load_heightmap` (DEM files), `flythrough`/`orbit_flythrough`
+(batched cameras), `render_frame_tiled` (out-of-core maps),
+`save_state`/`load_state`, the multi-card renders of `distrib/mesh.py` and
+the command lines `python -m hmrt_tpu_torch.cli.{render,serve,view,bench}`.
 """
 
 from hmrt_tpu_torch.api.flythrough import flythrough, orbit_flythrough
@@ -16,7 +18,7 @@ from hmrt_tpu_torch.api.tiled import render_frame_tiled
 from hmrt_tpu_torch.config import RenderConfig
 from hmrt_tpu_torch.core.pyramid import build_pyramid_flat
 from hmrt_tpu_torch.core.renderer import render_frame
-from hmrt_tpu_torch.io.heightmap import procedural_terrain
+from hmrt_tpu_torch.io.heightmap import load_heightmap, procedural_terrain
 from hmrt_tpu_torch.io.state import load_state, save_state
 from hmrt_tpu_torch.types import Camera, Frame, Light, Scene
 
@@ -24,6 +26,6 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Camera", "Frame", "Light", "RenderConfig", "Scene",
-    "build_pyramid_flat", "flythrough", "load_state", "make_scene", "orbit_flythrough",
-    "procedural_terrain", "render_frame", "render_frame_tiled", "save_state",
+    "build_pyramid_flat", "flythrough", "load_heightmap", "load_state", "make_scene",
+    "orbit_flythrough", "procedural_terrain", "render_frame", "render_frame_tiled", "save_state",
 ]

@@ -62,11 +62,14 @@ def _broadcast_eye(eye, p):
     return eye[0].expand(p), eye[1].expand(p), eye[2].expand(p)
 
 
-def render_frame_oracle(scene: Scene, camera: Camera,
-                        config: RenderConfig) -> Frame:
-    """The plain torch oracle pipeline (the reference renderer)."""
+def render_frame_oracle(scene: Scene, camera: Camera, config: RenderConfig,
+                        row0: int | None = None, full_height: int | None = None) -> Frame:
+    """The plain torch oracle pipeline (the reference renderer).
+    row0/full_height: render rows [row0, row0 + height) of a
+    full_height-row screen, from the same ray bits as those rows of the
+    full grid."""
     H, W = config.height, config.width
-    eye, dirs = camera.rays(H, W)
+    eye, dirs = camera.rays(H, W, row0, full_height)
     d = dirs.reshape(-1, 3)
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     ox, oy, oz = _broadcast_eye(eye, dx.shape[0])

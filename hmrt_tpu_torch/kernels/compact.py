@@ -43,9 +43,12 @@ ROUNDS = 2
 ROUND_BUDGET = 256
 
 
-def primary_rays(camera: Camera, config: RenderConfig):
-    """Launch-order ray planes (ox, oy, oz, dx, dy, dz), each f32[H*W]."""
-    eye, dirs = camera.rays(config.height, config.width)
+def primary_rays(camera: Camera, config: RenderConfig, row0: int | None = None,
+                 full_height: int | None = None):
+    """Launch-order ray planes (ox, oy, oz, dx, dy, dz), each f32[H*W].
+    `row0`/`full_height`: the rays of rows [row0, row0 + H) of a
+    full_height-row screen, the same bits as those rows of the full grid."""
+    eye, dirs = camera.rays(config.height, config.width, row0, full_height)
     d = dirs.reshape(-1, 3)
     p = d.shape[0]
     return (tuple(eye[i].expand(p).contiguous() for i in range(3))
@@ -232,7 +235,8 @@ def to_frame(config: RenderConfig, color, depth, normal, hit) -> Frame:
 
 def render_frame_compact(scene: Scene, camera: Camera, config: RenderConfig, *,
                          first_budget: int = FIRST_BUDGET, rounds: int = ROUNDS,
-                         round_budget: int = ROUND_BUDGET, counts: dict | None = None) -> Frame:
+                         round_budget: int = ROUND_BUDGET, counts: dict | None = None,
+                         row0: int | None = None, full_height: int | None = None) -> Frame:
     """Compacted-wavefront render (see the module docstring).
 
     first_budget: steps of pass 0 in launch order (0 skips it);
@@ -240,11 +244,17 @@ def render_frame_compact(scene: Scene, camera: Camera, config: RenderConfig, *,
     round_budget: steps of each earlier sorted round.
     The shadow march takes min(rounds, 2) sorted rounds and no pass 0.
     counts: a dict whose "primary" and "shadow" lists take each march
-    launch's per-ray steps and cell tests (`march_rounds`; bench/floor.py)."""
+    launch's per-ray steps and cell tests (`march_rounds`; bench/floor.py).
+    row0/full_height: render rows [row0, row0 + height) of a
+    full_height-row screen (the band form under sharding); the sort keys
+    and passes then run over the band's rays alone."""
     if rounds < 1 or first_budget < 0 or round_budget < 0:
         raise ValueError(f"bad schedule first_budget={first_budget} "
                          f"rounds={rounds} round_budget={round_budget}")
-    rays = primary_rays(camera, config)
+    if row0 is not None and not 0 <= row0 <= (full_height or config.height) - config.height:
+        raise ValueError(f"row band [{row0}, {row0 + config.height}) outside a "
+                         f"{full_height or config.height}-row screen")
+    rays = primary_rays(camera, config, row0, full_height)
     sched = dict(cell_intersect=config.cell_intersect, clip=config.clip_box,
                  first_budget=first_budget, round_budget=round_budget)
 

@@ -2,19 +2,25 @@
 row has the JAX row's keys, persists to --out, and the frame's march work
 equals a plain WorkCounter march of the same rays."""
 
+import dataclasses
+import functools
 import json
 import os
+from datetime import timedelta
 
 import pytest
 import torch
+from torch.multiprocessing import ProcessRaisedException
 
 import hmrt_tpu_torch as T
 from hmrt_tpu.bench.runner import run_bench as jax_run_bench
 from hmrt_tpu.io.heightmap import procedural_terrain
 from hmrt_tpu_torch.api.flythrough import frame_camera
+from hmrt_tpu_torch.bench.configs import BENCH_CONFIGS
 from hmrt_tpu_torch.bench.floor import bound, count_frame, count_lane_steps, floor_metrics
 from hmrt_tpu_torch.bench.runner import ROW_KEYS, run_bench
 from hmrt_tpu_torch.cli import bench as cli_bench
+from hmrt_tpu_torch.distrib import mesh as dm
 from hmrt_tpu_torch.kernels.compact import (empty_results, hit_points, init_state,
                                             primary_rays, shadow_start)
 from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass_reference
@@ -34,6 +40,7 @@ def test_b1_row_has_the_jax_rows_keys():
     assert set(want) == set(ROW_KEYS)
     assert row["config"] == "B1" and row["resolution"] == want["resolution"] == [64, 64]
     assert row["backend"] == row["device"] == "cpu" and row["chips"] == 1
+    assert row["strategy"] == "single"
     assert row["ms_per_frame"] > 0 and row["frames"] == 2
     json.dumps(row)
 
@@ -46,15 +53,62 @@ def test_out_file_persists_row(tmp_path):
     assert not (tmp_path / "row.json.tmp").exists()
 
 
-def test_frame_sharded_raises():
-    with pytest.raises(NotImplementedError, match="sharding"):
-        run_bench("B4", **SMALL, frame_sharded=True, device="cpu")
+def _bounded_spawn(monkeypatch):
+    """Ranks the runner spawns get a 60 s process-group timeout and join
+    limit, so a hang fails the test instead of the whole run."""
+    monkeypatch.setattr(dm, "spawn", functools.partial(
+        dm.spawn, timeout=timedelta(seconds=60), join_timeout=60))
+
+
+def test_frame_sharded_raises(monkeypatch):
+    """On a machine with 2 cards --frame-sharded starts 2 ranks, one per
+    card; on a machine without a card the ranks raise, and a failed rank
+    fails the run."""
+    _bounded_spawn(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ProcessRaisedException, match="CUDA device"):
+        run_bench("B4", **SMALL, frame_sharded=True, device="cuda")
 
 
 def test_sharded_config_on_several_cards_raises(monkeypatch):
+    """B5 on 4 cards starts 4 ranks (band sharding over NCCL); without a
+    card every rank raises, and so does the run."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="4 cards"):
+    with pytest.raises(ProcessRaisedException, match="CUDA device"):
         run_bench("B5", **SMALL, device="cuda")
+
+
+def _small(monkeypatch, name, **render):
+    """Shrink a config's map (and frame) so its full-scale row runs on the CPU."""
+    cfg = BENCH_CONFIGS[name]
+    monkeypatch.setitem(BENCH_CONFIGS, name, dataclasses.replace(
+        cfg, map_n=64, render=dataclasses.replace(cfg.render, **render)))
+
+
+def test_frame_sharded_row_on_one_rank(monkeypatch):
+    """--frame-sharded on one device runs the frame-parallel timing on a
+    one-rank mesh: a "frame-dp" row of 1 chip, the group dropped after."""
+    _small(monkeypatch, "B4")
+    row = run_bench("B4", frames=3, scale=0.125, reps=1, frame_sharded=True, device="cpu")
+    assert row["strategy"] == "frame-dp" and row["chips"] == 1 and row["frames"] == 3
+    assert set(ROW_KEYS) <= set(row) and "ms_per_frame_1920x1080" not in row
+    assert not torch.distributed.is_initialized()
+    # a static config ignores it, as the JAX runner does
+    assert run_bench("B1", **SMALL, frame_sharded=True, device="cpu")["strategy"] == "single"
+
+
+def test_b5_one_device_row_carries_the_sharded_extras(monkeypatch):
+    """B5 on one device: the unsharded row with the JAX note, plus
+    sharded_mesh1_ms (render_frame_sharded on a one-rank group) and the
+    band of H/8 rows at row0 4*H/8."""
+    _small(monkeypatch, "B5", width=64, height=64)
+    row = run_bench("B5", frames=1, reps=1, device="cpu")
+    assert row["chips"] == 1 and row["strategy"] == "single" and "UNSHARDED" in row["note"]
+    assert row["sharded_mesh1_ms"] > 0 and row["band_h8_ms"] > 0
+    assert "sharded_mesh1_note" in row and "band_h8_note" in row
+    assert not torch.distributed.is_initialized()
+    jax_keys = {"sharded_mesh1_ms", "sharded_mesh1_note", "band_h8_ms", "band_h8_note"}
+    assert jax_keys <= set(row)
 
 
 def test_run_bench_defaults_to_the_card(monkeypatch):
@@ -66,7 +120,7 @@ def test_run_bench_defaults_to_the_card(monkeypatch):
 def test_cli_prints_one_json_row(capsys, tmp_path):
     out = tmp_path / "cli.json"
     cli_bench.main(["B1", "--cpu", "--scale", "0.125", "--frames", "2", "--reps", "1",
-                    "--out", str(out)])
+                    "--frame-sharded", "--out", str(out)])
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.strip()]
     assert len(lines) == 1
     row = json.loads(lines[0])
