@@ -30,8 +30,9 @@ drives both render paths through the normal entry points:
     (compact: march_pass and the textured shade_pass), frames against the
     torch oracle, march_pass against its plain version on a sample of the
     frame's rays that holds its longest ones, the textured shade_pass
-    against its plain version on every lane, the frame's march work and
-    bound, a profile;
+    against its plain version on every lane (with the 32-byte sectors per
+    hit that its records and the old planes cost, modelled from the hit
+    cells), the frame's march work and bound, a profile;
   - the bench runner (bench/runner.py) for B1-B5, one JSON row each;
   - the out-of-core tiled renderer: B4 in 2048-cell tiles and B3 with
     shadows (the shadow sweep on march_pass), each against the resident
@@ -103,6 +104,34 @@ def corner_samples(hit, hx, hy, n: int) -> int:
     import torch
     base = (torch.clamp(hy, 0, n - 2) * n + torch.clamp(hx, 0, n - 2))[hit]
     return int(torch.unique(torch.cat([base + o for o in (0, 1, n, n + 1)])).numel())
+
+
+def shade_sectors(hit, hx, hy, n: int, textured: bool) -> dict:
+    """The 32-byte sectors the shade pass's gathers touch, modelled from the
+    hit cells, per hit and distinct over all hits, in two layouts:
+    "planes", 4-byte loads at the cell's 4 corners on rows cy and cy+1 of
+    gx, gy (and the 3 planar albedo channels), each plane (N, N) from a
+    sector boundary; "records", the cell's 32-byte shade record (and
+    48-byte albedo record) from a sector boundary, C = N-1 cells a side."""
+    import torch
+    c = n - 1
+    cx = torch.clamp(hx[hit], 0, c - 1).long()
+    cy = torch.clamp(hy[hit], 0, c - 1).long()
+    hits = max(int(cx.numel()), 1)
+    # one plane: rows cy and cy+1, two 4-byte corners each; every plane the same
+    b = cy * n + cx
+    rows = [((b + r) * 4 // 32, (b + r + 1) * 4 // 32) for r in (0, n)]
+    p_hit = sum(int((lo != hi).sum()) + lo.numel() for lo, hi in rows)
+    p_distinct = int(torch.unique(torch.cat([x for pair in rows for x in pair])).numel())
+    planes = 2 + 3 * textured
+    # the records: [first, last] sector of each
+    cell = cy * c + cx
+    spans = [(cell, cell)] + ([(cell * 48 // 32, (cell * 48 + 47) // 32)] if textured else [])
+    r_hit = sum(int((hi - lo + 1).sum()) for lo, hi in spans)
+    r_distinct = sum(int(torch.unique(torch.cat([lo, hi])).numel()) for lo, hi in spans)
+    return {"planes": {"sectors_per_hit": planes * p_hit / hits,
+                       "distinct_mb": planes * p_distinct * 32 / 1e6},
+            "records": {"sectors_per_hit": r_hit / hits, "distinct_mb": r_distinct * 32 / 1e6}}
 
 
 PAD_S = 0.25        # idle host time at each end of a profiled window
@@ -480,8 +509,8 @@ def check_tiled(label, sc, cm, cf, source, cap, run_path, paths, card, **kw):
             d_off = torch.maximum((off_w[0] - off_l[0]).abs(), (off_w[1] - off_l[1]).abs())
             rounding = (d_off > 0) & (d_off.double() <= 2 * ulp32(w_mag.amax(0)))
             ones = torch.ones_like(cx)
-            n_w = torch.stack(shade_pass(ones, cx, cy, *off_w, sc.gx, sc.gy, None)[:3], -1)
-            n_l = torch.stack(shade_pass(ones, lcx, lcy, *off_l, sub.gx, sub.gy, None)[:3], -1)
+            n_w = torch.stack(shade_pass(ones, cx, cy, *off_w, sc.shade_rec)[:3], -1)
+            n_l = torch.stack(shade_pass(ones, lcx, lcy, *off_l, sub.shade_rec)[:3], -1)
             normals = ((n_w == nrm_res).all(-1) & (n_l == nrm_tl).all(-1)
                        & (n_w != n_l).any(-1))
             explained |= (mine & ~differs & (cx_k == hx_r) & (cy_k == hy_r) & data & rounding
@@ -687,6 +716,7 @@ def sharding_phase(run_path, card, scene, cam, terr3, scene1, cam1, cfg1, scene4
     jobs = [dict(source=str(smoke / "b3.npy"), config=cfg5, camera=cam_args, keep=False),
             dict(source=str(smoke / "b4.npy"), config=b4.render,
                  orbit=(b4.frames, 2, float(terr4.max())), keep=False)]
+    torch.cuda.empty_cache()  # the ranks' B4 scenes need the memory this process cached
     t0 = time.perf_counter()
     out5, out4 = spawn(render_sharded_jobs, 2, args=(jobs,), backend="gloo",
                        devices=[dev, dev], timeout=timedelta(seconds=300), join_timeout=600)
@@ -705,7 +735,8 @@ def sharding_phase(run_path, card, scene, cam, terr3, scene1, cam1, cfg1, scene4
         raise AssertionError(f"B4 orbit frames 0-1 on two gloo ranks differ: "
                              f"{out4['stack_max_err']}")
     log(f"two gloo ranks on the one card ({two_s:.1f} s with start-up, scene broadcast and "
-        f"checks): replicate_scene gave both ranks this process's scene bits (B5 and B4); "
+        f"checks): replicate_scene gave both ranks this process's scene bits (B5 and B4; "
+        f"every plane and the shade records they pack); "
         f"B5 band-sharded equals render_frame on rank 0 and here (sha256 of colour and hit); "
         f"B4 orbit frames 0-1 frame-sharded equal render_frame bit for bit")
 
@@ -997,6 +1028,17 @@ def main(argv=None) -> int:
     def phase(name):
         log(f"---- {name}  (at {time.perf_counter() - t_start:.1f} s)")
 
+    def log_sectors(label, sec, lanes):
+        """The shade pass's modelled gathers beside the distinct-bytes bound:
+        sectors per hit and the distinct sectors' MB, with the lane planes'
+        bytes, at the card's peak memory rate."""
+        lane_mb = lanes * 4 * (5 + 6) / 1e6
+        log(f"  shade_pass on the {label} lanes, modelled 32-byte sectors: "
+            + "; ".join(f"{k} {v['sectors_per_hit']:.2f} per hit, {v['distinct_mb']:.1f} MB "
+                        f"distinct (+{lane_mb:.1f} MB of lane planes: "
+                        f"{bound((v['distinct_mb'] + lane_mb) * 1e6, 0)[0]:.4f} ms at peak)"
+                        for k, v in sec.items()))
+
     def log_launch_counts(fc):
         steps, tests = fc.totals(0), fc.totals(1)
         for k, c in enumerate(fc.counts):
@@ -1113,7 +1155,7 @@ def main(argv=None) -> int:
     if not torch.equal(hit.reshape(fr.hit.shape), fr.hit):
         raise AssertionError("primary march of the B3 frame is not reproducible")
     points, fx, fy = hit_points(rays, hit, t_hit, hx, hy)
-    shade_args = (hit_i, hx, hy, fx, fy, scene.gx, scene.gy, None)
+    shade_args = (hit_i, hx, hy, fx, fy, scene.shade_rec, None)
     got = shade_pass(*shade_args)
     torch.cuda.synchronize()
     want = shade_pass_reference(*shade_args)
@@ -1126,11 +1168,14 @@ def main(argv=None) -> int:
     shade_call_ms = event_ms(lambda: shade_pass(*shade_args), 20)
     shade_plain_ms = event_ms(lambda: shade_pass_reference(*shade_args), 5)
     # bytes: 5 lane planes in, 6 out, and the distinct gradient samples read
+    # (whatever layout holds them, so the bound compares across layouts)
     k2_bound = bound(p * 4 * (5 + 6) + 8 * corner_samples(hit, hx, hy, scene.n),
                      int(hit.sum()) * OPS_PER_SHADE)
+    k2_sectors = shade_sectors(hit, hx, hy, scene.n, False)
     log(f"shade_pass, {p} B3 lanes: kernel {shade_ms:.4f} ms (wrapper call "
         f"{shade_call_ms:.4f} ms), plain {shade_plain_ms:.4f} ms"
         f"; bound {k2_bound[0]:.4f} ms ({k2_bound[1]})  [{card}]")
+    log_sectors("B3", k2_sectors, p)
 
     # shadow rays from the frame's hits, started in the hit cells
     srays, sstate = shadow_start(points, got[:3], hit, hx, hy, scene)
@@ -1408,11 +1453,12 @@ def main(argv=None) -> int:
     b4_build_s = time.perf_counter() - t0
     sizes = {"heights": scene4.heights, "pyramid": scene4.pyr_flat,
              "corner records": scene4.corners, "gx, gy": (scene4.gx, scene4.gy),
-             "planar albedo": scene4.albedo}
+             "planar albedo": scene4.albedo, "shade records": scene4.shade_rec,
+             "albedo records": scene4.albedo_rec}
     mb = {k: sum(x.numel() * x.element_size() for x in (v if isinstance(v, tuple) else (v,)))
           / 1e6 for k, v in sizes.items()}
     log(f"B4 scene: {scene4.n}^2 samples, m={scene4.m}, {scene4.levels} levels, built in "
-        f"{b4_build_s:.2f} s (numpy fBm, albedo, upload, pyramid); on the card (MB): "
+        f"{b4_build_s:.2f} s (numpy fBm, albedo, upload, pyramid, records); on the card (MB): "
         + ", ".join(f"{k} {v:.1f}" for k, v in mb.items()) + f", total {sum(mb.values()):.1f}")
     cams4 = orbit_flythrough(b4.map_n, float(terr4.max()), b4.frames, device=dev)
     cam40 = frame_camera(cams4, 0)
@@ -1456,7 +1502,7 @@ def main(argv=None) -> int:
     if not torch.equal(hit4.reshape(fr4.hit.shape), fr4.hit):
         raise AssertionError("primary march of the B4 frame is not reproducible")
     _, fx4, fy4 = hit_points(rays4, hit4, t_hit4, hx4, hy4)
-    shade4 = (hit_i4, hx4, hy4, fx4, fy4, scene4.gx, scene4.gy, scene4.albedo)
+    shade4 = (hit_i4, hx4, hy4, fx4, fy4, scene4.shade_rec, scene4.albedo_rec)
     got4 = shade_pass(*shade4)
     torch.cuda.synchronize()
     want4 = shade_pass_reference(*shade4)
@@ -1472,9 +1518,11 @@ def main(argv=None) -> int:
     # gradients and three albedo channels
     k2_tex_bound = bound(p4 * 4 * (5 + 6) + (8 + 12) * corner_samples(hit4, hx4, hy4, scene4.n),
                          int(hit4.sum()) * (OPS_PER_SHADE + OPS_PER_ALBEDO))
+    k2_tex_sectors = shade_sectors(hit4, hx4, hy4, scene4.n, True)
     log(f"shade_pass, textured, {p4} B4 lanes: kernel {shade_tex_ms:.4f} ms, plain "
         f"{shade_tex_plain_ms:.4f} ms; bound {k2_tex_bound[0]:.4f} ms ({k2_tex_bound[1]})  "
         f"[{card}]")
+    log_sectors("B4", k2_tex_sectors, p4)
 
     # the B4 frame's march work, counted as the runner's --floor counts it,
     # against the device time of its march_pass launches
@@ -1587,7 +1635,10 @@ def main(argv=None) -> int:
          "library_ms": None, "b5_bands_max_abs_err": band_errs["compact_band_err"],
          "textured_max_abs_err": err_shade_tex,
          "textured_ms": shade_tex_ms, "textured_plain_ms": shade_tex_plain_ms,
-         "textured_bound_ms": k2_tex_bound[0], "textured_bound_by": k2_tex_bound[1]},
+         "textured_bound_ms": k2_tex_bound[0], "textured_bound_by": k2_tex_bound[1],
+         "sectors_per_hit": {k: v["sectors_per_hit"] for k, v in k2_sectors.items()},
+         "textured_sectors_per_hit": {k: v["sectors_per_hit"]
+                                      for k, v in k2_tex_sectors.items()}},
         {"name": "render_tile", "route": "cuda",
          "source": "hmrt_tpu_torch/kernels/csrc/render_tile.cu",
          "replaces": "hmrt_tpu/kernels/raycast.py:88",

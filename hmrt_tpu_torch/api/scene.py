@@ -1,8 +1,9 @@
 """Scene construction on the card, or on the device the caller names.
 
 Counterpart of `hmrt_tpu/api/scene.py`: upload the height grid, build the
-max pyramid there, and precompute the per-sample gradient planes that the
-shade kernel interpolates. Everything stays resident across frames.
+max pyramid there, precompute the per-sample gradient planes, and pack the
+per-cell shade records that the shade kernel reads. Everything stays
+resident across frames.
 """
 
 from __future__ import annotations
@@ -31,6 +32,33 @@ def corner_grads(heights: torch.Tensor):
     return gx.contiguous(), gy.contiguous()
 
 
+def shade_records(gx: torch.Tensor, gy: torch.Tensor, albedo: torch.Tensor | None):
+    """Per-cell records of what a hit in the cell shades from, over the
+    C = N-1 cells a side: (shade_rec, albedo_rec).
+
+    shade_rec, contiguous f32 (C, C, 8): cell [cy, cx] holds the gradients
+    at its corners, g00x, g10x, g01x, g11x, g00y, g10y, g01y, g11y, where
+    g10 is sample [cy, cx+1] and g01 sample [cy+1, cx] (the channel order
+    of the JAX package's `kernels/packing.py` shade bricks). albedo_rec,
+    contiguous f32 (C, C, 12) or None: r00, r10, r01, r11, g00, ..., b11 of
+    the planar (3, N*N) albedo, in the order of its albedo bricks. The
+    values are copies of the planes' values: nothing is rounded.
+
+    A record is 32 (or 48) bytes, so the shade kernel reads a hit's data
+    as 2 (or 3) 16-byte loads from one (or two) 32-byte sectors, instead
+    of 4-byte loads from two rows of each of 2 (or 5) planes."""
+    n = gx.shape[0]
+    c = n - 1
+    corners = ((slice(0, c), slice(0, c)), (slice(0, c), slice(1, n)),
+               (slice(1, n), slice(0, c)), (slice(1, n), slice(1, n)))
+
+    def pack(planes):
+        return torch.stack([p[ys, xs] for p in planes for ys, xs in corners], dim=-1)
+
+    albedo_rec = None if albedo is None else pack(albedo.reshape(3, n, n).unbind(0))
+    return pack((gx, gy)), albedo_rec
+
+
 def _planar_albedo(albedo, n: int, device) -> torch.Tensor:
     a = np.asarray(albedo, np.float32)
     if a.shape != (n, n, 3):
@@ -55,10 +83,12 @@ def make_scene(heights, albedo=None, light: Light | None = None,
     m = next_pow2(n - 1)
     ht = torch.from_numpy(np.ascontiguousarray(h)).to(device)
     gx, gy = corner_grads(ht)
+    alb = None if albedo is None else _planar_albedo(albedo, n, device)
+    shade_rec, albedo_rec = shade_records(gx, gy, alb)
     return Scene(heights=ht, pyr_flat=build_pyramid_flat(ht), corners=corner_records(ht, m),
-                 albedo=None if albedo is None else _planar_albedo(albedo, n, device),
-                 light=light if light is not None else Light.create(device=device),
-                 gx=gx, gy=gy, n=n, m=m, levels=num_levels(m))
+                 albedo=alb, light=light if light is not None else Light.create(device=device),
+                 gx=gx, gy=gy, shade_rec=shade_rec, albedo_rec=albedo_rec, n=n, m=m,
+                 levels=num_levels(m))
 
 
 def _tensor(a, device):
@@ -75,13 +105,15 @@ def scene_from_arrays(heights, pyr_flat, albedo, light: dict, *, n: int,
     if ht.shape != (n, n):
         raise ValueError(f"heights must be ({n}, {n}), got {tuple(ht.shape)}")
     gx, gy = corner_grads(ht)
+    alb = None if albedo is None else _tensor(albedo, device)
+    shade_rec, albedo_rec = shade_records(gx, gy, alb)
     return Scene(heights=ht, pyr_flat=_tensor(pyr_flat, device),
-                 corners=corner_records(ht, m),
-                 albedo=None if albedo is None else _tensor(albedo, device),
+                 corners=corner_records(ht, m), albedo=alb,
                  light=Light(**{k: _tensor(light[k], device) for k in
                                 ("sun_dir", "sun_color", "sky_top",
                                  "sky_horizon", "fog_color")}),
-                 gx=gx, gy=gy, n=n, m=m, levels=levels)
+                 gx=gx, gy=gy, shade_rec=shade_rec, albedo_rec=albedo_rec, n=n, m=m,
+                 levels=levels)
 
 
 def camera_from_arrays(eye, target, up, fov_y, device=None) -> Camera:

@@ -26,7 +26,7 @@ from hmrt_tpu_torch.distrib.mesh import (gather_rows, render_flythrough_sharded,
                                          render_frame_sharded, replicate_scene, spawn)
 from hmrt_tpu_torch.types import Camera, Scene
 
-_PLANES = ("heights", "pyr_flat", "corners", "gx", "gy", "albedo")
+_PLANES = ("heights", "pyr_flat", "corners", "gx", "gy", "albedo", "shade_rec", "albedo_rec")
 
 
 def scene_digest(scene: Scene) -> torch.Tensor:

@@ -35,6 +35,7 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
+from hmrt_tpu_torch.api.scene import shade_records
 from hmrt_tpu_torch.config import RenderConfig
 from hmrt_tpu_torch.core.renderer import COMPACT_MIN_M, choose_backend, render_frame
 from hmrt_tpu_torch.device import resolve
@@ -231,8 +232,10 @@ _LIGHT_FIELDS = ("sun_dir", "sun_color", "sky_top", "sky_horizon", "fog_color")
 def replicate_scene(scene: Scene | None, mesh: Mesh) -> Scene:
     """Rank 0's scene on every rank's device, bit for bit: heights,
     pyr_flat, corners, gx, gy, albedo and the light are broadcast once
-    (BASELINE.json:5, "replicated height pyramid"). Ranks other than 0 may
-    pass None (only rank 0 read the file)."""
+    (BASELINE.json:5, "replicated height pyramid"), and each rank packs the
+    shade records from its copies of gx, gy and albedo (copies of the same
+    values, so the same bits, without sending 2.5 times the planes' bytes
+    again). Ranks other than 0 may pass None (only rank 0 read the file)."""
     meta = None
     if mesh.rank == 0:
         meta = {"geom": (scene.n, scene.m, scene.levels),
@@ -255,7 +258,9 @@ def replicate_scene(scene: Scene | None, mesh: Mesh) -> Scene:
               for k in _SCENE_PLANES}
     light = Light(**{k: bcast(getattr(scene.light, k) if mesh.rank == 0 else None, (3,))
                      for k in _LIGHT_FIELDS})
-    return Scene(**planes, light=light, n=n, m=m, levels=levels)
+    shade_rec, albedo_rec = shade_records(planes["gx"], planes["gy"], planes["albedo"])
+    return Scene(**planes, light=light, shade_rec=shade_rec, albedo_rec=albedo_rec, n=n, m=m,
+                 levels=levels)
 
 
 # ---- sharded renders -----------------------------------------------------

@@ -35,8 +35,8 @@ SIGNATURES = {
     # 24 state/ray planes, pyr_flat, corners; p m levels budget
     # intersector; box_lo box_hi; ray counter, counts or null, stream
     "hmrt_march_pass": [_P] * 26 + [_I] * 5 + [_F] * 2 + [_P] * 3,
-    # hit hx hy fx fy gx gy albedo, 6 outputs; p n; stream
-    "hmrt_shade_pass": [_P] * 14 + [_I] * 2 + [_P],
+    # hit hx hy fx fy shade_rec albedo_rec, 6 outputs; p c (cells a side); stream
+    "hmrt_shade_pass": [_P] * 13 + [_I] * 2 + [_P],
     # params pyr corners gx gy albedo, color hit depth normal cell;
     # H W full_h n m levels intersector phong shadows fog;
     # ambient specular shininess fog_density box_lo box_hi;

@@ -187,8 +187,8 @@ def shade_frame(scene: Scene, config: RenderConfig, rays, hit_i, t_hit, hx, hy, 
     dx, dy, dz = rays[3:]
     hit = hit_i != 0
     points, fx, fy = hit_points(rays, hit, t_hit, hx, hy)
-    nx, ny, nz, ar, ag, ab = shade(hit_i, hx, hy, fx, fy, scene.gx, scene.gy,
-                                   scene.albedo if config.texture else None)
+    nx, ny, nz, ar, ag, ab = shade(hit_i, hx, hy, fx, fy, scene.shade_rec,
+                                   scene.albedo_rec if config.texture else None)
 
     light = scene.light
     lx, ly, lz = light.sun_dir[0], light.sun_dir[1], light.sun_dir[2]

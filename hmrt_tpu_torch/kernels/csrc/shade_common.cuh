@@ -4,10 +4,15 @@
 // For a hit in cell (hx, hy) at in-cell offsets (fx, fy): the bilinear
 // interpolation of the central-difference gradients (gx, gy) at the cell's
 // 4 corners gives the normal normalize(-gx, -gy, 1); a textured scene also
-// gets the bilinear RGB albedo from the planar (3, N*N) texture. A miss
-// gets the normal (0, 0, 1) and albedo 0.55. The expressions are those of
-// the torch plain version, in the same order, and the normalisation uses
-// 1/sqrtf(x), not the approximate rsqrtf.
+// gets the bilinear RGB albedo of the cell's 4 corners. A miss gets the
+// normal (0, 0, 1) and albedo 0.55. The expressions are those of the torch
+// plain version, in the same order, and the normalisation uses 1/sqrtf(x),
+// not the approximate rsqrtf.
+//
+// The shade pass reads a cell's corners from its per-cell records
+// (api/scene.py shade_records; shade_pass.cu); the fused kernel reads them
+// from the gradient planes (N, N) and the planar (3, N*N) albedo
+// (shade_lane). Both records and planes hold the same values.
 
 #pragma once
 
@@ -23,21 +28,31 @@ struct ShadeData {
   float nx, ny, nz, ar, ag, ab;
 };
 
-static __device__ __forceinline__ ShadeData shade_lane(bool hit, int hx, int hy, float fx,
-                                                       float fy, const float* gx,
-                                                       const float* gy, const float* albedo,
-                                                       int n) {
-  ShadeData d{0.0f, 0.0f, 1.0f, 0.55f, 0.55f, 0.55f};
-  if (!hit) return d;
-  int cx = min(max(hx, 0), n - 2);
-  int cy = min(max(hy, 0), n - 2);
-  long long b = (long long)cy * n + cx;
-  float g_x = bilerp(gx[b], gx[b + 1], gx[b + n], gx[b + n + 1], fx, fy);
-  float g_y = bilerp(gy[b], gy[b + 1], gy[b + n], gy[b + n + 1], fx, fy);
+// The shade data of a miss.
+static __device__ __forceinline__ ShadeData miss_shade() {
+  return ShadeData{0.0f, 0.0f, 1.0f, 0.55f, 0.55f, 0.55f};
+}
+
+// normalize(-g_x, -g_y, 1) into d.
+static __device__ __forceinline__ void set_normal(ShadeData& d, float g_x, float g_y) {
   float inv = 1.0f / sqrtf(g_x * g_x + g_y * g_y + 1.0f);
   d.nx = -g_x * inv;
   d.ny = -g_y * inv;
   d.nz = inv;
+}
+
+// From the planes: 4-byte loads at the cell's corners on rows cy and cy+1.
+static __device__ __forceinline__ ShadeData shade_lane(bool hit, int hx, int hy, float fx,
+                                                       float fy, const float* gx,
+                                                       const float* gy, const float* albedo,
+                                                       int n) {
+  ShadeData d = miss_shade();
+  if (!hit) return d;
+  int cx = min(max(hx, 0), n - 2);
+  int cy = min(max(hy, 0), n - 2);
+  long long b = (long long)cy * n + cx;
+  set_normal(d, bilerp(gx[b], gx[b + 1], gx[b + n], gx[b + n + 1], fx, fy),
+             bilerp(gy[b], gy[b + 1], gy[b + n], gy[b + n + 1], fx, fy));
   if (albedo != nullptr) {
     long long nn = (long long)n * n;
     const float* r = albedo;
@@ -46,6 +61,21 @@ static __device__ __forceinline__ ShadeData shade_lane(bool hit, int hx, int hy,
     d.ar = bilerp(r[b], r[b + 1], r[b + n], r[b + n + 1], fx, fy);
     d.ag = bilerp(g[b], g[b + 1], g[b + n], g[b + n + 1], fx, fy);
     d.ab = bilerp(bl[b], bl[b + 1], bl[b + n], bl[b + n + 1], fx, fy);
+  }
+  return d;
+}
+
+// From a cell's records, already loaded: g = (g00x, g10x, g01x, g11x) and
+// (g00y, g10y, g01y, g11y); a = (r00, r10, r01, r11), (g00, ...), (b00, ...).
+static __device__ __forceinline__ ShadeData shade_records(const float4 g[2], const float4* a,
+                                                          float fx, float fy) {
+  ShadeData d = miss_shade();
+  set_normal(d, bilerp(g[0].x, g[0].y, g[0].z, g[0].w, fx, fy),
+             bilerp(g[1].x, g[1].y, g[1].z, g[1].w, fx, fy));
+  if (a != nullptr) {
+    d.ar = bilerp(a[0].x, a[0].y, a[0].z, a[0].w, fx, fy);
+    d.ag = bilerp(a[1].x, a[1].y, a[1].z, a[1].w, fx, fy);
+    d.ab = bilerp(a[2].x, a[2].y, a[2].z, a[2].w, fx, fy);
   }
   return d;
 }

@@ -128,10 +128,13 @@ class Scene:
 
     n = height-sample grid side N; m = padded power-of-two cell-grid side;
     levels = pyramid levels (level 0 is m x m, the last is 1 x 1).
-    gx, gy are the per-sample central-difference gradients the shade
-    kernel interpolates (api/scene.py corner_grads). corners holds each
+    gx, gy are the per-sample central-difference gradients (api/scene.py
+    corner_grads) that the fused kernel interpolates. corners holds each
     cell's four corner heights as one record (core/pyramid.py
-    corner_records), the layout the CUDA march reads level 0 from."""
+    corner_records), the layout the CUDA march reads level 0 from.
+    shade_rec and albedo_rec hold each cell's corner gradients and corner
+    RGB as one record (api/scene.py shade_records), the layout the shade
+    pass reads."""
 
     heights: torch.Tensor          # (N, N) f32 height samples
     pyr_flat: torch.Tensor         # (T,) f32 flat level-major max pyramid
@@ -140,6 +143,8 @@ class Scene:
     light: Light
     gx: torch.Tensor               # (N, N) f32 d(height)/dx per sample
     gy: torch.Tensor               # (N, N) f32 d(height)/dy per sample
+    shade_rec: torch.Tensor        # (N-1, N-1, 8) f32 per-cell corner gradients
+    albedo_rec: torch.Tensor | None  # (N-1, N-1, 12) f32 per-cell corner RGB, or None
     n: int
     m: int
     levels: int

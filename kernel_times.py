@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Device times of the two march kernels on the B3 frame, on one CUDA card.
+"""Device times of the three kernels at the main paths' shapes, on one CUDA card.
 
 Run from the root of a checkout:
 
     python3 kernel_times.py [--root DIR] [VARIANT ...]
 
-It builds the B3 scene (bench/configs.py) and prints one JSON line per
-variant: the device ms of each march_pass launch of one compact frame and
-their sum, the render_tile kernel's device ms on the B3 frame (backend
-"pallas") and on the B1 frame (torch.profiler, the kernel alone), the B3
+It builds the B1, B3 and B4 scenes (bench/configs.py) and prints one JSON
+line per variant: the device ms of each march_pass launch of one compact B3
+frame and their sum, the render_tile kernel's device ms on the B3 frame
+(backend "pallas") and on the B1 frame (torch.profiler, the kernel alone),
+the shade_pass kernel's device ms on the lanes of the B3 frame (untextured)
+and of B4's orbit frame 0 (textured), three times each by CUDA events over
+SHADE_REPS calls queued behind a spin kernel, with the 32-byte sectors its
+gathers touch in either layout (chip_smoke.py::shade_sectors), the B3
 frame's ms through each path (CUDA events, median of 5), and the registers
-ptxas gave each kernel, beside the card's name and power limit.
+and spill bytes ptxas gave each kernel, beside the card's name and power
+limit.
 
 --root DIR imports hmrt_tpu_torch from another checkout, e.g. an older
 commit unpacked with `git archive` into a directory that .gitignore lists,
@@ -33,6 +38,7 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+SHADE_REPS = 200   # shade_pass calls per timing (~40-150 us each)
 
 
 def variant_library(build, spec: str):
@@ -62,7 +68,8 @@ def variant_library(build, spec: str):
 
 def registers(log: str) -> dict:
     """{kernel name: [registers, bytes of spill stores]} of the timed
-    (non-counting) instances in a ptxas log."""
+    (non-counting) instances of the march kernels and of both instances of
+    shade_pass (untextured, textured) in a ptxas log."""
     regs = {}
     entry, spill = None, 0
     for line in log.splitlines():
@@ -77,7 +84,35 @@ def registers(log: str) -> dict:
             for k in ("march_pass_kernel", "render_tile_kernel"):
                 if k in entry and "ILb1E" not in entry:
                     regs[k] = [int(m.group(1)), spill]
+            if "shade_pass_kernel" in entry:  # one instance before the records
+                suffix = ("_textured" if "ILb1E" in entry else
+                          "_untextured" if "ILb0E" in entry else "")
+                regs["shade_pass_kernel" + suffix] = [int(m.group(1)), spill]
     return regs
+
+
+def shade_lanes(scene, cam, cfg):
+    """(hit, hx, hy, fx, fy) of the frame's primary march, the lanes the
+    compact path hands the shade pass."""
+    from hmrt_tpu_torch.kernels.compact import (FIRST_BUDGET, ROUND_BUDGET, ROUNDS,
+                                                hit_points, init_state, march_rounds,
+                                                primary_rays)
+    rays = primary_rays(cam, cfg)
+    st = init_state(rays, None, scene.pyr_flat[-1], n=scene.n, m=scene.m, levels=scene.levels)
+    hit_i, t_hit, hx, hy = march_rounds(rays, st, scene, cell_intersect=cfg.cell_intersect,
+                                        clip=None, first_budget=FIRST_BUDGET, rounds=ROUNDS,
+                                        round_budget=ROUND_BUDGET, moving=(3, 4, 5))
+    _, fx, fy = hit_points(rays, hit_i != 0, t_hit, hx, hy)
+    return hit_i, hx, hy, fx, fy
+
+
+def shade_inputs(scene, textured: bool) -> tuple:
+    """The scene arrays shade_pass takes after the lanes: the per-cell
+    records, or in a checkout from before them the gradient planes and the
+    planar albedo."""
+    if hasattr(scene, "shade_rec"):
+        return scene.shade_rec, scene.albedo_rec if textured else None
+    return scene.gx, scene.gy, scene.albedo if textured else None
 
 
 def main() -> int:
@@ -90,20 +125,30 @@ def main() -> int:
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE))
-    from chip_smoke import card_line, kernel_ms, launch_times, median_ms
+    from chip_smoke import (card_line, kernel_ms, launch_times, median_ms, queued_ms,
+                            shade_sectors)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import hmrt_tpu_torch as T
+    from hmrt_tpu_torch.api.flythrough import frame_camera, orbit_flythrough
     from hmrt_tpu_torch.bench.configs import BENCH_CONFIGS, bench_scene
     from hmrt_tpu_torch.kernels import _build
     from hmrt_tpu_torch.kernels.raycast import render_frame_fused
+    from hmrt_tpu_torch.kernels.shade_pass import shade_pass
     if args.root != str(HERE) and args.variants != ["base"]:
         raise SystemExit("variants rebuild this checkout's kernels: drop --root")
 
     dev = torch.device("cuda")
     card = card_line()
-    b3, b1 = BENCH_CONFIGS["B3"], BENCH_CONFIGS["B1"]
+    b3, b1, b4 = BENCH_CONFIGS["B3"], BENCH_CONFIGS["B1"], BENCH_CONFIGS["B4"]
     scene, cam, _ = bench_scene(b3, device=dev)
     scene1, cam1, _ = bench_scene(b1, device=dev)
+    scene4, _, terr4 = bench_scene(b4, device=dev)
+    cam4 = frame_camera(orbit_flythrough(b4.map_n, float(terr4.max()), b4.frames, device=dev), 0)
+    shade_cases = {"b3": (shade_lanes(scene, cam, b3.render), shade_inputs(scene, False)),
+                   "b4_textured": (shade_lanes(scene4, cam4, b4.render),
+                                   shade_inputs(scene4, True))}
+    sectors = {k: shade_sectors(lanes[0] != 0, lanes[1], lanes[2], sc.n, k != "b3")
+               for (k, (lanes, _)), sc in zip(shade_cases.items(), (scene, scene4))}
     cfg_c = b3.render
     cfg_f = dataclasses.replace(cfg_c, backend="pallas")
     base_lib = _build.library()
@@ -119,6 +164,9 @@ def main() -> int:
         k3 = kernel_ms(lambda: render_frame_fused(scene, cam, cfg_f), "render_tile_kernel", 5)
         k3_b1 = kernel_ms(lambda: render_frame_fused(scene1, cam1, b1.render),
                           "render_tile_kernel", 20)
+        k2 = {f"shade_pass_ms_{k}": [queued_ms(lambda: shade_pass(*lanes, *inputs), SHADE_REPS)
+                                     for _ in range(3)]
+              for k, (lanes, inputs) in shade_cases.items()}
         frames = {}
         for label, cf in (("compact", cfg_c), ("fused", cfg_f), ("fused", cfg_f),
                           ("compact", cfg_c)):
@@ -128,7 +176,8 @@ def main() -> int:
             "root": args.root, "variant": spec, "card": card,
             "march_pass_ms_per_launch": [ms for _, ms in per_launch],
             "march_pass_ms_per_frame": sum(ms for _, ms in per_launch),
-            "render_tile_ms_b3": k3, "render_tile_ms_b1": k3_b1,
+            "render_tile_ms_b3": k3, "render_tile_ms_b1": k3_b1, **k2,
+            "shade_sectors": sectors,
             "frame_ms_compact": frames["compact"], "frame_ms_fused": frames["fused"],
             "registers": registers(log)}), flush=True)
     return 0

@@ -160,7 +160,7 @@ def test_floor_metrics_equal_a_plain_work_counter():
                                                      counter=prim, **kw)
     hit = hit_i != 0
     points, fx, fy = hit_points(rays, hit, t_hit, hx, hy)
-    normal = shade_pass_reference(hit_i, hx, hy, fx, fy, scene.gx, scene.gy)[:3]
+    normal = shade_pass_reference(hit_i, hx, hy, fx, fy, scene.shade_rec)[:3]
     srays, sstate = shadow_start(points, normal, hit, hx, hy, scene)
     shad = WorkCounter(scene.pyr_flat.shape[0], scene.n, "cpu")
     march_pass_reference(srays, sstate, empty_results(p, "cpu"), scene.pyr_flat,

@@ -141,24 +141,87 @@ def test_kernels_reject_bad_record_plane(cuda, bad):
     assert (march_pass.launches, render_frame_fused.launches) == (m0, f0)
 
 
+def _assert_shade_equal(lanes, sc, textured):
+    """K2 on the scene's records equals its plain version bit for bit."""
+    alb = sc.albedo_rec if textured else None
+    got = shade_pass(*lanes, sc.shade_rec, alb)
+    torch.cuda.synchronize()
+    want = shade_pass_reference(*lanes, sc.shade_rec, alb)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), float((a - b).abs().max())
+    return got
+
+
+def _shade_scene(n, textured, dev, seed=1):
+    albedo = (np.random.default_rng(seed).uniform(0, 1, (n, n, 3)).astype(np.float32)
+              if textured else None)
+    return T.make_scene(T.procedural_terrain(n, seed=3), albedo=albedo, device=dev)
+
+
 @pytest.mark.parametrize("textured", [False, True])
 @pytest.mark.parametrize("n", [128, 1024])
 def test_shade_kernel_equals_plain(cuda, n, textured):
-    """Within 1e-6 (the two may order the normalisation differently)."""
+    """Exactly: the same record values through the same expressions."""
     rng = np.random.default_rng(1)
-    albedo = rng.uniform(0, 1, (n, n, 3)).astype(np.float32) if textured else None
-    sc = T.make_scene(T.procedural_terrain(n, seed=3), albedo=albedo, device=cuda)
+    sc = _shade_scene(n, textured, cuda)
     p = 65536
     lanes = [torch.from_numpy(a).to(cuda) for a in (
         (rng.uniform(size=p) < 0.7).astype(np.int32),
         rng.integers(0, n - 1, p).astype(np.int32),
         rng.integers(0, n - 1, p).astype(np.int32),
         rng.uniform(0, 1, p).astype(np.float32), rng.uniform(0, 1, p).astype(np.float32))]
-    got = shade_pass(*lanes, sc.gx, sc.gy, sc.albedo)
-    torch.cuda.synchronize()
-    want = shade_pass_reference(*lanes, sc.gx, sc.gy, sc.albedo)
-    for a, b in zip(got, want):
-        assert float((a - b).abs().max()) <= 1e-6
+    _assert_shade_equal(lanes, sc, textured)
+
+
+@pytest.mark.parametrize("textured", [False, True])
+@pytest.mark.parametrize("case", ["last_row_col", "out_of_range", "all_miss", "ragged"])
+def test_shade_kernel_edges_equal_plain(cuda, textured, case):
+    """Lanes on the last cell row and column, hit cells outside the grid
+    (clamped), all-miss lane sets, and lane counts that end inside a block."""
+    n = 129
+    c = n - 1
+    sc = _shade_scene(n, textured, cuda)
+    rng = np.random.default_rng(7)
+    p = {"last_row_col": 4096, "out_of_range": 4096, "all_miss": 3000, "ragged": 257}[case]
+    hx = rng.integers(0, c, p)
+    hy = rng.integers(0, c, p)
+    hit = np.ones(p, np.int32)
+    if case == "last_row_col":
+        hx[::2], hy[1::2] = c - 1, c - 1
+    elif case == "out_of_range":
+        hx = rng.integers(-5 * c, 5 * c, p)
+        hy = rng.integers(-5 * c, 5 * c, p)
+    elif case == "all_miss":
+        hit[:] = 0
+    lanes = [torch.from_numpy(a).to(cuda) for a in (
+        hit, hx.astype(np.int32), hy.astype(np.int32),
+        rng.uniform(0, 1, p).astype(np.float32), rng.uniform(0, 1, p).astype(np.float32))]
+    got = _assert_shade_equal(lanes, sc, textured)
+    if case == "all_miss":
+        for x, v in zip(got, (0.0, 0.0, 1.0, 0.55, 0.55, 0.55)):
+            assert bool((x == float(np.float32(v))).all())
+    if case == "out_of_range":   # a clamped lane reads the cell it clamps to
+        cl = [lanes[0], lanes[1].clamp(0, c - 1), lanes[2].clamp(0, c - 1), *lanes[3:]]
+        for a, b in zip(got, shade_pass(*cl, sc.shade_rec, sc.albedo_rec if textured else None)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad", ["shape", "misaligned", "albedo_dtype", "albedo_shape"])
+def test_shade_kernel_rejects_bad_records(cuda, bad):
+    """The wrapper raises before any launch on records the kernel cannot
+    read as float4 loads."""
+    sc = _shade_scene(128, True, cuda)
+    c = sc.n - 1
+    args = {"shape": (torch.zeros((c, c, 4), device=cuda), None),
+            "misaligned": (torch.zeros(c * c * 8 + 1, device=cuda)[1:].view(c, c, 8), None),
+            "albedo_dtype": (sc.shade_rec, sc.albedo_rec.double()),
+            "albedo_shape": (sc.shade_rec, sc.albedo_rec[1:])}[bad]
+    lanes = [torch.zeros(64, dtype=torch.int32, device=cuda) for _ in range(3)]
+    lanes += [torch.zeros(64, device=cuda) for _ in range(2)]
+    before = shade_pass.launches
+    with pytest.raises(ValueError, match="rec"):
+        shade_pass(*lanes, *args)
+    assert shade_pass.launches == before
 
 
 @pytest.mark.parametrize("ci", ["triangle", "bilinear", "flat"])
@@ -364,7 +427,7 @@ def test_unbuildable_library_raises(cuda, tmp_path, monkeypatch):
         lanes += [torch.zeros(1024, device=cuda) for _ in range(2)]
         before = shade_pass.launches
         with pytest.raises(RuntimeError, match="nvcc failed"):
-            shade_pass(*lanes, sc.gx, sc.gy)
+            shade_pass(*lanes, sc.shade_rec)
         assert shade_pass.launches == before
     finally:
         _build.library.cache_clear()

@@ -38,8 +38,9 @@ def _lanes(seed):
 
 @pytest.mark.parametrize("textured", [False, True])
 def test_shade_pass_reference_matches_jax_kernel(terrain, textured):
-    """shade_pass_reference vs the TPU kernel (interpret mode) on a packed
-    128^2 scene, within 1e-6 (1/sqrt vs rsqrt)."""
+    """shade_pass_reference on the scene's records vs the TPU kernel
+    (interpret mode) on a packed 128^2 scene, within 1e-6 (1/sqrt vs
+    rsqrt)."""
     albedo = (np.random.default_rng(1).uniform(0.2, 0.9, (N, N, 3)).astype(np.float32)
               if textured else None)
     js = jax_make_scene(terrain, albedo=albedo)
@@ -48,8 +49,8 @@ def test_shade_pass_reference_matches_jax_kernel(terrain, textured):
     want = jax_shade_pass(js.packed.shade, js.packed.albedo if textured else None,
                           *map(jnp.asarray, lanes), m5=js.packed.m5,
                           textured=textured, interpret=True)
-    got = shade_pass_reference(*map(torch.from_numpy, lanes), ts.gx, ts.gy,
-                               ts.albedo if textured else None)
+    got = shade_pass_reference(*map(torch.from_numpy, lanes), ts.shade_rec,
+                               ts.albedo_rec if textured else None)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-6)
     miss = lanes[0] == 0
@@ -60,8 +61,8 @@ def test_shade_pass_cpu_uses_plain_version(terrain):
     ts = make_scene(terrain, device="cpu")
     lanes = [torch.from_numpy(a) for a in _lanes(3)]
     before = shade_pass.launches
-    for a, b in zip(shade_pass(*lanes, ts.gx, ts.gy),
-                    shade_pass_reference(*lanes, ts.gx, ts.gy)):
+    for a, b in zip(shade_pass(*lanes, ts.shade_rec),
+                    shade_pass_reference(*lanes, ts.shade_rec)):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert shade_pass.launches == before
 
