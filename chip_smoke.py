@@ -5,9 +5,13 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the package's CUDA kernels from the sources in the checkout and
-drives both render paths through the normal entry points:
+It builds the package's CUDA kernels and its host library (g++) from the
+sources in the checkout and drives both render paths through the normal
+entry points:
 
+  - the host library: B3's 4096^2 fBm terrain and a 2049^2 16-bit PNG whose
+    rows cycle through the five filters, each against its numpy or Python
+    spec, bit for bit, both timed;
   - the compact path: B3 (a 4096^2 DEM at 1920x1080 with Phong, shadows
     and the sky early-out) under backend "auto", timed; march_pass and
     shade_pass held against their plain versions at its shapes, march_pass
@@ -17,7 +21,13 @@ drives both render paths through the normal entry points:
     the fused kernel, against the torch oracle; B3 through backend
     "pallas", timed and held against the compact frame; the fused kernel
     against its plain version on the B1 frame and on a 16-row band of B3
-    at the horizon; B2 under both backends;
+    at the horizon; B1's counter planes through render_frame with
+    debug_counters; B2 under both backends;
+  - the four hostile cameras of tests/test_sanitizers.py through the
+    compact and fused kernels against their plain versions and the oracle,
+    then again in a subprocess (`--hostile`) under compute-sanitizer's
+    memcheck; the card's compact and fused renders against the B4-class
+    golden tests/golden/b4_64.npy;
   - the kernels' counting instances: per-ray steps and cell tests equal to
     the plain version's counts, the full B3 frame's work and from it each
     kernel's bound on that frame, and the warp efficiency of one thread per
@@ -55,7 +65,8 @@ drives both render paths through the normal entry points:
     load_heightmap on a PNG, a PGM, a TIFF and an ESRI ASCII grid.
 
 `python3 chip_smoke.py --cards`, on a machine with several cards, runs only
-B5 band-sharded over every card against one card (phase 14(d)).
+B5 band-sharded over every card against one card (phase 14(d));
+`--hostile` runs only the hostile cameras through the kernels.
 
 It prints the card's name and power limit, one JSON line of per-kernel
 results (time, plain time, launches, error and the bound of each), and last
@@ -65,9 +76,11 @@ without a CUDA device it exits 1 before doing anything.
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -934,6 +947,222 @@ def entry_points_phase(run_path, card, dev, scene, terr3):
 
 
 
+#: (eye, target) of the four hostile cameras of tests/test_sanitizers.py
+HOSTILE_CAMERAS = {
+    "under the terrain, looking up": ((32.0, 32.0, -50.0), (32.0, 32.0, 100.0)),
+    "far outside the box, looking across it": ((-500.0, -500.0, 5.0), (32.0, 32.0, 0.0)),
+    "inside the terrain volume, grazing downward": ((31.5, 31.5, 1.0), (200.0, 200.0, -60.0)),
+    "outside, looking away from the box": ((-100.0, -100.0, 50.0), (-200.0, -200.0, 80.0)),
+}
+MEMCHECK_TIMEOUT = 600  # seconds for the memcheck subprocess, start to end
+
+
+def hostile_cameras(dev, run_path=None) -> float:
+    """The hostile cameras on the 64^2 scene at 16x16 with Phong, shadows
+    and aux buffers: K1+K2 (backend "compact") and K3 (backend "pallas")
+    against their plain versions on the card (hit, depth and, for K3, hit
+    cells equal; colour and normals within 1e-6), both against the torch
+    oracle's hit mask, colours finite in [0, 1] and normals finite. Returns
+    the largest colour or normal difference from the plain versions."""
+    import torch
+    import hmrt_tpu_torch as T
+    from hmrt_tpu_torch.core.renderer import render_frame_oracle
+    from hmrt_tpu_torch.kernels.raycast import fused_planes, fused_reference_planes
+    scene = T.make_scene(T.procedural_terrain(64, seed=3), device=dev)
+    base = T.RenderConfig(width=16, height=16, shading="phong", shadows=True,
+                          aux_buffers=True)
+    run = run_path or (lambda label, fn, want, none=(): fn())
+    err = 0.0
+    for name, (eye, target) in HOSTILE_CAMERAS.items():
+        cam = T.Camera.create(eye=eye, target=target, device=dev)
+        color, depth, normal, hit, cell = fused_reference_planes(scene, cam, base)
+        want = (hit.reshape(16, 16), depth.reshape(16, 16), color.reshape(16, 16, 3),
+                normal.reshape(16, 16, 3))
+        fc = run(f"hostile camera {name!r} (compact)", lambda: T.render_frame(
+            scene, cam, dataclasses.replace(base, backend="compact")),
+            ("march_pass", "shade_pass"), ("render_tile",))
+        ff = run(f"hostile camera {name!r} (pallas)", lambda: fused_planes(
+            scene, cam, base, cells=True), ("render_tile",), ("march_pass", "shade_pass"))
+        oracle_hit = render_frame_oracle(scene, cam, base).hit
+        for path, (c, d, nrm, h) in (("compact", (fc.color, fc.depth, fc.normal, fc.hit)),
+                                     ("pallas", ff[:4])):
+            label = f"hostile camera {name!r}, {path}"
+            pairs = [("hit", h, want[0]), ("depth", d, want[1]), ("oracle hit", h, oracle_hit)]
+            if path == "pallas":
+                pairs.append(("hit cell", ff[4].reshape(-1, 2), cell))
+            err = max(err, compare_exact(label, pairs, (("colour", c, want[2]),
+                                                        ("normal", nrm, want[3]))))
+            if not bool(torch.isfinite(c).all()) or float(c.min()) < 0 or float(c.max()) > 1 \
+                    or not bool(torch.isfinite(nrm).all()):
+                raise AssertionError(f"{label}: colour outside [0, 1] or a normal not finite")
+        log(f"  hostile camera {name!r}: {int(want[0].sum())} of 256 hits; compact (K1+K2) "
+            f"and pallas (K3) equal their plain versions and the oracle's hit mask, colours "
+            f"finite in [0, 1], normals finite")
+    return err
+
+
+def memcheck_hostile() -> str:
+    """`python3 chip_smoke.py --hostile` under compute-sanitizer's memcheck,
+    every tensor its own allocation. Fails on a non-zero exit and on running
+    past MEMCHECK_TIMEOUT; returns "clean", "no compute-sanitizer" (no
+    binary in the toolkit) or "device not supported" (the sanitizer says it
+    cannot attach to this card, so it checked nothing)."""
+    import os
+    import signal
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "compute-sanitizer"
+    if not tool.is_file():
+        log(f"memcheck: no compute-sanitizer at {tool}; the memcheck run is skipped")
+        return "no compute-sanitizer"
+    cmd = [str(tool), "--tool", "memcheck", "--error-exitcode", "1", sys.executable,
+           str(ROOT / "chip_smoke.py"), "--hostile"]
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out = proc.communicate(timeout=MEMCHECK_TIMEOUT)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"memcheck ran past its {MEMCHECK_TIMEOUT} s") from None
+    lines = out.splitlines()
+    log(f"memcheck: {' '.join(cmd[1:6])} ... exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; its last lines:")
+    for line in lines[-12:]:
+        log("  | " + line[:200])
+    if proc.returncode == 0 and "hostile cameras: ok" in lines:
+        return "clean"
+    if "Device not supported" in out and "hostile cameras: ok" not in lines:
+        log("memcheck: compute-sanitizer cannot attach to this card here (\"Device not "
+            "supported\"): it checked nothing")
+        return "device not supported"
+    raise AssertionError(f"memcheck: exit {proc.returncode} over the hostile cameras")
+
+
+def hostile_only() -> int:
+    """`python3 chip_smoke.py --hostile`: the hostile cameras through the
+    kernels alone (the process that memcheck runs)."""
+    import torch
+    hostile_cameras(torch.device("cuda"))
+    torch.cuda.synchronize()
+    log("hostile cameras: ok")
+    return 0
+
+
+def png_filter_rows(rows, bpp: int):
+    """PNG scanlines of `rows` (h, stride) uint8, row y filtered with type
+    y % 5 (None, Sub, Up, Average, Paeth in turn): flat uint8, one filter
+    byte before each row. Vectorised over the rows, since a filter reads
+    only unfiltered bytes."""
+    import numpy as np
+    cur = rows.astype(np.int32)
+    a = np.zeros_like(cur)
+    a[:, bpp:] = cur[:, :-bpp]
+    b = np.zeros_like(cur)
+    b[1:] = cur[:-1]
+    c = np.zeros_like(cur)
+    c[:, bpp:] = b[:, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    preds = (np.zeros_like(cur), a, b, (a + b) >> 1,
+             np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c)))
+    types = np.arange(rows.shape[0]) % 5
+    pred = np.stack(preds)[types, np.arange(rows.shape[0])]
+    line = ((cur - pred) & 0xFF).astype(np.uint8)
+    return np.concatenate([types[:, None].astype(np.uint8), line], axis=1).reshape(-1)
+
+
+def host_library_phase(card):
+    """The host library on this machine: B3's 4096^2 terrain against the
+    numpy spec and a 2049^2 16-bit grey PNG whose rows cycle through the
+    five filters against the Python unfilter, bit for bit, both timed.
+    Returns a dict of the times (s)."""
+    import struct
+    import zlib
+    import numpy as np
+    import hmrt_tpu_torch as T
+    from hmrt_tpu_torch.io import image as image_io
+    from hmrt_tpu_torch.io.heightmap import procedural_terrain_reference
+    from hmrt_tpu_torch.io.native import png_unfilter
+    out = {}
+    t0 = time.perf_counter()
+    terr = T.procedural_terrain(4096, seed=3)
+    out["fbm_4096_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = procedural_terrain_reference(4096, seed=3)
+    out["fbm_4096_spec_s"] = time.perf_counter() - t0
+    if not np.array_equal(terr, want):
+        raise AssertionError(f"host fBm differs from the numpy spec on "
+                             f"{int((terr != want).sum())} of 4096^2 samples")
+    log(f"fBm terrain 4096^2 (B3's, seed 3): host library {out['fbm_4096_s']:.3f} s, numpy "
+        f"spec {out['fbm_4096_spec_s']:.3f} s, bit-equal  [{card}]")
+    # B4's 8192^2 map: for a power-of-two n both linspace steps are exact,
+    # so 8192^2 adds only rows to what 4096^2 checks (its spec takes ~35 s)
+    t0 = time.perf_counter()
+    T.procedural_terrain(8192, seed=3)
+    out["fbm_8192_s"] = time.perf_counter() - t0
+    log(f"fBm terrain 8192^2 (B4's, seed 3): host library {out['fbm_8192_s']:.3f} s  [{card}]")
+    n = 2049
+    dem = T.procedural_terrain(n, seed=3)
+    img = ((dem - dem.min()) / np.ptp(dem) * 65535).astype(np.uint16)
+    raw = png_filter_rows(img.astype(">u2").view(np.uint8).reshape(n, 2 * n), 2)
+    smoke = ROOT / "build" / "smoke"
+    smoke.mkdir(parents=True, exist_ok=True)
+    path = smoke / "dem16_filtered.png"
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                     + chunk(b"IHDR", struct.pack(">IIBBBBB", n, n, 16, 0, 0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + chunk(b"IEND", b""))
+    t0 = time.perf_counter()
+    got = image_io.read_png(str(path))
+    out["png_read_2049_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = png_unfilter(raw, n, 2 * n, 2)
+    out["png_unfilter_2049_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spec = image_io._unfilter(raw, n, 2 * n, 2)
+    out["png_unfilter_2049_spec_s"] = time.perf_counter() - t0
+    if not (np.array_equal(rows, spec) and np.array_equal(got.reshape(n, n), img)
+            and np.array_equal(spec.view(">u2"), img)):
+        raise AssertionError("PNG unfilter: the host library, read_png and the Python "
+                             "spec do not all give the image written")
+    log(f"PNG 2049^2 16-bit grey, rows filtered 0-4 in turn: read_png {out['png_read_2049_s']:.3f}"
+        f" s (unfilter {out['png_unfilter_2049_s']:.4f} s), Python spec unfilter "
+        f"{out['png_unfilter_2049_spec_s']:.3f} s, bit-equal  [{card}]")
+    return out
+
+
+def golden_b4(run_path, dev) -> None:
+    """tests/golden/b4_64.npy (the JAX oracle's B4-class frame: Phong, fog
+    and the bench albedo on the 64^2 terrain) against the card's compact
+    and fused renders of the same scene, within 1 LSB."""
+    import numpy as np
+    import hmrt_tpu_torch as T
+    from hmrt_tpu_torch.bench.configs import bench_albedo
+    golden = np.load(ROOT / "tests" / "golden" / "b4_64.npy").astype(int)
+    terr = T.procedural_terrain(64, seed=3)
+    scene = T.make_scene(terr, albedo=bench_albedo(terr), device=dev)
+    cam = T.Camera.create(eye=(32.0, -20.0, float(terr.max()) + 12.0),
+                          target=(32.0, 32.0, float(terr.mean())), device=dev)
+    base = T.RenderConfig(width=64, height=64, traversal="maxmip", shading="phong", fog=True,
+                          texture=True)
+    for backend, want in (("compact", ("march_pass", "shade_pass")),
+                          ("pallas", ("render_tile",))):
+        fr = run_path(f"B4-class golden 64x64 ({backend})", lambda: T.render_frame(
+            scene, cam, dataclasses.replace(base, backend=backend)), want)
+        diff = np.abs(quantise(fr.color.cpu().numpy()).astype(int) - golden)
+        if diff.max() > 1:
+            raise AssertionError(f"B4-class golden, {backend}: {(diff > 1).sum()} values off "
+                                 f"by more than 1 LSB (max {diff.max()})")
+        log(f"  B4-class golden, {backend}: within 1 LSB of tests/golden/b4_64.npy "
+            f"({(diff == 1).sum()} values off by 1)")
+
+
 def cards_only(card) -> int:
     """`python3 chip_smoke.py --cards` on a machine with several cards:
     phase 14(d) alone, B5 across every card against one card."""
@@ -963,8 +1192,8 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--cards"]):
-        print("usage: python3 chip_smoke.py [--cards]", file=sys.stderr)
+    if argv not in ([], ["--cards"], ["--hostile"]):
+        print("usage: python3 chip_smoke.py [--cards | --hostile]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -976,6 +1205,8 @@ def main(argv=None) -> int:
     import hmrt_tpu_torch as T
     if not Path(T.__file__).resolve().is_relative_to(ROOT):
         raise RuntimeError(f"hmrt_tpu_torch imported from {T.__file__}, not this checkout")
+    if argv == ["--hostile"]:
+        return hostile_only()
     if argv:
         return cards_only(card)
     from hmrt_tpu_torch.api.flythrough import frame_camera, orbit_flythrough
@@ -984,6 +1215,7 @@ def main(argv=None) -> int:
                                             OPS_PER_STEP, OPS_PER_TEST, bound, count_frame)
     from hmrt_tpu_torch.bench.runner import ROW_KEYS, run_bench
     from hmrt_tpu_torch.core.renderer import render_frame_oracle
+    from hmrt_tpu_torch.io import native
     from hmrt_tpu_torch.kernels import _build
     from hmrt_tpu_torch.kernels.compact import (FIRST_BUDGET, ROUND_BUDGET, ROUNDS,
                                                 empty_results, hit_points, init_state,
@@ -1045,14 +1277,27 @@ def main(argv=None) -> int:
             log(f"  march_pass launch {k + 1} ({'primary' if k < fc.n_primary else 'shadow'}): "
                 f"{int((c[0] > 0).sum())} rays stepped, {steps[k]} steps, {tests[k]} cell tests")
 
-    # ---- 1. build the kernels from the checkout's sources ----------------
+    # ---- 1. build the kernels and the host library from the checkout ------
     phase("1. build")
-    t0 = time.perf_counter()
-    _build.library()
-    log(f"build: {time.perf_counter() - t0:.2f} s")
+
+    def timed(fn):
+        t = time.perf_counter()
+        fn()
+        return time.perf_counter() - t
+
+    with ThreadPoolExecutor(2) as pool:  # nvcc and g++ at once
+        builds = [pool.submit(timed, _build.library), pool.submit(timed, native.library)]
+        kernels_s, native_s = (f.result() for f in builds)
+    log(f"build: CUDA kernels {kernels_s:.2f} s, host library {native_s:.2f} s (g++ "
+        f"{native.compiler_version()}, {native.library_path().name}); host CPUs: "
+        f"os.cpu_count() {os.cpu_count()}, sched_getaffinity {len(os.sched_getaffinity(0))}")
     for line in sorted(_build.BUILD_DIR.glob("*.log"))[-1].read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas:", line.strip())
+
+    # ---- 1b. the host library against its numpy and Python specs --------
+    phase("1b. the host library: fBm terrain and PNG unfilter")
+    host_times = host_library_phase(card)
 
     # ---- 2. the compact path: B3 through render_frame --------------------
     phase("2. B3 through render_frame (auto: compact)")
@@ -1355,6 +1600,41 @@ def main(argv=None) -> int:
     log(f"render_tile, B3 band {cfg.width}x16 at row {row0}: kernel {band_ms:.4f} ms, plain "
         f"{band_plain_ms:.3f} ms; bound {band_bound[0]:.4f} ms ({band_bound[1]})  [{card}]")
 
+    # the counter planes through render_frame: B1 under "auto" takes the
+    # fused kernel, which returns (frame, counts) with debug_counters
+    cfg1_cnt = dataclasses.replace(cfg1, debug_counters=True)
+    fr1c, planes1 = run_path("B1 with debug_counters (render_frame, auto)",
+                             lambda: T.render_frame(scene1, cam1, cfg1_cnt), ("render_tile",),
+                             ("march_pass", "shade_pass"))
+    cnt1 = torch.empty((4, cfg1.height, cfg1.width), dtype=torch.int32, device=dev)
+    fused_planes(scene1, cam1, cfg1, counts=cnt1)
+    fc1 = count_frame(scene1, cam1, cfg1)
+    k = fc1.n_primary
+    steps1, tests1 = fc1.totals(0), fc1.totals(1)
+    floor1 = [sum(steps1[:k]), sum(tests1[:k]), sum(steps1[k:]), sum(tests1[k:])]
+    sums1 = [int(x.sum(dtype=torch.int64)) for x in planes1]
+    compare_exact("B1 with debug_counters", [("colour", fr1c.color, fr1.color),
+                                             ("hit", fr1c.hit, fr1.hit)]
+                  + [(f"counts plane {i}", x, cnt1[i]) for i, x in enumerate(planes1)])
+    if sums1 != floor1:
+        raise AssertionError(f"B1 counter planes sum to {sums1}, bench/floor.py counts {floor1}")
+    log(f"B1 with debug_counters: frame equal to the frame without, four int32 planes equal "
+        f"to fused_planes(counts=), their sums {sums1} (primary steps, tests, shadow steps, "
+        f"tests) equal to bench/floor.py's count of the compact frame")
+
+    # ---- 7b. the hostile cameras, and memcheck over their launches -------
+    phase("7b. the hostile cameras of tests/test_sanitizers.py")
+    err_hostile = hostile_cameras(dev, run_path)
+    # raygen's tan(fov/2) for the cameras' default 60 degrees, on each device
+    tan_bits = {d: torch.tan(torch.deg2rad(torch.tensor(60.0, device=d)) * 0.5).cpu()
+                .view(torch.int32).item() for d in ("cpu", "cuda")}
+    log(f"  tan(30 degrees) as f32 bits: {tan_bits} (torch on each device)")
+    memcheck = memcheck_hostile()
+
+    # ---- 7c. the B4-class golden -----------------------------------------
+    phase("7c. tests/golden/b4_64.npy on the card")
+    golden_b4(run_path, dev)
+
     # ---- 8. B2 under both backends, for the "auto" split ---------------
     phase("8. B2 under both backends")
     for backend in ("compact", "pallas", "pallas", "compact"):
@@ -1458,7 +1738,7 @@ def main(argv=None) -> int:
     mb = {k: sum(x.numel() * x.element_size() for x in (v if isinstance(v, tuple) else (v,)))
           / 1e6 for k, v in sizes.items()}
     log(f"B4 scene: {scene4.n}^2 samples, m={scene4.m}, {scene4.levels} levels, built in "
-        f"{b4_build_s:.2f} s (numpy fBm, albedo, upload, pyramid, records); on the card (MB): "
+        f"{b4_build_s:.2f} s (fBm, albedo, upload, pyramid, records); on the card (MB): "
         + ", ".join(f"{k} {v:.1f}" for k, v in mb.items()) + f", total {sum(mb.values()):.1f}")
     cams4 = orbit_flythrough(b4.map_n, float(terr4.max()), b4.frames, device=dev)
     cam40 = frame_camera(cams4, 0)
@@ -1620,7 +1900,8 @@ def main(argv=None) -> int:
          "source": "hmrt_tpu_torch/kernels/csrc/march_pass.cu",
          "replaces": "hmrt_tpu/kernels/compact.py:80",
          "launches": launches["march_pass"],
-         "max_abs_err": max(err_primary, err_mid, err_shadow, err_edge, err_b4, err_tile),
+         "max_abs_err": max(err_primary, err_mid, err_shadow, err_edge, err_b4, err_tile,
+                            err_hostile),
          "ms": march_ms, "plain_ms": march_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
          "b5_bands_max_abs_err": band_errs["compact_band_err"],
@@ -1630,7 +1911,7 @@ def main(argv=None) -> int:
          "source": "hmrt_tpu_torch/kernels/csrc/shade_pass.cu",
          "replaces": "hmrt_tpu/kernels/compact.py:562",
          "launches": launches["shade_pass"],
-         "max_abs_err": max(err_shade, err_shade_tex), "ms": shade_ms,
+         "max_abs_err": max(err_shade, err_shade_tex, err_hostile), "ms": shade_ms,
          "plain_ms": shade_plain_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
          "library_ms": None, "b5_bands_max_abs_err": band_errs["compact_band_err"],
          "textured_max_abs_err": err_shade_tex,
@@ -1643,11 +1924,14 @@ def main(argv=None) -> int:
          "source": "hmrt_tpu_torch/kernels/csrc/render_tile.cu",
          "replaces": "hmrt_tpu/kernels/raycast.py:88",
          "launches": launches["render_tile"],
-         "max_abs_err": max(err_b1, err_b1all, err_band),
+         "max_abs_err": max(err_b1, err_b1all, err_band, err_hostile),
          "ms": fused_ms, "plain_ms": fused_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
          "bands_max_abs_err": band_errs["fused_band_err"]},
     ]
+    log(json.dumps({"host_library": {"build_s": native_s, **host_times,
+                                     "b4_scene_build_s": b4_build_s},
+                    "hostile_cameras_memcheck": memcheck}))
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

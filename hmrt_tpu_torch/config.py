@@ -57,7 +57,13 @@ class RenderConfig:
     #: "auto"    = on CUDA compact for maps >= 1024^2, else fused;
     #:             the oracle on the CPU
     backend: Literal["auto", "oracle", "pallas", "compact"] = "auto"
-    #: per-tile work counters of the fused kernel (not ported: raises)
+    #: the fused path returns (frame, counts): four int32 (H, W) planes of
+    #: each pixel's primary steps, primary cell tests, shadow steps and
+    #: shadow cell tests (the kernel's counting instance; the plain
+    #: version's WorkCounter on the CPU). The JAX kernel's three planes
+    #: count steps of its Mosaic schedule (coarse wavefront steps, column
+    #: switches, inner steps), which the port does not have. The compact
+    #: and oracle paths ignore the flag.
     debug_counters: bool = False
 
     def steps_for(self, n_cells: int) -> int:

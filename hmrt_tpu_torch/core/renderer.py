@@ -45,9 +45,12 @@ def choose_backend(device_type: str, m: int, backend: str) -> str:
     return "compact" if m >= COMPACT_MIN_M else "fused"
 
 
-def render_frame(scene: Scene, camera: Camera, config: RenderConfig) -> Frame:
+def render_frame(scene: Scene, camera: Camera, config: RenderConfig):
     """Render one frame on the scene's device, by the path that
-    `choose_backend` picks for config.backend."""
+    `choose_backend` picks for config.backend. Returns a Frame; on the
+    fused path with config.debug_counters, (frame, counts) as
+    `kernels/raycast.py::render_frame_fused` returns (the compact and
+    oracle paths ignore the flag, as the JAX package's do)."""
     path = choose_backend(scene.device.type, scene.m, config.backend)
     if path == "compact":
         from hmrt_tpu_torch.kernels.compact import render_frame_compact

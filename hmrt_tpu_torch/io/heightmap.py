@@ -11,9 +11,11 @@ A copy of `hmrt_tpu/io/heightmap.py`, with its loaders:
   - .xyz / .csv / .txt (point clouds, gridded by io/pointcloud.py)
   - anything else through Pillow where it is installed, else a ValueError
 
-and the numpy path of its procedural terrain: the value-noise fBm below is
-the executable spec that the JAX package's native evaluator reproduces bit
-for bit, so both packages build the very same terrain from one seed.
+and its procedural terrain. `procedural_terrain` draws the octave lattices
+here and sums the octaves in the port's host library (`io/native/`, C++
+built with g++ on first use); `procedural_terrain_reference` is the numpy
+spec it equals bit for bit, as the JAX package's native evaluator does, so
+both packages build the very same terrain from one seed.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import re
 import numpy as np
 
 from hmrt_tpu_torch.io import image as _image
+from hmrt_tpu_torch.io.native import terrain_fbm
 
 
 def normalize_heights(h: np.ndarray, z_scale: float = None) -> np.ndarray:
@@ -205,19 +208,37 @@ def _value_noise_grid(n: int, cells: int, g: np.ndarray) -> np.ndarray:
             + g01 * (1 - sy) * sx + g11 * sy * sx)
 
 
-def procedural_terrain(n: int, seed: int = 0, octaves: int = 6,
-                       z_scale: float = None, ridged: bool = True) -> np.ndarray:
-    """Deterministic fBm terrain, float32 (n, n), world z units."""
+def _octaves(n: int, seed: int, octaves: int) -> list:
+    """(cells, lattice, weight) of each octave, drawn from `seed` in the
+    spec's order."""
     rng = np.random.default_rng(seed)
-    acc = np.zeros((n, n), np.float32)
-    amp, cells = 1.0, 4  # amps stay python floats, as in the spec
+    specs = []
+    amp, cells = 1.0, 4  # amps stay python floats (f64), as in the spec
     for _ in range(octaves):
         c = min(cells, n)
-        g = rng.standard_normal((c + 1, c + 1)).astype(np.float32)
+        specs.append((c, rng.standard_normal((c + 1, c + 1)).astype(np.float32), amp))
+        amp *= 0.55
+        cells *= 2
+    return specs
+
+
+def procedural_terrain(n: int, seed: int = 0, octaves: int = 6,
+                       z_scale: float = None, ridged: bool = True) -> np.ndarray:
+    """Deterministic fBm terrain, float32 (n, n), world z units: the octave
+    sum runs in the host library, equal bit for bit to
+    `procedural_terrain_reference`."""
+    cells, grids, amps = zip(*_octaves(n, seed, octaves))
+    return normalize_heights(terrain_fbm(n, grids, cells, amps, ridged), z_scale)
+
+
+def procedural_terrain_reference(n: int, seed: int = 0, octaves: int = 6,
+                                 z_scale: float = None, ridged: bool = True) -> np.ndarray:
+    """The numpy spec of `procedural_terrain` (the tests and chip_smoke.py
+    hold the host library against it)."""
+    acc = np.zeros((n, n), np.float32)
+    for c, g, amp in _octaves(n, seed, octaves):
         layer = _value_noise_grid(n, c, g)
         if ridged:
             layer = 1.0 - np.abs(layer)
         acc += amp * layer
-        amp *= 0.55
-        cells *= 2
     return normalize_heights(acc, z_scale)

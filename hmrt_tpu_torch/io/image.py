@@ -1,10 +1,9 @@
-"""Dependency-free PNG/APNG/PPM image I/O (numpy and the standard library).
+"""PNG/APNG/PPM image I/O (numpy, the standard library and the host library).
 
-Counterpart of `hmrt_tpu/io/image.py`. The JAX module unfilters PNG rows
-through its prebuilt host C++ library when it can load it; the port loads
-no such library and always runs `_unfilter`, the JAX module's own pure
-Python spec (fast for the filter-0 rows every writer here emits; rows of
-the Sub, Average and Paeth filters go pixel by pixel).
+Counterpart of `hmrt_tpu/io/image.py`. `read_png` unfilters PNG rows in
+the port's host library (`io/native/`, C++ built with g++ on first use),
+as the JAX module does in its own; `_unfilter` is the pure Python spec it
+equals bit for bit (the tests and chip_smoke.py hold it against that).
 """
 
 from __future__ import annotations
@@ -13,6 +12,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from hmrt_tpu_torch.io.native import png_unfilter
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 
@@ -113,6 +114,7 @@ def write_png16(path: str, img: np.ndarray) -> None:
 
 
 def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """The plain version of `io/native.png_unfilter`."""
     out = np.zeros((h, stride), np.uint8)
     pos = 0
     prev = np.zeros(stride, np.int32)
@@ -216,7 +218,7 @@ def read_png(path: str) -> np.ndarray:
         raise ValueError(
             f"{path}: corrupt PNG — IDAT inflates to {raw.shape[0]} bytes, "
             f"IHDR implies {expect} ({h} rows x (1 + {stride}))")
-    flat = _unfilter(raw, h, stride, bpp)
+    flat = png_unfilter(raw, h, stride, bpp)
     if paletted:
         rows = flat.reshape(h, stride)
         if depth < 8:

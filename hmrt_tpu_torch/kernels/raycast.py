@@ -116,18 +116,25 @@ def fused_reference_planes(scene: Scene, camera: Camera, config: RenderConfig,
 
 
 def render_frame_fused_reference(scene: Scene, camera: Camera, config: RenderConfig,
-                                 row0=None, full_height: int | None = None) -> Frame:
-    """The plain torch version of the fused render, as a Frame."""
-    _check_config(config)
-    return to_frame(config, *fused_reference_planes(scene, camera, config, row0,
-                                                    full_height)[:4])
+                                 row0=None, full_height: int | None = None):
+    """The plain torch version of the fused render: a Frame, or with
+    config.debug_counters (frame, counts) as `render_frame_fused` returns."""
+    works = _pixel_counters(scene, config) if config.debug_counters else ()
+    frame = to_frame(config, *fused_reference_planes(scene, camera, config, row0,
+                                                     full_height, *works)[:4])
+    return (frame, _count_planes(works, config)) if works else frame
 
 
-def _check_config(config: RenderConfig):
-    if config.debug_counters:
-        raise NotImplementedError(
-            "debug_counters: the JAX counter planes count steps of the Mosaic "
-            "schedule, which the port does not have; see ROADMAP.md queue 1 item 8")
+def _pixel_counters(scene: Scene, config: RenderConfig) -> list:
+    """Per-pixel WorkCounters of the primary and the shadow march."""
+    return [WorkCounter(scene.pyr_flat.shape[0], scene.n, scene.device,
+                        lanes=config.height * config.width) for _ in range(2)]
+
+
+def _count_planes(works, config: RenderConfig) -> tuple:
+    """The four int32 (H, W) counter planes from `_pixel_counters`."""
+    return tuple(x.reshape(config.height, config.width)
+                 for w in works for x in (w.lane_steps, w.lane_tests))
 
 
 def _check_inputs(scene: Scene, camera: Camera, config: RenderConfig):
@@ -160,7 +167,6 @@ def fused_planes(scene: Scene, camera: Camera, config: RenderConfig, row0=None,
     A CPU scene runs the plain version; a CUDA scene launches the kernel
     (building it on first use) or raises. The kernel reads the scene's
     corner records and pyramid, the plain version its pyramid and heights."""
-    _check_config(config)
     H, W = config.height, config.width
     fh = full_height or H
     dev = scene.device
@@ -168,13 +174,11 @@ def fused_planes(scene: Scene, camera: Camera, config: RenderConfig, row0=None,
     if counts is not None:
         check_counts(counts, (4, H, W), dev)
     if dev.type == "cpu":
-        works = None if counts is None else [
-            WorkCounter(scene.pyr_flat.shape[0], scene.n, dev, lanes=H * W) for _ in range(2)]
+        works = () if counts is None else _pixel_counters(scene, config)
         color, depth, normal, hit, cell = fused_reference_planes(
-            scene, camera, config, row0, fh, *(works or ()))
-        if works is not None:
-            counts.copy_(torch.stack([x for w in works for x in (w.lane_steps, w.lane_tests)])
-                         .reshape(4, H, W))
+            scene, camera, config, row0, fh, *works)
+        if works:
+            counts.copy_(torch.stack(_count_planes(works, config)))
         return (color.reshape(H, W, 3), depth.reshape(H, W) if aux else None,
                 normal.reshape(H, W, 3) if aux else None, hit.reshape(H, W),
                 cell.reshape(H, W, 2) if cells else None)
@@ -213,13 +217,23 @@ def fused_planes(scene: Scene, camera: Camera, config: RenderConfig, row0=None,
 
 
 def render_frame_fused(scene: Scene, camera: Camera, config: RenderConfig, row0=None,
-                       full_height: int | None = None) -> Frame:
+                       full_height: int | None = None):
     """Render through the fused kernel (CUDA scene) or its plain version
     (CPU scene). `row0`/`full_height` render rows [row0, row0 + height) of
-    a full_height-row screen."""
+    a full_height-row screen.
+
+    Returns a Frame, or with config.debug_counters (frame, counts): four
+    int32 (H, W) planes of each pixel's primary steps, primary cell tests,
+    shadow steps and shadow cell tests, from the kernel's counting instance
+    (`fused_planes(..., counts=)`)."""
+    counts = None
+    if config.debug_counters:
+        counts = torch.empty((4, config.height, config.width), dtype=torch.int32,
+                             device=scene.device)
     color, depth, normal, hit, _ = fused_planes(scene, camera, config, row0,
-                                                full_height)
-    return Frame(color=color, depth=depth, normal=normal, hit=hit)
+                                                full_height, counts=counts)
+    frame = Frame(color=color, depth=depth, normal=normal, hit=hit)
+    return frame if counts is None else (frame, tuple(counts.unbind(0)))
 
 
 render_frame_fused.launches = 0

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from hmrt_tpu_torch.traversal.march import corner_heights
+
 
 def _cell_and_offset(n: int, px, py):
     """Clamped integer cell of (px, py) and the offsets inside it."""
@@ -50,6 +52,12 @@ def gradient_normal(heights_flat, n: int, px, py):
     gy = bilerp(g00y, g10y, g01y, g11y, fx, fy)
     inv = torch.rsqrt(gx * gx + gy * gy + 1.0)
     return -gx * inv, -gy * inv, inv
+
+
+def sample_height(heights_flat, n: int, px, py):
+    """Bilinear height sample at (px, py), the cell clamped to the map."""
+    ix, iy, fx, fy = _cell_and_offset(n, px, py)
+    return bilerp(*corner_heights(heights_flat, n, ix, iy), fx, fy)
 
 
 def sample_albedo(albedo_flat, n: int, px, py):

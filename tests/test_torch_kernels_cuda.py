@@ -19,7 +19,8 @@ from hmrt_tpu_torch.core.renderer import render_frame_oracle
 from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, march_pass,
                                                march_pass_reference)
 from hmrt_tpu_torch.kernels.raycast import (fused_planes, fused_reference_planes,
-                                            render_frame_fused)
+                                            render_frame_fused,
+                                            render_frame_fused_reference)
 from hmrt_tpu_torch.kernels.shade_pass import shade_pass, shade_pass_reference
 from hmrt_tpu_torch.traversal.march import WorkCounter
 
@@ -499,3 +500,18 @@ def test_runner_and_timing_on_card(cuda, tmp_path):
         assert row["device"] == torch.cuda.get_device_name(0)
         assert 0 < row["ms_per_frame"] and len(row["all_times_ms"]) == 2
     assert row["lane_steps_per_frame"] == row["lane_steps_primary"] > 0
+
+
+@pytest.mark.parametrize("backend", ["pallas", "auto"])
+def test_debug_counters_on_card(cuda, backend):
+    """With debug_counters the fused kernel's frame equals the frame without
+    them, and its four planes equal the plain version's per-pixel counts."""
+    sc = _scene(65, cuda)
+    cam = T.Camera.create(eye=(32.0, -20.0, 40.0), target=(32.0, 32.0, 10.0), device=cuda)
+    cfg = T.RenderConfig(width=48, height=24, shading="phong", shadows=True, backend=backend)
+    frame, counts = T.render_frame(sc, cam, dataclasses.replace(cfg, debug_counters=True))
+    plain = T.render_frame(sc, cam, cfg)
+    assert torch.equal(frame.color, plain.color) and torch.equal(frame.hit, plain.hit)
+    _, want = render_frame_fused_reference(sc, cam, dataclasses.replace(cfg, debug_counters=True))
+    for got, w in zip(counts, want):
+        assert got.dtype == torch.int32 and torch.equal(got, w)

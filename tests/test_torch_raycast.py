@@ -19,8 +19,8 @@ from hmrt_tpu.kernels.raycast import (_P_ASPECT, _P_ROW0, make_params as jax_mak
 from hmrt_tpu.types import Camera as JaxCamera
 from hmrt_tpu_torch.bench.configs import BENCH_CONFIGS, bench_scene
 from hmrt_tpu_torch.core.renderer import COMPACT_MIN_M, choose_backend
-from hmrt_tpu_torch.kernels.raycast import (fused_reference_planes, make_params,
-                                            params_rays, render_frame_fused,
+from hmrt_tpu_torch.kernels.raycast import (fused_planes, fused_reference_planes,
+                                            make_params, params_rays, render_frame_fused,
                                             render_frame_fused_reference)
 
 torch.set_num_threads(2)  # the suite runs several workers at once
@@ -143,13 +143,34 @@ def test_dispatch_rejects_unknown_backend():
         choose_backend("cuda", 64, "tiles")
 
 
-def test_debug_counters_raise():
-    terr, _, ts = _scenes(65)
+@pytest.mark.parametrize("fn", [render_frame_fused, render_frame_fused_reference])
+def test_debug_counters_raise(fn):
+    """debug_counters no longer raises on the fused path: it returns (frame,
+    counts), the frame equal to the one rendered without counters and the
+    four int32 (H, W) planes equal to the counting instance's
+    (`fused_planes(..., counts=)`); the colour also equal to the JAX
+    package's fused kernel with its own counters on."""
+    terr, js, ts = _scenes(65)
     cam = T.Camera.create(**_cam(65, terr), device="cpu")
-    cfg = T.RenderConfig(width=16, height=8, debug_counters=True)
-    for fn in (render_frame_fused, render_frame_fused_reference):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            fn(ts, cam, cfg)
+    cfg = T.RenderConfig(width=16, height=8, shading="phong", shadows=True,
+                         debug_counters=True)
+    frame, counts = fn(ts, cam, cfg)
+    plain = fn(ts, cam, dataclasses.replace(cfg, debug_counters=False))
+    for f in ("color", "hit"):
+        assert torch.equal(getattr(frame, f), getattr(plain, f))
+    want = torch.empty((4, 8, 16), dtype=torch.int32)
+    fused_planes(ts, cam, cfg, counts=want)
+    assert isinstance(counts, tuple) and len(counts) == 4
+    for got, w in zip(counts, want):
+        assert got.dtype == torch.int32 and got.shape == (8, 16)
+        assert torch.equal(got, w)
+    assert int(counts[0].sum()) > 0 and int(counts[2].sum()) > 0
+    jframe, jcounts = render_frame_pallas(js, js.packed, JaxCamera.create(**_cam(65, terr)),
+                                          JaxRenderConfig(**dataclasses.asdict(cfg)),
+                                          interpret=True)
+    assert len(jcounts) == 3
+    np.testing.assert_array_equal(frame.hit.numpy(), np.asarray(jframe.hit))
+    np.testing.assert_allclose(frame.color.numpy(), np.asarray(jframe.color), atol=5e-5)
 
 
 def test_entry_points_default_to_the_card():

@@ -16,6 +16,7 @@ from hmrt_tpu.config import RenderConfig as JaxRenderConfig
 from hmrt_tpu.core.renderer import render_frame_oracle as jax_render_frame_oracle
 from hmrt_tpu.io.heightmap import procedural_terrain
 from hmrt_tpu.types import Camera as JaxCamera
+from hmrt_tpu_torch.bench.floor import count_frame
 from hmrt_tpu_torch.core.renderer import render_frame_oracle
 from hmrt_tpu_torch.kernels.compact import render_frame_compact
 from hmrt_tpu_torch.kernels.raycast import render_frame_fused_reference
@@ -208,12 +209,29 @@ def test_pallas_backend_on_cpu_is_the_plain_fused_render():
         assert torch.equal(getattr(got, f), getattr(want, f))
 
 
-def test_pallas_backend_raises():
-    """backend="pallas" raises only where the port has no counterpart of
-    the TPU kernel: its debug counter planes."""
+@pytest.mark.parametrize("backend", ["pallas", "compact", "auto"])
+def test_pallas_backend_raises(backend):
+    """backend="pallas" has no case left that raises: with debug_counters
+    it returns (frame, counts) with the frame unchanged, and the counter
+    planes add up to the frame's march work as bench/floor.py counts it on
+    the compact frame (the same primary rays, and the shadow rays from the
+    same hit cells). The compact and oracle ("auto" on the CPU) paths
+    ignore the flag, as in the JAX package."""
     _, ts = _scenes(False)
     cfg, cam, _ = _case("shadows")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        T.render_frame(ts, T.Camera.create(**cam, device="cpu"),
-                       dataclasses.replace(T.RenderConfig(**cfg), backend="pallas",
-                                           debug_counters=True))
+    c = T.Camera.create(**cam, device="cpu")
+    base = dataclasses.replace(T.RenderConfig(**cfg), backend=backend)
+    out = T.render_frame(ts, c, dataclasses.replace(base, debug_counters=True))
+    want = T.render_frame(ts, c, base)
+    if backend != "pallas":
+        assert isinstance(out, T.Frame)
+        frame = out
+    else:
+        frame, counts = out
+        fc = count_frame(ts, c, base)
+        k = fc.n_primary
+        steps, tests = fc.totals(0), fc.totals(1)
+        assert [int(x.sum()) for x in counts] == [sum(steps[:k]), sum(tests[:k]),
+                                                   sum(steps[k:]), sum(tests[k:])]
+    for f in ("color", "depth", "normal", "hit"):
+        assert torch.equal(getattr(frame, f), getattr(want, f))

@@ -1,6 +1,7 @@
 """The plain version of the shade kernel and the port's shading functions,
 held against the JAX package on the same inputs."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -81,6 +82,21 @@ def test_gradient_normal_matches_jax(terrain):
                               torch.from_numpy(px), torch.from_numpy(py))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-6)
+
+
+def test_sample_height_matches_jax(terrain):
+    """Bit for bit against the JAX function run op by op, and within 1e-6
+    relative of it jitted (XLA may contract multiply-adds); the points
+    reach a cell past every edge of the map."""
+    px, py = _points(5)
+    px[:4], py[:4] = (-3.5, N + 2.0, 0.25, N - 1.0), (0.5, -7.0, N + 0.5, N - 1.0)
+    hf = terrain.reshape(-1)
+    got = tsh.sample_height(torch.from_numpy(hf), N, torch.from_numpy(px),
+                            torch.from_numpy(py)).numpy()
+    args = (jnp.asarray(hf), N, jnp.asarray(px), jnp.asarray(py))
+    np.testing.assert_array_equal(got, np.asarray(jsh.sample_height(*args)))
+    jitted = jax.jit(jsh.sample_height, static_argnums=1)(*args)
+    np.testing.assert_allclose(got, np.asarray(jitted), rtol=1e-6)
 
 
 def test_sample_albedo_matches_jax():
