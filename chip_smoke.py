@@ -23,6 +23,9 @@ entry points:
     against its plain version on the B1 frame and on a 16-row band of B3
     at the horizon; B1's counter planes through render_frame with
     debug_counters; B2 under both backends;
+  - raygen's tan(fov/2) bits for 55 and 60 degrees, equal on the card and
+    the CPU, and the hostile camera under the terrain hitting the CPU
+    oracle's pixels on the card;
   - the four hostile cameras of tests/test_sanitizers.py through the
     compact and fused kernels against their plain versions and the oracle,
     then again in a subprocess (`--hostile`) under compute-sanitizer's
@@ -62,7 +65,15 @@ entry points:
     --flythrough), the viewer CLI's HTML and APNG, the HTTP viewer server
     in a thread on 127.0.0.1 (GET /, /state, POST /frame draft and full,
     a non-finite camera), each against render_frame at that camera; and
-    load_heightmap on a PNG, a PGM, a TIFF and an ESRI ASCII grid.
+    load_heightmap on a PNG, a PGM, a TIFF and an ESRI ASCII grid;
+  - the grazing tail (phase 16): march_pass's level-0 tail and its relaxed
+    tail at strides 4, 8 and 16 against their plain versions on ~8,192 of
+    B3's tail rays (all 9 planes and the per-ray counts exact), timed beside
+    their plain versions and bounds; the relaxed tail's fidelity and time on
+    full B3 and B4 frames (bench/fidelity.py: no false hit anywhere, B3's
+    mismatch at most 1e-3); the longest per-ray step chain of the tail
+    launch on B3 and B4 with each tail; the runner's B2, B3 and B4 rows with
+    l0_tail False and "auto".
 
 `python3 chip_smoke.py --cards`, on a machine with several cards, runs only
 B5 band-sharded over every card against one card (phase 14(d));
@@ -1163,6 +1174,223 @@ def golden_b4(run_path, dev) -> None:
             f"({(diff == 1).sum()} values off by 1)")
 
 
+TAIL_RAYS = 8192     # B3 tail survivors that K1's tail modes are held to plain on
+STRIDES = (4, 8, 16)  # the relaxed tail's strides in cells
+
+
+def tail_survivors(scene, cam, cfg):
+    """About TAIL_RAYS of B3's rays that reach the compact path's tail: the
+    rays alive after pass 0 and the first sorted round (a per-ray budget
+    composes), forced to level 0 and sorted by column as the tail round
+    takes them. Returns (rays, state, results, rays alive before the tail)."""
+    import torch
+    from hmrt_tpu_torch.kernels.compact import (FIRST_BUDGET, ROUND_BUDGET, column_key,
+                                                empty_results, force_level0, init_state,
+                                                primary_rays)
+    from hmrt_tpu_torch.kernels.march_pass import march_pass
+    rays = primary_rays(cam, cfg)
+    p = rays[0].shape[0]
+    st0 = init_state(rays, None, scene.pyr_flat[-1], n=scene.n, m=scene.m, levels=scene.levels)
+    st, res = march_pass(rays, st0, empty_results(p, rays[0].device), scene.pyr_flat,
+                         scene.heights, scene.corners, n=scene.n, m=scene.m,
+                         levels=scene.levels, budget=FIRST_BUDGET + ROUND_BUDGET)
+    alive = torch.nonzero(st[0] != 0).squeeze(1)
+    pick = torch.unique(alive[torch.linspace(0, alive.numel() - 1, min(TAIL_RAYS, alive.numel()),
+                                             device=alive.device).long()])
+    t_rays = tuple(r.index_select(0, pick) for r in rays)
+    t_state = force_level0(t_rays, tuple(x.index_select(0, pick) for x in st))
+    order = torch.argsort(column_key(t_state, max(scene.m // 32, 1)))
+    return (tuple(r.index_select(0, order).contiguous() for r in t_rays),
+            tuple(x.index_select(0, order).contiguous() for x in t_state),
+            tuple(x.index_select(0, pick).index_select(0, order).contiguous() for x in res),
+            alive.numel())
+
+
+def plain_tail(rays, state, results, scene, relax, counter, cell_intersect="triangle"):
+    """The plain version of an unbudgeted tail pass, as march_pass_reference
+    runs it (l0_step, or l0_step_relaxed when `relax` is set), with `relax`
+    an int or an int32 tensor of one stride per ray: a stride enters the
+    step only as the f32 product stride * min|1/d|, the same bits either way.
+    Returns (state, results) planes."""
+    import torch
+    from hmrt_tpu_torch.traversal.intersect import INTERSECTORS, SURFACES
+    from hmrt_tpu_torch.traversal.march import (l0_step, l0_step_relaxed, ray_box_range,
+                                                ray_inverses, record_corners, relaxed_planes,
+                                                run_masked)
+    from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED
+    ox, oy, oz, dx, dy, dz = rays
+    inv_x, inv_y = ray_inverses(dx, dy)
+    _, t1, _ = ray_box_range(ox, oy, dx, dy, float(scene.n - 1))
+    ray = (ox, oy, oz, dx, dy, dz, inv_x, inv_y, t1)
+    alive, t, lvl, icx, icy = state
+    hit, t_hit, hx, hy = results
+    st = dict(t=t, lvl=lvl, icx=icx, icy=icy, alive=alive != 0, hit=hit != 0, t_hit=t_hit,
+              hx=hx, hy=hy)
+    corners = record_corners(scene.heights.reshape(-1), scene.n, scene.m)
+    gmax = scene.pyr_flat[-1]
+    kw = dict(m=scene.m, intersector=INTERSECTORS[cell_intersect], counter=counter)
+    if isinstance(relax, torch.Tensor) or relax:
+        st.update(relaxed_planes(t))
+        st = run_masked(lambda s: l0_step_relaxed(ray, s, corners, gmax, **kw,
+                                                  surface=SURFACES[cell_intersect],
+                                                  stride=relax),
+                        st, UNBUDGETED)
+    else:
+        st = run_masked(lambda s: l0_step(ray, s, corners, gmax, **kw), st, UNBUDGETED)
+    return ((st["alive"].to(torch.int32), st["t"], st["lvl"], st["icx"], st["icy"]),
+            (st["hit"].to(torch.int32), st["t_hit"], st["hx"], st["hy"]))
+
+
+def grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4,
+                       main_modes) -> dict:
+    """Phase 16, the grazing tail. K1's level-0 tail (l0_only) and relaxed
+    tail (strides 4, 8, 16) against their plain versions on B3's tail
+    survivors, exact, in all 9 planes and in the counting instance's per-ray
+    counts, each timed beside its plain version (with its WorkCounter) and
+    its bound; the relaxed
+    tail's fidelity and time on full B3 and B4 (orbit frame 0) frames
+    (bench/fidelity.py), failing on any false hit or on a B3 mismatch above
+    1e-3; the longest per-ray step chain of the tail launch, counted, with
+    the max-mip, the exact and the relaxed tails; the runner's B2, B3 and B4
+    rows with l0_tail False and "auto". Returns march_pass's tail-mode
+    entries of the kernels line. `main_modes`: march_pass's launches by
+    instance on the B3 main path."""
+    import torch
+    from hmrt_tpu_torch.bench.fidelity import fidelity
+    from hmrt_tpu_torch.bench.floor import (MARCH_PLANE_BYTES, OPS_PER_STEP, OPS_PER_TEST,
+                                            bound, count_frame)
+    from hmrt_tpu_torch.bench.runner import run_bench
+    from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass
+    from hmrt_tpu_torch.traversal.intersect import SURFACES
+    from hmrt_tpu_torch.traversal.march import WorkCounter, record_corners
+
+    t_rays, t_state, t_res, n_surv = tail_survivors(scene, cam, cfg)
+    p = t_rays[0].shape[0]
+    # where the tail's rays stand: below the cell surface at their position,
+    # the reference's rays that entered the map's wall under the terrain
+    # and march beneath it (no crossing, so no hit, and no skip either)
+    ox, oy, oz, dx, dy, dz = t_rays
+    t, icx, icy = t_state[1], t_state[3], t_state[4]
+    z = record_corners(scene.heights.reshape(-1), scene.n, scene.m)(icx, icy)
+    under = oz + t * dz <= SURFACES[cfg.cell_intersect](
+        ox + t * dx - icx.to(torch.float32), oy + t * dy - icy.to(torch.float32), *z)
+    log(f"B3 tail: {n_surv} rays alive after pass 0 and the first sorted round; {p} of them, "
+        f"forced to level 0 and sorted by column; {int(under.sum())} of those stand below "
+        f"the surface")
+    kw = dict(n=scene.n, m=scene.m, levels=scene.levels, budget=UNBUDGETED, l0_only=True)
+    args = (t_rays, t_state, t_res, scene.pyr_flat, scene.heights)
+    # the plain versions: the level-0 tail, and the relaxed tail at every
+    # stride in one masked loop over the rays repeated once per stride (the
+    # plain loop's time is its launches, whatever its width), each with its
+    # WorkCounter; plain_ms is that loop's time
+    plain = {}
+    for label, relax in (("l0", 0), ("relax", STRIDES)):
+        if relax:
+            rep = len(STRIDES)
+            rays_p = tuple(torch.cat([r] * rep) for r in t_rays)
+            state_p = tuple(torch.cat([x] * rep) for x in t_state)
+            res_p = tuple(torch.cat([x] * rep) for x in t_res)
+            relax = torch.tensor(STRIDES, dtype=torch.int32, device=dev).repeat_interleave(p)
+        else:
+            rays_p, state_p, res_p = t_rays, t_state, t_res
+        work = WorkCounter(scene.pyr_flat.shape[0], scene.n, dev, lanes=rays_p[0].shape[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_tail(rays_p, state_p, res_p, scene, relax, work, cfg.cell_intersect)
+        torch.cuda.synchronize()
+        plain[label] = (out, work, 1e3 * (time.perf_counter() - t0))
+    modes = {}
+    for label, relax in [("l0", 0)] + [(f"relax{k}", k) for k in STRIDES]:
+        out, work, plain_ms = plain["relax" if relax else "l0"]
+        lanes = slice(None)
+        if relax:  # this stride's copy of the rays in the batched plain loop
+            k = STRIDES.index(relax)
+            lanes = slice(k * p, (k + 1) * p)
+        want = tuple(x[lanes] for x in out[0]), tuple(x[lanes] for x in out[1])
+        steps, tests = work.lane_steps[lanes], work.lane_tests[lanes]
+        cnt = torch.empty((2, p), dtype=torch.int32, device=dev)
+        counted = march_pass(*args, scene.corners, counts=cnt, relax=relax, **kw)
+        timed = march_pass(*args, scene.corners, relax=relax, **kw)
+        torch.cuda.synchronize()
+        err = 0.0
+        for got in (counted, timed):
+            for name, a, b in zip(STATE + RESULTS, got[0] + got[1], want[0] + want[1]):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"march_pass {label} on the B3 tail: plane {name} "
+                                         f"differs on {int((a != b).sum())} lanes")
+                err = max(err, float((a.double() - b.double()).abs().max()))
+        if not (torch.equal(cnt[0], steps) and torch.equal(cnt[1], tests)):
+            raise AssertionError(f"march_pass {label}: counting instance differs from the "
+                                 "plain WorkCounter")
+        ms = kernel_ms(lambda: march_pass(*args, scene.corners, relax=relax, **kw),
+                       "march_pass_kernel", 10)
+        n_steps, n_tests = int(steps.sum(dtype=torch.int64)), int(tests.sum(dtype=torch.int64))
+        # bytes: the ray planes and, for a bound, every distinct terrain
+        # value the plain loop read (all strides together for the relaxed)
+        b = bound(p * MARCH_PLANE_BYTES + work.unique_bytes(),
+                  n_steps * OPS_PER_STEP + n_tests * OPS_PER_TEST)
+        modes[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+                        "bound_by": b[1], "steps": n_steps, "tests": n_tests,
+                        "longest": int(cnt[0].max()), "hits": int(want[1][0].sum())}
+        log(f"  march_pass {label} on {p} B3 tail rays: 9 planes and per-ray counts equal the "
+            f"plain version's; {int(want[1][0].sum())} hits, {n_steps} steps (longest ray "
+            f"{int(cnt[0].max())}), {n_tests} cell tests; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.1f} ms{' (all strides in one loop)' if relax else ''}, bound "
+            f"{b[0]:.4f} ms ({b[1]})  [{card}]")
+
+    fid = {}
+    for name, sc, cm, cf in (("B3", scene, cam, cfg), ("B4 orbit frame 0", scene4, cam40, cfg4)):
+        out = run_path(f"{name}: the relaxed tail's fidelity (bench/fidelity.py)",
+                       lambda: fidelity(sc, cm, cf, STRIDES, reps=3),
+                       ("march_pass", "shade_pass"), ("render_tile",))
+        modes_run = dict(march_pass.mode_launches)
+        log(json.dumps({"config": name, **out}))
+        log(f"  {name} exact tail {out['exact_ms_per_frame']:.3f} ms/frame, {out['exact_hits']} "
+            f"hits; march_pass launches by instance {modes_run}  [{card}]")
+        log("  stride  ms/frame  speed-up  false  missed  late  mismatch   max|dt|   p99|dt|"
+            "   PSNR dB")
+        for r in out["rows"]:
+            log(f"  {r['stride']:6d}  {r['ms_per_frame']:8.3f}  {r['speedup_vs_exact']:8.3f}  "
+                f"{r['false_hits']:5d}  {r['missed_hits']:6d}  {r['late_hits']:4d}  "
+                f"{r['hit_mismatch_frac']:.3e}  {r['t_err_max']:.3e}  {r['t_err_p99']:.3e}  "
+                f"{r['psnr_db']:.2f}")
+            if r["false_hits"]:
+                raise AssertionError(f"{name} stride {r['stride']}: {r['false_hits']} false hits")
+            if name == "B3" and r["hit_mismatch_frac"] > 1e-3:
+                raise AssertionError(f"B3 stride {r['stride']}: mismatch "
+                                     f"{r['hit_mismatch_frac']} above 1e-3")
+        fid[name] = out
+        for k in STRIDES:
+            modes[f"relax{k}"].setdefault("launches", 0)
+            modes[f"relax{k}"]["launches"] += modes_run["relax"] // len(STRIDES)
+    modes["l0"]["launches"] = main_modes["l0"]
+
+    # the longest per-ray step chain of the tail launch (the last primary
+    # march_pass launch), counted by the kernels
+    for name, sc, cm, cf in (("B3", scene, cam, cfg), ("B4 orbit frame 0", scene4, cam40, cfg4)):
+        row = []
+        for label, tail_kw in (("max-mip", dict(l0_tail=False)), ("auto", {}),
+                               ("exact l0", dict(l0_tail=True)),
+                               *((f"relax {k}", dict(l0_tail=True, relax=k)) for k in STRIDES)):
+            fc = count_frame(sc, cm, cf, **tail_kw)
+            tail = fc.counts[fc.n_primary - 1]
+            row.append(f"{label} {int(tail[0].max())} (tail launch {int(tail[0].sum())} steps, "
+                       f"frame {sum(fc.totals(0))})")
+        log(f"{name}, longest per-ray steps in the primary tail launch: " + "; ".join(row))
+
+    # the runner's rows with the tail off and on "auto", in turns
+    for name in ("B2", "B3", "B4"):
+        for lt in (False, "auto"):
+            r = run_path(f"runner {name} l0_tail={lt}", lambda: run_bench(name, l0_tail=lt),
+                         ("march_pass", "shade_pass"), ("render_tile",))
+            log(f"  runner {name} l0_tail={lt}: {r['ms_per_frame']:.3f} ms/frame, reps "
+                f"{[round(t, 3) for t in r['all_times_ms']]}  [{card}]")
+    return {"tail_modes": modes,
+            "relaxed_fidelity": {k: [{key: row[key] for key in ("stride", "false_hits",
+                                                                "hit_mismatch_frac")}
+                                     for row in v["rows"]] for k, v in fid.items()}}
+
+
 def cards_only(card) -> int:
     """`python3 chip_smoke.py --cards` on a machine with several cards:
     phase 14(d) alone, B5 across every card against one card."""
@@ -1228,6 +1456,7 @@ def main(argv=None) -> int:
                                                 render_frame_fused_reference)
     from hmrt_tpu_torch.kernels.shade_pass import shade_pass, shade_pass_reference
     from hmrt_tpu_torch.traversal.march import WorkCounter
+    from hmrt_tpu_torch.types import tan_half
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1237,6 +1466,7 @@ def main(argv=None) -> int:
     kernel_fns = {"march_pass": march_pass, "shade_pass": shade_pass,
                   "render_tile": render_frame_fused}
     paths = {}  # launches of each kernel on each path, each run from counts of 0
+    mode_paths = {}  # march_pass's launches by template instance on each path
 
     def run_path(label, fn, want, none=()):
         """Drive one path with every launch count set to 0 just before and
@@ -1244,11 +1474,13 @@ def main(argv=None) -> int:
         `none` must not."""
         for f in kernel_fns.values():
             f.launches = 0
+        march_pass.mode_launches = dict.fromkeys(march_pass.mode_launches, 0)
         out = fn()
         torch.cuda.synchronize()
         got = {k: f.launches for k, f in kernel_fns.items()}
         paths[label] = got
-        log(f"{label}: launches {got}")
+        mode_paths[label] = dict(march_pass.mode_launches)
+        log(f"{label}: launches {got}; march_pass by instance {mode_paths[label]}")
         for k in want:
             if got[k] <= 0:
                 raise AssertionError(f"{label}: {k} was not launched")
@@ -1608,7 +1840,7 @@ def main(argv=None) -> int:
                              ("march_pass", "shade_pass"))
     cnt1 = torch.empty((4, cfg1.height, cfg1.width), dtype=torch.int32, device=dev)
     fused_planes(scene1, cam1, cfg1, counts=cnt1)
-    fc1 = count_frame(scene1, cam1, cfg1)
+    fc1 = count_frame(scene1, cam1, cfg1, l0_tail=False)  # the fused march has no tail
     k = fc1.n_primary
     steps1, tests1 = fc1.totals(0), fc1.totals(1)
     floor1 = [sum(steps1[:k]), sum(tests1[:k]), sum(steps1[k:]), sum(tests1[k:])]
@@ -1620,15 +1852,46 @@ def main(argv=None) -> int:
         raise AssertionError(f"B1 counter planes sum to {sums1}, bench/floor.py counts {floor1}")
     log(f"B1 with debug_counters: frame equal to the frame without, four int32 planes equal "
         f"to fused_planes(counts=), their sums {sums1} (primary steps, tests, shadow steps, "
-        f"tests) equal to bench/floor.py's count of the compact frame")
+        f"tests) equal to bench/floor.py's count of the compact frame without the tail")
 
     # ---- 7b. the hostile cameras, and memcheck over their launches -------
     phase("7b. the hostile cameras of tests/test_sanitizers.py")
     err_hostile = hostile_cameras(dev, run_path)
-    # raygen's tan(fov/2) for the cameras' default 60 degrees, on each device
-    tan_bits = {d: torch.tan(torch.deg2rad(torch.tensor(60.0, device=d)) * 0.5).cpu()
-                .view(torch.int32).item() for d in ("cpu", "cuda")}
-    log(f"  tan(30 degrees) as f32 bits: {tan_bits} (torch on each device)")
+    # raygen's tan(fov/2) on each device for the cameras' default 60 degrees
+    # and the bench's 55: torch's f32 tan (the parent's raygen) and the f64
+    # tan rounded to f32 that raygen takes now, which must agree
+    for deg in (55.0, 60.0):
+        half = {d: torch.deg2rad(torch.tensor(deg, device=d)) for d in ("cpu", "cuda")}
+        old_bits = {d: torch.tan(h * 0.5).cpu().view(torch.int32).item()
+                    for d, h in half.items()}
+        new_bits = {d: tan_half(h).cpu().view(torch.int32).item() for d, h in half.items()}
+        log(f"  tan({deg / 2} degrees) as f32 bits: torch's f32 tan {old_bits}, raygen's "
+            f"rounded f64 tan {new_bits}")
+        if new_bits["cpu"] != new_bits["cuda"]:
+            raise AssertionError(f"raygen's tan of {deg} degrees differs between the CPU "
+                                 f"and the card: {new_bits}")
+    # the rays themselves: B3's on each device, and torch's sqrt (the ray
+    # norm's) on the same 2^20 values on each device
+    b3_rays = {d: T.Camera.create(eye=tuple(cam.eye.tolist()), target=tuple(cam.target.tolist()),
+                                  fov_y_deg=55.0, device=d).rays(cfg.height, cfg.width)[1].cpu()
+               for d in ("cpu", "cuda")}
+    vals = torch.from_numpy(np.random.default_rng(0).uniform(0.5, 4.0, 1 << 20).astype(np.float32))
+    log(f"  B3's ray directions: {int((b3_rays['cpu'] != b3_rays['cuda']).sum())} of "
+        f"{b3_rays['cpu'].numel()} components differ between the CPU and the card; torch's "
+        f"sqrt differs on {int((torch.sqrt(vals) != torch.sqrt(vals.to(dev)).cpu()).sum())} of "
+        f"{vals.numel()} values")
+    # the hostile camera's 256 hits on the card are the CPU's
+    under = HOSTILE_CAMERAS["under the terrain, looking up"]
+    hits = {}
+    for d in ("cpu", "cuda"):
+        sc_d = T.make_scene(T.procedural_terrain(64, seed=3), device=d)
+        cam_d = T.Camera.create(eye=under[0], target=under[1], device=d)
+        hits[d] = render_frame_oracle(sc_d, cam_d, T.RenderConfig(width=16, height=16)).hit
+    if not torch.equal(hits["cuda"].cpu(), hits["cpu"]):
+        raise AssertionError(f"the hostile camera under the terrain: {int(hits['cuda'].sum())} "
+                             f"hits on the card, {int(hits['cpu'].sum())} on the CPU")
+    log(f"  the hostile camera under the terrain: {int(hits['cuda'].sum())} of 256 hits on the "
+        f"card, the CPU oracle's hit mask")
     memcheck = memcheck_hostile()
 
     # ---- 7c. the B4-class golden -----------------------------------------
@@ -1678,6 +1941,14 @@ def main(argv=None) -> int:
         raise AssertionError("the counted compact march does not give the frame's hits")
     tot = [fc3.totals(0), fc3.totals(1)]
     log_launch_counts(fc3)
+    # without the level-0 tail each ray takes the steps of the plain max-mip
+    # march whatever the schedule: the counts the fused kernel's are held to
+    fc3_mm = count_frame(scene, cam, cfg, l0_tail=False)
+    if not torch.equal(fc3_mm.hit, fc3.hit):
+        raise AssertionError("the B3 frame's hits differ with and without the level-0 tail")
+    tot_mm = [fc3_mm.totals(0), fc3_mm.totals(1)]
+    log(f"  without the level-0 tail (l0_tail=False): {sum(tot_mm[0])} steps, "
+        f"{sum(tot_mm[1])} cell tests; per launch {tot_mm[0]}")
     k1_frame_bound = fc3.bound()
 
     def warps_of(st):
@@ -1699,8 +1970,9 @@ def main(argv=None) -> int:
     if not torch.equal(hit3, fr.hit):
         raise AssertionError("the counted fused frame does not give the frame's hits")
     t3 = [int(c4[k].sum(dtype=torch.int64)) for k in range(4)]
-    # the primary rays of both paths are the same bits, so they take the same steps
-    k1_prim = [sum(tot[0][:n_primary]), sum(tot[1][:n_primary])]
+    # the primary rays of both paths are the same bits, so they take the same
+    # steps as the compact march without the level-0 tail
+    k1_prim = [sum(tot_mm[0][:n_primary]), sum(tot_mm[1][:n_primary])]
     if t3[:2] != k1_prim:
         raise AssertionError(f"fused frame's primary counts {t3[:2]} differ from the "
                              f"compact frame's {k1_prim}")
@@ -1717,8 +1989,8 @@ def main(argv=None) -> int:
 
     k3_eff = warp_efficiency([c4[0::2]], patches_of)
     log(f"render_tile, the full B3 frame: primary {t3[0]} steps, {t3[1]} cell tests; shadow "
-        f"{t3[2]} steps, {t3[3]} cell tests (compact: {sum(tot[0][n_primary:])}, "
-        f"{sum(tot[1][n_primary:])}); bound "
+        f"{t3[2]} steps, {t3[3]} cell tests (compact without the tail: "
+        f"{sum(tot_mm[0][n_primary:])}, {sum(tot_mm[1][n_primary:])}); bound "
         f"{k3_frame_bound[0]:.4f} ms ({k3_frame_bound[1]}) against {k_all:.4f} ms; one thread "
         f"per pixel on 8x4 patches, primary then shadow march, would keep "
         f"{100 * k3_eff:.1f}% of its lanes busy  [{card}]")
@@ -1891,6 +2163,11 @@ def main(argv=None) -> int:
     phase("15. the entry points on the card")
     entry_points_phase(run_path, card, dev, scene, terr3)
     log(f"phase 15 took {time.perf_counter() - t15:.1f} s")
+    t16 = time.perf_counter()
+    phase("16. the grazing tail")
+    tail = grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4,
+                              mode_paths["B3 main path (render_frame, auto)"])
+    log(f"phase 16 took {time.perf_counter() - t16:.1f} s")
 
     phase("done")
     launches = {k: sum(got[k] for got in paths.values()) for k in kernel_fns}
@@ -1901,12 +2178,14 @@ def main(argv=None) -> int:
          "replaces": "hmrt_tpu/kernels/compact.py:80",
          "launches": launches["march_pass"],
          "max_abs_err": max(err_primary, err_mid, err_shadow, err_edge, err_b4, err_tile,
-                            err_hostile),
+                            err_hostile,
+                            *(m["max_abs_err"] for m in tail["tail_modes"].values())),
          "ms": march_ms, "plain_ms": march_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
          "b5_bands_max_abs_err": band_errs["compact_band_err"],
          "b4_frame_launches": b4_launches["march_pass"], "b4_frame_ms": k1_b4_ms,
-         "b4_frame_bound_ms": k1_b4_bound[0], "b4_frame_bound_by": k1_b4_bound[1]},
+         "b4_frame_bound_ms": k1_b4_bound[0], "b4_frame_bound_by": k1_b4_bound[1],
+         **tail},
         {"name": "shade_pass", "route": "cuda",
          "source": "hmrt_tpu_torch/kernels/csrc/shade_pass.cu",
          "replaces": "hmrt_tpu/kernels/compact.py:562",

@@ -4,9 +4,11 @@ Counterpart of `hmrt_tpu/bench/floor.py`. `count_frame` renders one
 compact frame (`render_frame_compact`: pass 0, the sorted rounds, the
 shade pass, the shadow rounds from the hit cells) with `march_pass`'s
 counting instance, which writes each ray's steps and exact cell tests per
-launch; on a CPU scene the plain version counts them with `WorkCounter`. Each ray's steps do not depend on the schedule (a per-ray
-budget composes), so the totals are a property of the scene, the camera
-and the exact algorithm.
+launch; on a CPU scene the plain version counts them with `WorkCounter`.
+Under the max-mip march each ray's steps do not depend on the schedule (a
+per-ray budget composes), so the totals are a property of the scene, the
+camera and the exact algorithm; a forced level-0 tail (`l0_tail`) changes
+them.
 
 The bound is the least time the card could take for that march: the
 larger of the bytes it must move over the memory rate and its operations
@@ -64,13 +66,18 @@ class FrameCounts:
                      sum(self.totals(0)) * OPS_PER_STEP + sum(self.totals(1)) * OPS_PER_TEST)
 
 
-def count_frame(scene: Scene, camera: Camera, config: RenderConfig) -> FrameCounts:
-    """One compact frame of `config` from `camera` (`render_frame_compact`),
-    marched with the counting instance of `march_pass` (the plain
-    `WorkCounter` on a CPU scene)."""
+def count_frame(scene: Scene, camera: Camera, config: RenderConfig,
+                l0_tail: bool | str = "auto", relax: int = 0) -> FrameCounts:
+    """One compact frame of `config` from `camera` (`render_frame_compact`
+    with `l0_tail` and `relax`), marched with the counting instance of
+    `march_pass` (the plain `WorkCounter` on a CPU scene). A forced
+    level-0 tail changes a ray's steps (it descends without steps and never
+    ascends), so the totals equal the schedule-free max-mip march's only
+    where no tail is forced."""
     from hmrt_tpu_torch.kernels.compact import render_frame_compact
     counts = {"primary": [], "shadow": []}
-    frame = render_frame_compact(scene, camera, config, counts=counts)
+    frame = render_frame_compact(scene, camera, config, counts=counts, l0_tail=l0_tail,
+                                 relax=relax)
     return FrameCounts(counts=counts["primary"] + counts["shadow"],
                        n_primary=len(counts["primary"]), hit=frame.hit.reshape(-1))
 
@@ -95,18 +102,19 @@ def count_lane_steps(scene: Scene, camera: Camera, config: RenderConfig):
 
 
 def floor_metrics(scene: Scene, camera: Camera, config: RenderConfig,
-                  measured_ms: float | None = None) -> dict:
+                  measured_ms: float | None = None, l0_tail: bool | str = "auto") -> dict:
     """The frame's march work (`count_lane_steps`) and its H100 bound for a
     bench row. `camera` may be a batched Camera (a leading frame axis, as
     an animation renders it): the counts and the bound are then the means
     over its frames. `measured_ms` is the row's ms/frame: the row then says
-    how many times the march's bound the whole frame took."""
+    how many times the march's bound the whole frame took. `l0_tail` as
+    in `count_frame`."""
     from hmrt_tpu_torch.api.flythrough import frame_camera
     cams = ([frame_camera(camera, i) for i in range(camera.eye.shape[0])]
             if camera.eye.dim() == 2 else [camera])
     rows, bounds = [], []
     for cam in cams:
-        fc = count_frame(scene, cam, config)
+        fc = count_frame(scene, cam, config, l0_tail=l0_tail)
         steps, detail = _lane_steps(fc)
         rows.append({"lane_steps_per_frame": steps, **detail})
         bounds.append(fc.bound())

@@ -24,12 +24,14 @@ import time
 
 import torch
 
-from hmrt_tpu_torch.api.flythrough import orbit_flythrough
+from hmrt_tpu_torch.api.flythrough import frame_camera, orbit_flythrough
 from hmrt_tpu_torch.bench.configs import BENCH_CONFIGS, bench_scene
 from hmrt_tpu_torch.bench.timing import time_animation
 from hmrt_tpu_torch.device import resolve
 from hmrt_tpu_torch.distrib import mesh as dm
+from hmrt_tpu_torch.core.renderer import choose_backend
 from hmrt_tpu_torch.distrib.bench import time_animation_sharded, time_flythrough_frames
+from hmrt_tpu_torch.kernels.compact import render_frame_compact
 from hmrt_tpu_torch.types import Camera
 
 #: the keys of every row the JAX runner writes on one device
@@ -62,7 +64,8 @@ def _bench_rank(mesh, name, kw):
 
 def run_bench(name: str, frames: int | None = None, scale: float = 1.0,
               reps: int = 3, frame_sharded: bool = False, floor: bool = False,
-              out_path: str | None = None, device=None, mesh=None) -> dict:
+              out_path: str | None = None, device=None, mesh=None,
+              l0_tail: bool | str = "auto") -> dict:
     """Run one named benchmark config on `device` (default: the CUDA card);
     returns its metric row.
 
@@ -80,7 +83,11 @@ def run_bench(name: str, frames: int | None = None, scale: float = 1.0,
     row: `sharded_mesh1_ms` (`render_frame_sharded` on a one-rank group,
     its difference to ms_per_frame the cost of the sharding layer) and
     `band_h{H/8}_ms` (one band of H/8 rows at row0 = 4*H/8, the work of one
-    card under 8-way sharding)."""
+    card under 8-way sharding).
+
+    `l0_tail`: the compact path's tail choice (kernels/compact.py), for a
+    config that takes that path on one rank; the row says which it was. The
+    default is render_frame's own ("auto")."""
     cfg = BENCH_CONFIGS[name]
     device = resolve(device) if mesh is None else mesh.device
     frame_sharded = frame_sharded and cfg.animated
@@ -95,6 +102,8 @@ def run_bench(name: str, frames: int | None = None, scale: float = 1.0,
                              mesh=one)
     rank0 = mesh is None or mesh.rank == 0
     out_path = out_path if rank0 else None
+    if l0_tail != "auto" and (mesh is not None or cfg.sharded):
+        raise ValueError("l0_tail is a knob of the one-rank compact path")
 
     render = cfg.render
     if scale != 1.0:
@@ -129,6 +138,15 @@ def run_bench(name: str, frames: int | None = None, scale: float = 1.0,
         hit_frac = float(render_frame(scene, cam, render).hit.float().mean())
 
     chips = 1 if mesh is None else mesh.size
+    compact = choose_backend(device.type, scene.m, render.backend) == "compact"
+    if l0_tail != "auto" and not compact:
+        raise ValueError(f"{name} does not take the compact path here: no l0_tail")
+
+    def body(cf):
+        """The loop's frame with the chosen tail (None: render_frame's own)."""
+        if l0_tail == "auto":
+            return None
+        return lambda i: render_frame_compact(scene, frame_camera(cams, i), cf, l0_tail=l0_tail)
     if frame_sharded:
         stats = time_flythrough_frames(scene, cams, render, n_frames, mesh, reps=reps,
                                        hit_frac=hit_frac)
@@ -139,7 +157,7 @@ def run_bench(name: str, frames: int | None = None, scale: float = 1.0,
         strategy = "band"
     else:
         stats = time_animation(scene, cams, render, n_frames, reps=reps, hit_frac=hit_frac,
-                               mesh=mesh)
+                               render=body(render), mesh=mesh)
         strategy = "single"
     row = {
         "config": name,
@@ -156,6 +174,8 @@ def run_bench(name: str, frames: int | None = None, scale: float = 1.0,
     }
     if hit_frac is not None:
         row["hit_frac"] = round(hit_frac, 4)
+    if compact:
+        row["l0_tail"] = l0_tail
     if cfg.sharded and chips == 1:
         row["note"] = ("UNSHARDED FALLBACK: config is multi-chip but only one "
                        "device is attached; number below is single-chip")
@@ -186,15 +206,15 @@ def run_bench(name: str, frames: int | None = None, scale: float = 1.0,
         # the schema (BASELINE.json:2) is defined at 1920x1080; B4's row is
         # 1280x720, so the schema-resolution number goes beside it
         render_hd = dataclasses.replace(render, width=1920, height=1080)
-        stats_hd = time_animation(scene, cams, render_hd, n_frames,
-                                  reps=max(1, reps - 1), hit_frac=hit_frac)
+        stats_hd = time_animation(scene, cams, render_hd, n_frames, reps=max(1, reps - 1),
+                                  hit_frac=hit_frac, render=body(render_hd))
         row["ms_per_frame_1920x1080"] = stats_hd["ms_per_frame"]
         _write_row(out_path, row)
 
     if floor and rank0:
         from hmrt_tpu_torch.bench.floor import floor_metrics
         row.update(floor_metrics(scene, cams if cfg.animated else cam, render,
-                                 measured_ms=row["ms_per_frame"]))
+                                 measured_ms=row["ms_per_frame"], l0_tail=l0_tail))
         _write_row(out_path, row)
     return row
 
@@ -215,6 +235,8 @@ def main(argv=None):
     p.add_argument("--floor", action="store_true",
                    help="add the frame's march steps and its H100 bound to the row "
                         "(bench/floor.py)")
+    p.add_argument("--l0-tail", choices=("auto", "true", "false"), default="auto",
+                   help="the compact path's level-0 tail (kernels/compact.py)")
     p.add_argument("--frame-sharded", action="store_true",
                    help="render animated configs as whole frames per rank, one rank "
                         "per card (the multi-card B4 strategy)")
@@ -225,7 +247,9 @@ def main(argv=None):
             row = run_bench(name, frames=args.frames, scale=args.scale, reps=args.reps,
                             frame_sharded=args.frame_sharded, floor=args.floor,
                             out_path=args.out,
-                            device="cpu" if args.cpu else None)
+                            device="cpu" if args.cpu else None,
+                            l0_tail={"auto": "auto", "true": True,
+                                     "false": False}[args.l0_tail])
         print(json.dumps(row), flush=True)
 
 

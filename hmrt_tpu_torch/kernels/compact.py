@@ -15,9 +15,21 @@ hit cells, and the final colour maths is plain torch.
 The schedule only decides which rays march when: any (first_budget,
 rounds, round_budget) gives the same frame, because each ray's march is
 deterministic and independent of the others. The TPU package's other
-knobs (n_col, subserve, band_tail, unroll, banks, l0_tail, relax,
-sort_dir, sort_mode, fold_inv, coarse0, prefix schedules) tuned its Mosaic
-schedule and are not ported.
+knobs (n_col, subserve, band_tail, unroll, banks, sort_dir, sort_mode,
+fold_inv, coarse0, prefix schedules) tuned its Mosaic schedule and are not
+ported.
+
+The tail, as in the JAX package: the last sorted round of the primary and
+of the shadow march may run as the forced-level-0 tail (`l0_tail`). Its
+survivors are first descended to the level-0 cell at their position
+(`force_level0`, so the sort key is their level-0 column), then march the
+level-0 DDA with the exact test and no pyramid. That gives up skips the
+pyramid could still take and never changes a hit, so every `l0_tail`
+gives the same frame. "auto" forces the tail when more than
+L0_TAIL_AUTO_THRESH of the survivors are already at level 0, decided on
+the device (a flag the kernel reads), with no host wait. `relax=k` runs the
+relaxed stride tail there instead: not exact (a feature narrower than k
+cells along a ray can be tunnelled; no false hits), opt-in.
 """
 
 from __future__ import annotations
@@ -41,6 +53,11 @@ BIG_KEY = 2 ** 30   # sort key of a dead lane: after every live column
 FIRST_BUDGET = 64
 ROUNDS = 2
 ROUND_BUDGET = 256
+
+#: l0_tail="auto": the share of surviving rays already at level 0 (before
+#: the last sorted round) above which the tail is forced to level 0; the
+#: JAX package's value (hmrt_tpu/kernels/compact.py). Both choices are exact.
+L0_TAIL_AUTO_THRESH = 0.9
 
 
 def primary_rays(camera: Camera, config: RenderConfig, row0: int | None = None,
@@ -76,6 +93,53 @@ def init_state(rays, valid0, gmax, *, n: int, m: int, levels: int,
     return (valid.to(torch.int32), torch.where(valid, t0, BIG_T), lvl, icx, icy)
 
 
+def force_level0(rays, state):
+    """Descend every lane to the level-0 cell containing its position at t,
+    as `levels - 1` masked rounds of `descend_cell` do
+    (`hmrt_tpu/kernels/compact.py::_force_level0`). Descending without a
+    test is always exact (the skip test only skips when certain, and this
+    skips nothing), so the level-0 tail stays exact; a lane that could
+    still have taken pyramid skips now steps cell by cell.
+
+    Those rounds are a binary search of the position inside the lane's
+    cell: each compares it with the midpoint of the current cell, an
+    integer that f32 holds exactly. So the cell they reach is floor(p)
+    clamped to the level-0 cells under the lane's cell, which this computes
+    in one pass of torch over the planes, on any device, bit for bit the
+    same (tests/test_torch_relaxed.py holds it against the JAX rounds)."""
+    ox, oy, _, dx, dy, _ = rays
+    alive, t, lvl, icx, icy = state
+
+    def descend(o, d, c):
+        lo = c << lvl
+        hi = lo + (1 << lvl) - 1
+        f = torch.floor(o + t * d)
+        return torch.clamp(f, lo.to(torch.float32), hi.to(torch.float32)).to(torch.int32)
+
+    return alive, t, torch.zeros_like(lvl), descend(ox, dx, icx), descend(oy, dy, icy)
+
+
+def l0_tail_flag(state):
+    """The "auto" tail's choice, a 0-dim bool on the planes' device: more
+    than L0_TAIL_AUTO_THRESH of the alive lanes are at level 0."""
+    alive = state[0] != 0
+    n_alive = alive.sum(dtype=torch.int32)
+    n_l0 = (alive & (state[2] == 0)).sum(dtype=torch.int32)
+    return n_l0 > (L0_TAIL_AUTO_THRESH * n_alive.to(torch.float32)).to(torch.int32)
+
+
+def check_l0_tail(l0_tail, relax: int) -> None:
+    """Raise unless l0_tail is True, False or "auto" and relax fits it."""
+    if l0_tail not in (True, False, "auto"):
+        raise ValueError(f"l0_tail must be True, False or 'auto', not {l0_tail!r}")
+    if relax < 0:
+        raise ValueError(f"relax {relax} < 0")
+    if relax and l0_tail is False:
+        # without the tail relax would do nothing and the frame would be exact
+        raise ValueError("relax > 0 needs the level-0 tail (l0_tail=True, or 'auto' to "
+                         "relax only when the tail is chosen)")
+
+
 def column_key(state, m5: int):
     """Sort key: the 32-cell terrain column of each live lane's current
     cell (at any level); dead lanes key BIG_KEY."""
@@ -87,31 +151,45 @@ def column_key(state, m5: int):
 
 def march_rounds(rays, state, scene: Scene, *, cell_intersect: str, clip,
                  first_budget: int, rounds: int, round_budget: int,
-                 moving: tuple, skip_pass0: bool = False, counts: list | None = None):
+                 moving: tuple, skip_pass0: bool = False, counts: list | None = None,
+                 l0_tail: bool | str = "auto", relax: int = 0):
     """Pass 0 in launch order, then `rounds` sorted rounds (the last one
-    unbudgeted). `moving` names the ray planes that differ per ray and so
-    ride the sort; the others are one value broadcast. Returns the result
-    planes (hit, t_hit, hx, hy) in launch order. `counts`, a list, takes
-    each pass's (2, P) per-ray steps and cell tests, in that pass's lane
-    order (march_pass's counting instance)."""
+    unbudgeted, and the tail under `l0_tail`/`relax`, module docstring).
+    `moving` names the ray planes that differ per ray and so ride the sort;
+    the others are one value broadcast. Returns the result planes (hit,
+    t_hit, hx, hy) in launch order. `counts`, a list, takes each pass's
+    (2, P) per-ray steps and cell tests, in that pass's lane order
+    (march_pass's counting instance)."""
+    check_l0_tail(l0_tail, relax)
     p = rays[0].shape[0]
     res = empty_results(p, rays[0].device)
     kw = dict(n=scene.n, m=scene.m, levels=scene.levels,
               cell_intersect=cell_intersect, clip=clip)
 
-    def run(rays, state, res, budget):
+    def run(rays, state, res, budget, tail=False):
         cnt = None
         if counts is not None:
             cnt = torch.empty((2, p), dtype=torch.int32, device=rays[0].device)
             counts.append(cnt)
         return march_pass(rays, state, res, scene.pyr_flat, scene.heights, scene.corners,
-                          budget=budget, counts=cnt, **kw)
+                          budget=budget, counts=cnt, l0_only=tail,
+                          relax=0 if tail is False else relax, **kw)
 
     if not skip_pass0 and first_budget > 0:
         state, res = run(rays, state, res, first_budget)
     m5 = max(scene.m // 32, 1)
     perm_tot = None
     for r in range(rounds):
+        tail = False
+        if r == rounds - 1 and l0_tail:
+            # force level 0 before the sort, so the sort key is the tail's column
+            forced = force_level0(rays, state)
+            if l0_tail == "auto":
+                tail = l0_tail_flag(state)
+                forced = tuple(torch.where(tail, f, s) for f, s in zip(forced, state))
+            else:
+                tail = True
+            state = forced
         perm = torch.argsort(column_key(state, m5))
         rays = tuple(x.index_select(0, perm) if i in moving else x
                      for i, x in enumerate(rays))
@@ -119,22 +197,24 @@ def march_rounds(rays, state, scene: Scene, *, cell_intersect: str, clip,
         res = tuple(x.index_select(0, perm) for x in res)
         perm_tot = perm if perm_tot is None else perm_tot.index_select(0, perm)
         state, res = run(rays, state, res,
-                         UNBUDGETED if r == rounds - 1 else round_budget)
+                         UNBUDGETED if r == rounds - 1 else round_budget, tail)
     # back to launch order: lane k of the sorted planes is launch lane perm_tot[k]
     return tuple(torch.empty_like(x).index_copy_(0, perm_tot, x) for x in res)
 
 
 def march_shadows(srays, sstate, scene: Scene, *, cell_intersect: str, clip,
                   first_budget: int = FIRST_BUDGET, rounds: int = ROUNDS,
-                  round_budget: int = ROUND_BUDGET, counts: list | None = None):
+                  round_budget: int = ROUND_BUDGET, counts: list | None = None,
+                  l0_tail: bool | str = "auto", relax: int = 0):
     """The shadow march of a compact frame: min(rounds, 2) sorted rounds
-    from the rays' start state and no pass 0. Only the origin planes differ
-    per ray (the direction is the sun's). Returns the hit plane in launch
-    order; `counts` as in `march_rounds`."""
+    from the rays' start state and no pass 0, the last one the tail as in
+    `march_rounds`. Only the origin planes differ per ray (the direction is
+    the sun's). Returns the hit plane in launch order; `counts` as in
+    `march_rounds`."""
     return march_rounds(srays, sstate, scene, cell_intersect=cell_intersect, clip=clip,
                         first_budget=first_budget, rounds=min(rounds, 2),
                         round_budget=round_budget, moving=(0, 1, 2), skip_pass0=True,
-                        counts=counts)[0]
+                        counts=counts, l0_tail=l0_tail, relax=relax)[0]
 
 
 def hit_points(rays, hit, t_hit, hx, hy):
@@ -236,18 +316,28 @@ def to_frame(config: RenderConfig, color, depth, normal, hit) -> Frame:
 def render_frame_compact(scene: Scene, camera: Camera, config: RenderConfig, *,
                          first_budget: int = FIRST_BUDGET, rounds: int = ROUNDS,
                          round_budget: int = ROUND_BUDGET, counts: dict | None = None,
-                         row0: int | None = None, full_height: int | None = None) -> Frame:
+                         row0: int | None = None, full_height: int | None = None,
+                         l0_tail: bool | str = "auto", relax: int = 0) -> Frame:
     """Compacted-wavefront render (see the module docstring).
 
     first_budget: steps of pass 0 in launch order (0 skips it);
     rounds: sorted rounds, the last unbudgeted (at least 1);
     round_budget: steps of each earlier sorted round.
     The shadow march takes min(rounds, 2) sorted rounds and no pass 0.
+    l0_tail: True forces the last round of each march to the level-0 tail,
+    "auto" (the default) when more than L0_TAIL_AUTO_THRESH of its rays are
+    already at level 0, False never; the frame is the same for each.
+    relax: stride in cells of the relaxed tail (0, the default: exact). Its
+    contract: no false hits; a detected hit is the exact hit with the exact
+    t; a feature narrower than `relax` cells along a ray can be tunnelled
+    (a missed or later hit). It needs the tail: with l0_tail=False it
+    raises; with "auto" it relaxes only the marches whose tail is chosen.
     counts: a dict whose "primary" and "shadow" lists take each march
     launch's per-ray steps and cell tests (`march_rounds`; bench/floor.py).
     row0/full_height: render rows [row0, row0 + height) of a
     full_height-row screen (the band form under sharding); the sort keys
     and passes then run over the band's rays alone."""
+    check_l0_tail(l0_tail, relax)
     if rounds < 1 or first_budget < 0 or round_budget < 0:
         raise ValueError(f"bad schedule first_budget={first_budget} "
                          f"rounds={rounds} round_budget={round_budget}")
@@ -256,7 +346,8 @@ def render_frame_compact(scene: Scene, camera: Camera, config: RenderConfig, *,
                          f"{full_height or config.height}-row screen")
     rays = primary_rays(camera, config, row0, full_height)
     sched = dict(cell_intersect=config.cell_intersect, clip=config.clip_box,
-                 first_budget=first_budget, round_budget=round_budget)
+                 first_budget=first_budget, round_budget=round_budget, l0_tail=l0_tail,
+                 relax=relax)
 
     state0 = init_state(rays, None, scene.pyr_flat[-1], n=scene.n, m=scene.m,
                         levels=scene.levels, clip=config.clip_box)

@@ -5,7 +5,11 @@
 // One thread marches one ray: `march_steps` takes up to `budget` steps of
 // the max-mip march (the body of hmrt_tpu/traversal/march.py::march_maxmip
 // without the cone branch, and of the torch `maxmip_step`), updating the
-// ray's state and hit results in place. Every float expression is that of
+// ray's state and hit results in place. Its L0 instance is the
+// forced-level-0 tail (the torch `l0_step`, hmrt_tpu/kernels/march_body.py
+// ::wavefront_step_l0): every ray taken as a level-0 ray, no pyramid and no
+// ascent. `relaxed_steps` is the relaxed stride tail (`l0_step_relaxed`,
+// march_body.py::wavefront_step_l0_relaxed). Every float expression is that of
 // the torch step, in the same order; the build's -fmad=false,
 // -prec-div=true and -prec-sqrt=true keep the bits, because a contracted
 // multiply-add or an approximate division moves a grazing hit by an ulp and
@@ -66,11 +70,18 @@ struct MarchRay {
   float t1;            // exit t of the terrain box (or the clip window)
 };
 
-// Per-ray march state (the state planes of march_pass.py).
+// Per-ray march state (the state planes of march_pass.py). The relaxed tail
+// adds its own three per ray (traversal/march.py relaxed_planes): the mode
+// (0 stride sampling, 1 the exact walk over a bracket), the t of the last
+// sample above the surface and the bracket's end. They live here so that
+// they survive the persistent kernel's chunks of steps; the other marches
+// never read them.
 struct MarchState {
   int alive;
   float t;
   int lvl, icx, icy;
+  int rmode = 0;
+  float tprev = 0.0f, wend = BIG_T;
 };
 
 // A hit (the result planes of march_pass.py), set by the step that finds
@@ -196,6 +207,55 @@ static __device__ __forceinline__ void intersect_flat(float ox, float oy, float 
   t = wall ? t_lo : t_top;
 }
 
+// The exact test of cell (cx, cy) with corner record c by the intersector
+// `kind` (an Intersector).
+static __device__ __forceinline__ void intersect_cell(int kind, const MarchRay& r, int cx,
+                                                      int cy, float4 c, float t_lo, float t_hi,
+                                                      bool& hit, float& t) {
+  if (kind == TRIANGLE)
+    intersect_triangles(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, cx, cy, c.x, c.y, c.z, c.w, t_lo,
+                        t_hi, hit, t);
+  else if (kind == BILINEAR)
+    intersect_bilinear(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, cx, cy, c.x, c.y, c.z, c.w, t_lo,
+                       t_hi, hit, t);
+  else
+    intersect_flat(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, c.x, c.y, c.z, c.w, t_lo, t_hi, hit, t);
+}
+
+// The height of each intersector's own cell surface at local (u, v), for the
+// relaxed tail's samples (traversal/intersect.py surface_*): a sample below
+// it implies a crossing that the matching intersector finds.
+static __device__ __forceinline__ float surface_triangle(float u, float v, float z00, float z10,
+                                                         float z01, float z11) {
+  float zl = z00 + (z10 - z00) * u + (z01 - z00) * v;
+  float zu = (z10 - z11 + z01) + (z11 - z01) * u + (z11 - z10) * v;
+  return u + v <= 1.0f ? zl : zu;
+}
+
+static __device__ __forceinline__ float surface_bilinear(float u, float v, float z00, float z10,
+                                                         float z01, float z11) {
+  float b = z10 - z00;
+  float c = z01 - z00;
+  float e = z11 - z10 - z01 + z00;
+  return z00 + b * u + c * v + e * u * v;
+}
+
+static __device__ __forceinline__ float surface_flat(float z00, float z10, float z01, float z11) {
+  return fmaxf(fmaxf(z00, z10), fmaxf(z01, z11));
+}
+
+static __device__ __forceinline__ float surface_cell(int kind, float u, float v, float4 c) {
+  if (kind == TRIANGLE) return surface_triangle(u, v, c.x, c.y, c.z, c.w);
+  if (kind == BILINEAR) return surface_bilinear(u, v, c.x, c.y, c.z, c.w);
+  return surface_flat(c.x, c.y, c.z, c.w);
+}
+
+// floor(x) clamped to [0, m-1], as an integer cell (traversal/march.py
+// floor_cell); clamped as a float first, so every x converts.
+static __device__ __forceinline__ int floor_cell(float x, int m) {
+  return (int)fminf(fmaxf(floorf(x), 0.0f), (float)(m - 1));
+}
+
 static __device__ __forceinline__ int ascent_levels(int b) {
   return ((b & 1) == 0) + ((b & 3) == 0) + ((b & 7) == 0);
 }
@@ -238,8 +298,11 @@ static __device__ __forceinline__ float4 cell_record(const Terrain& g, int cx, i
 // Up to `budget` max-mip steps of one ray; a ray that is not alive is left
 // as it is. A hit ends the ray and sets `h`. `gmax` is the pyramid top.
 // Returns the steps taken. COUNT instances add them, and the exact cell
-// tests, to `w`.
-template <bool COUNT>
+// tests, to `w`. L0 instances take the ray as a level-0 ray whatever its
+// `lvl` (which they leave as it is): the level-0 DDA with the same skip test,
+// test window and intersector, never ascending, so their prefetch ring runs
+// to the ray's end.
+template <bool COUNT, bool L0 = false>
 static __device__ __forceinline__ int march_steps(const MarchRay& r, MarchState& s, MarchHit& h,
                                                   int budget, const Terrain& g, float gmax,
                                                   Work& w) {
@@ -261,11 +324,11 @@ static __device__ __forceinline__ int march_steps(const MarchRay& r, MarchState&
 #pragma unroll
     for (int j = 0; j < RING; ++j) {
       if (st >= budget || !alive) break;
-      const CellExit e = cell_exit(r, icx, icy, (float)(1 << lvl));
+      const CellExit e = cell_exit(r, icx, icy, L0 ? 1.0f : (float)(1 << lvl));
       float t_exit_c = fminf(e.t, t1);
       float zmin = oz + fminf(t * dz, t_exit_c * dz);
 
-      const bool at_fine = lvl == 0;
+      const bool at_fine = L0 || lvl == 0;
       float cmax;
       float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (at_fine) {
@@ -323,19 +386,20 @@ static __device__ __forceinline__ int march_steps(const MarchRay& r, MarchState&
         lvl = lvl - 1;
       } else {
         // advance, ascending on a skip by the crossed boundary's alignment
+        // (the level-0 tail never ascends)
         int asc = skip ? ascent_levels(e.bnd) : 0;
-        asc = min(asc, (levels - 1) - lvl);
+        asc = L0 ? 0 : min(asc, (levels - 1) - lvl);
         lvl = lvl + asc;
         icx = e.nx >> asc;  // arithmetic shift: nx may be -1
         icy = e.ny >> asc;
         t = fmaxf(t, t_exit_c);
-        int new_side = m >> lvl;
+        int new_side = L0 ? m : m >> lvl;
         bool escaped = (oz + t * dz > gmax) && (dz > 0.0f);
         bool out = (e.t >= t1 - EPS_EXIT) || icx < 0 || icx >= new_side || icy < 0 ||
                    icy >= new_side || escaped;
         if (out) {
           alive = 0;
-        } else if (lvl == 0) {
+        } else if (L0 || lvl == 0) {
           // still in the run: the next cell's record is in slot j + 1;
           // slot j takes the cell RING steps ahead
           const CellExit f = cell_exit(r, qx, qy, 1.0f);
@@ -355,6 +419,82 @@ static __device__ __forceinline__ int march_steps(const MarchRay& r, MarchState&
   s.lvl = lvl;
   s.icx = icx;
   s.icy = icy;
+  return st;
+}
+
+// Up to `budget` steps of the relaxed level-0 tail of one ray (the torch
+// `l0_step_relaxed`, line for line); `stride` is in cells. A sample below
+// the cell surface sends the ray back to the last sample above, to walk the
+// bracket cell by cell with the exact test; past the bracket without a hit
+// it samples again. The mode and the bracket ride in `s` (rmode, tprev,
+// wend). COUNT instances count every step, and the walk's exact tests. A
+// simple loop with one record load a step: no prefetch.
+template <bool COUNT>
+static __device__ __forceinline__ int relaxed_steps(const MarchRay& r, MarchState& s,
+                                                    MarchHit& h, int budget, const Terrain& g,
+                                                    float gmax, int stride, Work& w) {
+  const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
+  const float t1 = r.t1;
+  const int m = g.m;
+  const float stride_t = (float)stride * fminf(fabsf(r.inv_x), fabsf(r.inv_y));
+  int alive = s.alive, icx = s.icx, icy = s.icy, rmode = s.rmode;
+  float t = s.t, tprev = s.tprev, wend = s.wend;
+  int st = 0;
+  for (; st < budget && alive; ++st) {
+    if (rmode != 0 && t > wend + T_TOL) {  // bracket passed: sample from here
+      rmode = 0;
+      tprev = t;
+    }
+    const float4 c = cell_record(g, icx, icy);
+    if (rmode != 0) {  // the exact walk
+      const CellExit e = cell_exit(r, icx, icy, 1.0f);
+      const float t_exit_c = fminf(e.t, t1);
+      bool hit_now;
+      float t_c;
+      if (COUNT) ++w.tests;
+      intersect_cell(g.kind, r, icx, icy, c, t - T_TOL, t_exit_c + T_TOL, hit_now, t_c);
+      if (hit_now) {
+        alive = 0;
+        h = MarchHit{1, t_c, icx, icy};
+      } else {
+        t = fmaxf(t, t_exit_c);
+        icx = e.nx;
+        icy = e.ny;
+        bool escaped = (oz + t * dz > gmax) && (dz > 0.0f);
+        if ((e.t >= t1 - EPS_EXIT) || icx < 0 || icx >= m || icy < 0 || icy >= m || escaped)
+          alive = 0;
+      }
+    } else {  // a sample at the current position
+      float zs = surface_cell(g.kind, ox + t * dx - (float)icx, oy + t * dy - (float)icy, c);
+      if (oz + t * dz <= zs) {  // below: walk from the last sample above
+        wend = t;
+        t = tprev;
+        icx = floor_cell(ox + tprev * dx, m);
+        icy = floor_cell(oy + tprev * dy, m);
+        rmode = 1;
+      } else {
+        float ts_new = fmaxf(t, fminf(t + stride_t, t1 - EPS_EXIT));
+        bool sout = t >= t1 - 2.0f * EPS_EXIT;
+        bool sesc = (oz + ts_new * dz > gmax) && (dz > 0.0f);
+        if (sout || sesc) {
+          alive = 0;
+        } else {
+          tprev = t;
+          t = ts_new;
+          icx = floor_cell(ox + ts_new * dx, m);
+          icy = floor_cell(oy + ts_new * dy, m);
+        }
+      }
+    }
+    if (COUNT) ++w.steps;
+  }
+  s.alive = alive;
+  s.t = t;
+  s.icx = icx;
+  s.icy = icy;
+  s.rmode = rmode;
+  s.tprev = tprev;
+  s.wend = wend;
   return st;
 }
 

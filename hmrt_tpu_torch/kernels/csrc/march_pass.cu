@@ -41,6 +41,15 @@
 // The step itself is `march_steps` of march_common.cuh, shared with the
 // fused tile kernel; its float expressions are those of the torch and JAX
 // march, in the same order.
+//
+// The tail modes of the TPU kernel (its `l0_only` and `relax` arguments) are
+// template instances beside COUNT, so that the max-mip instance the passes
+// before the tail run keeps its registers: MODE_L0 marches the level-0 DDA
+// with the exact test (march_steps' L0 instance, with its prefetch ring),
+// MODE_RELAX the relaxed stride tail (relaxed_steps, one record load a step,
+// not tuned). With a tail flag (the compact path's "auto" tail, decided on
+// the device) a tail instance reads it once and, when it is 0, runs the
+// max-mip march instead: a uniform branch, no host wait.
 
 #include <cuda_runtime.h>
 
@@ -57,6 +66,8 @@ constexpr int REFILL_MIN = 32;
 // blocks an SM must hold at once: caps the registers a thread may use
 // (1: no cap; a cap that buys more warps made ptxas spill)
 constexpr int MIN_BLOCKS = 1;
+// what a pass marches (march_pass.py MODE_*)
+constexpr int MODE_MAXMIP = 0, MODE_L0 = 1, MODE_RELAX = 2;
 
 struct Planes {
   const float *ox, *oy, *oz, *dx, *dy, *dz;
@@ -73,11 +84,13 @@ struct Planes {
   int* counts;  // (2, p) steps and cell tests per ray, COUNT instances only
 };
 
-template <bool COUNT>
+template <bool COUNT, int MODE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-    march_pass_kernel(const Planes a, const Terrain g, int p, int budget, float box_lo,
-                      float box_hi, int* next) {
+    march_pass_kernel(const Planes a, const Terrain g, int p, int budget, int stride,
+                      float box_lo, float box_hi, const int* tail_flag, int* next) {
   const float gmax = __ldg(g.pyr + pyramid_top(g.m));
+  // the tail instances run their tail unless the flag says otherwise
+  const bool tail = MODE != MODE_MAXMIP && (tail_flag == nullptr || __ldg(tail_flag) != 0);
   int i = -1;        // the ray this lane holds; -1: idle
   int used = 0;      // steps the held ray has taken in this pass
   bool more = true;  // the counter still hands out rays (warp-uniform)
@@ -91,6 +104,11 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
       used = 0;
       w = Work{0, 0};
       s = MarchState{a.alive[i], a.t[i], a.lvl[i], a.icx[i], a.icy[i]};
+      if (MODE == MODE_RELAX) {  // relaxed_planes: sampling from here
+        s.rmode = 0;
+        s.tprev = s.t;
+        s.wend = BIG_T;
+      }
       if (s.alive) {
         r.ox = a.ox[i], r.oy = a.oy[i], r.oz = a.oz[i];
         r.dx = a.dx[i], r.dy = a.dy[i], r.dz = a.dz[i];
@@ -105,7 +123,13 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 
     if (i >= 0) {
       MarchHit h{0, BIG_T, 0, 0};
-      used += march_steps<COUNT>(r, s, h, min(CHUNK, budget - used), g, gmax, w);
+      const int steps = min(CHUNK, budget - used);
+      if (MODE == MODE_RELAX && tail)
+        used += relaxed_steps<COUNT>(r, s, h, steps, g, gmax, stride, w);
+      else if (MODE == MODE_L0 && tail)
+        used += march_steps<COUNT, true>(r, s, h, steps, g, gmax, w);
+      else
+        used += march_steps<COUNT>(r, s, h, steps, g, gmax, w);
       if (!s.alive || used >= budget) {
         a.alive_o[i] = s.alive;
         a.t_o[i] = s.t;
@@ -128,19 +152,37 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   }
 }
 
-template <bool COUNT>
-int launch(const Planes& a, const Terrain& g, int p, int budget, float box_lo, float box_hi,
-           int* next, cudaStream_t stream) {
-  const int blocks = persistent_blocks(march_pass_kernel<COUNT>, THREADS, p);
-  march_pass_kernel<COUNT><<<blocks, THREADS, 0, stream>>>(a, g, p, budget, box_lo, box_hi,
-                                                             next);
+template <bool COUNT, int MODE>
+int launch(const Planes& a, const Terrain& g, int p, int budget, int stride, float box_lo,
+           float box_hi, const int* tail_flag, int* next, cudaStream_t stream) {
+  const int blocks = persistent_blocks(march_pass_kernel<COUNT, MODE>, THREADS, p);
+  march_pass_kernel<COUNT, MODE><<<blocks, THREADS, 0, stream>>>(a, g, p, budget, stride, box_lo,
+                                                                   box_hi, tail_flag, next);
   return (int)cudaGetLastError();
+}
+
+template <bool COUNT>
+int launch_mode(int mode, const Planes& a, const Terrain& g, int p, int budget, int stride,
+                float box_lo, float box_hi, const int* tail_flag, int* next,
+                cudaStream_t stream) {
+  if (mode == MODE_L0)
+    return launch<COUNT, MODE_L0>(a, g, p, budget, stride, box_lo, box_hi, tail_flag, next,
+                                  stream);
+  if (mode == MODE_RELAX)
+    return launch<COUNT, MODE_RELAX>(a, g, p, budget, stride, box_lo, box_hi, tail_flag, next,
+                                     stream);
+  return launch<COUNT, MODE_MAXMIP>(a, g, p, budget, stride, box_lo, box_hi, tail_flag, next,
+                                    stream);
 }
 
 }  // namespace
 
-// `next` is a zeroed int32 on the device (the ray counter); `counts` is null
-// or an int32 (2, p) plane that takes each ray's steps and cell tests.
+// `mode` is MODE_MAXMIP, MODE_L0 or MODE_RELAX (then `stride` > 0 cells and
+// an unbudgeted pass); `tail_flag` is null (a tail mode always runs its tail)
+// or one int32 on the device. `next` is a zeroed int32 on the device (the ray
+// counter); `counts` is null or an int32 (2, p) plane that takes each ray's
+// steps and cell tests. An unknown mode, or a relaxed pass with a budget or
+// no stride, returns cudaErrorInvalidValue and launches nothing.
 extern "C" int hmrt_march_pass(const float* ox, const float* oy, const float* oz,
                                const float* dx, const float* dy, const float* dz,
                                const int* alive, const float* t, const int* lvl,
@@ -149,14 +191,20 @@ extern "C" int hmrt_march_pass(const float* ox, const float* oy, const float* oz
                                int* alive_o, float* t_o, int* lvl_o, int* icx_o,
                                int* icy_o, int* hit_o, float* t_hit_o, int* hx_o,
                                int* hy_o, const float* pyr_flat, const float* corners, int p,
-                               int m, int levels, int budget, int intersector, float box_lo,
-                               float box_hi, int* next, int* counts, void* stream) {
+                               int m, int levels, int budget, int intersector, int mode,
+                               int stride, float box_lo, float box_hi, const int* tail_flag,
+                               int* next, int* counts, void* stream) {
+  if (mode < MODE_MAXMIP || mode > MODE_RELAX ||
+      (mode == MODE_RELAX && (stride <= 0 || budget != UNBUDGETED)))
+    return (int)cudaErrorInvalidValue;
   if (p <= 0) return (int)cudaSuccess;
   Planes a{ox,    oy,    oz,    dx,   dy,   dz,   alive,   t,     lvl,  icx,
            icy,   hit,   t_hit, hx,   hy,   alive_o, t_o,  lvl_o, icx_o, icy_o,
            hit_o, t_hit_o, hx_o, hy_o, counts};
   Terrain g{pyr_flat, reinterpret_cast<const float4*>(corners), m, levels, intersector};
   cudaStream_t st = (cudaStream_t)stream;
-  return counts != nullptr ? launch<true>(a, g, p, budget, box_lo, box_hi, next, st)
-                           : launch<false>(a, g, p, budget, box_lo, box_hi, next, st);
+  return counts != nullptr
+             ? launch_mode<true>(mode, a, g, p, budget, stride, box_lo, box_hi, tail_flag, next, st)
+             : launch_mode<false>(mode, a, g, p, budget, stride, box_lo, box_hi, tail_flag, next,
+                                  st);
 }

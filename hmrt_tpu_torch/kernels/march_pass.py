@@ -18,6 +18,15 @@ chunks and take the rays in whatever order lanes come free.
 The kernel reads level 0 from the scene's corner records (`Scene.corners`)
 and the levels above from `pyr_flat`; the plain version reads `pyr_flat`
 and `heights`, the function the records are held against.
+
+Tail modes, as the TPU kernel's `l0_only` and `relax` arguments: with
+`l0_only` every ray is taken as a level-0 ray (the caller has forced it
+there, kernels/compact.py::force_level0) and marches the level-0 DDA with
+the exact test (`traversal/march.py::l0_step`); with `relax=k` as well, the
+relaxed stride tail (`l0_step_relaxed`), defined only unbudgeted, as in the
+JAX package. `l0_only` may also be a 0-dim tensor on the planes' device, a
+flag that the kernel reads on the card: when it is false the pass is the
+max-mip pass (the "auto" tail decides it on the device, with no host wait).
 """
 
 from __future__ import annotations
@@ -26,22 +35,43 @@ import torch
 
 from hmrt_tpu_torch.core.pyramid import flat_size
 from hmrt_tpu_torch.kernels import _build
-from hmrt_tpu_torch.traversal.intersect import INTERSECTORS, INTERSECTOR_IDS
-from hmrt_tpu_torch.traversal.march import (WorkCounter, maxmip_step,
-                                            ray_box_range, ray_inverses, run_masked)
+from hmrt_tpu_torch.traversal.intersect import INTERSECTORS, INTERSECTOR_IDS, SURFACES
+from hmrt_tpu_torch.traversal.march import (WorkCounter, l0_step, l0_step_relaxed,
+                                            maxmip_step, ray_box_range, ray_inverses,
+                                            record_corners, relaxed_planes, run_masked)
 
 UNBUDGETED = 1 << 22
+#: the kernel's mode argument: the max-mip march, the exact level-0 tail,
+#: the relaxed tail (march_pass.cu MODE)
+MODE_MAXMIP, MODE_L0, MODE_RELAX = 0, 1, 2
+MODE_NAMES = ("maxmip", "l0", "relax")
 STATE_DTYPES = (torch.int32, torch.float32, torch.int32, torch.int32, torch.int32)
 RESULT_DTYPES = (torch.int32, torch.float32, torch.int32, torch.int32)
+
+
+def check_tail(l0_only, relax: int, budget: int) -> None:
+    """Raise unless (l0_only, relax, budget) is a pass the kernel defines:
+    relax >= 0, and relax > 0 only for an unbudgeted level-0 tail."""
+    if relax < 0:
+        raise ValueError(f"relax {relax} < 0")
+    if relax and not isinstance(l0_only, torch.Tensor) and not l0_only:
+        raise ValueError("relax > 0 is a mode of the level-0 tail: it needs l0_only")
+    if relax and budget != UNBUDGETED:
+        raise ValueError(f"a relaxed pass is defined only unbudgeted, not at budget {budget}")
 
 
 def march_pass_reference(rays, state, results, pyr_flat, heights, *, n: int,
                          m: int, levels: int, budget: int,
                          cell_intersect: str = "triangle", clip=None,
-                         counter: WorkCounter | None = None):
+                         counter: WorkCounter | None = None,
+                         l0_only=False, relax: int = 0):
     """The plain torch version: the masked step loop of
-    `traversal/march.py`, at most `budget` steps. `counter` records the
-    work done."""
+    `traversal/march.py`, at most `budget` steps: `maxmip_step`, or with
+    `l0_only` `l0_step`, or with `relax` as well `l0_step_relaxed`.
+    `counter` records the work done."""
+    check_tail(l0_only, relax, budget)
+    if isinstance(l0_only, torch.Tensor):
+        l0_only = bool(l0_only)
     ox, oy, oz, dx, dy, dz = rays
     alive, t, lvl, icx, icy = state
     hit, t_hit, hx, hy = results
@@ -53,10 +83,25 @@ def march_pass_reference(rays, state, results, pyr_flat, heights, *, n: int,
     intersector = INTERSECTORS[cell_intersect]
     st = dict(t=t, lvl=lvl, icx=icx, icy=icy, alive=alive != 0, hit=hit != 0,
               t_hit=t_hit, hx=hx, hy=hy)
-    st = run_masked(lambda s: maxmip_step(ray, s, pyr_flat, heights_flat, gmax,
-                                          n=n, m=m, levels=levels,
-                                          intersector=intersector, counter=counter),
-                    st, budget)
+    if not l0_only:
+        def step(s):
+            return maxmip_step(ray, s, pyr_flat, heights_flat, gmax, n=n, m=m,
+                               levels=levels, intersector=intersector, counter=counter)
+    elif not relax:
+        corners = record_corners(heights_flat, n, m)
+
+        def step(s):
+            return l0_step(ray, s, corners, gmax, m=m, intersector=intersector,
+                           counter=counter)
+    else:
+        corners = record_corners(heights_flat, n, m)
+        st.update(relaxed_planes(t))
+
+        def step(s):
+            return l0_step_relaxed(ray, s, corners, gmax, m=m, intersector=intersector,
+                                   surface=SURFACES[cell_intersect], stride=relax,
+                                   counter=counter)
+    st = run_masked(step, st, budget)
     return ((st["alive"].to(torch.int32), st["t"], st["lvl"], st["icx"], st["icy"]),
             (st["hit"].to(torch.int32), st["t_hit"], st["hx"], st["hy"]))
 
@@ -104,23 +149,32 @@ def _check_inputs(rays, state, results, pyr_flat, corners, n, m, levels, budget)
 
 def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: int,
                levels: int, budget: int, cell_intersect: str = "triangle",
-               clip=None, counts: torch.Tensor | None = None):
+               clip=None, counts: torch.Tensor | None = None, l0_only=False,
+               relax: int = 0):
     """One budgeted march pass. Returns (new_state, new_results).
 
     CPU tensors run `march_pass_reference`; CUDA tensors launch the kernel
     (building it on first use) or raise. `corners` is the scene's (m, m, 4)
     corner-record plane. `counts`, an int32 (2, P) output, takes each ray's
     steps and exact cell tests in this pass (the kernel's counting
-    instance; the timed path passes none)."""
+    instance; the timed path passes none). `l0_only` and `relax`: the tail
+    modes (module docstring); a relaxed pass counts every step, and the
+    exact walk's intersector calls as cell tests."""
+    check_tail(l0_only, relax, budget)
     p = rays[0].shape[0]
-    dev = _build.device_of([*rays, *state, *results, pyr_flat, heights, corners])
+    flag = l0_only if isinstance(l0_only, torch.Tensor) else None
+    dev = _build.device_of([*rays, *state, *results, pyr_flat, heights, corners]
+                           + ([] if flag is None else [flag]))
+    if flag is not None and flag.numel() != 1:
+        raise ValueError(f"l0_only: want a bool or a 0-dim flag, got shape {tuple(flag.shape)}")
     if counts is not None:
         check_counts(counts, (2, p), dev)
     if dev.type == "cpu":
         work = None if counts is None else WorkCounter(pyr_flat.shape[0], n, dev, lanes=p)
         out = march_pass_reference(rays, state, results, pyr_flat, heights,
                                    n=n, m=m, levels=levels, budget=budget,
-                                   cell_intersect=cell_intersect, clip=clip, counter=work)
+                                   cell_intersect=cell_intersect, clip=clip, counter=work,
+                                   l0_only=l0_only, relax=relax)
         if work is not None:
             counts.copy_(torch.stack([work.lane_steps, work.lane_tests]))
         return out
@@ -130,18 +184,26 @@ def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: i
     lib = _build.library()
     outs = [torch.empty_like(x) for x in (*state, *results)]
     lo, hi = (0.0, float(n - 1)) if clip is None else clip
+    mode = (MODE_MAXMIP if flag is None and not l0_only
+            else MODE_RELAX if relax else MODE_L0)
     with torch.cuda.device(dev):
         next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
+        flag_i = None if flag is None else flag.reshape(1).to(torch.int32)
         err = lib.hmrt_march_pass(
             *[x.data_ptr() for x in (*rays, *state, *results, *outs)],
             pyr_flat.data_ptr(), corners.data_ptr(), p, m, levels, budget,
-            INTERSECTOR_IDS[cell_intersect], float(lo), float(hi), next_ray.data_ptr(),
+            INTERSECTOR_IDS[cell_intersect], mode, relax, float(lo), float(hi),
+            None if flag_i is None else flag_i.data_ptr(), next_ray.data_ptr(),
             None if counts is None else counts.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "march_pass")
     if p:  # an empty pass launches nothing
         march_pass.launches += 1
+        march_pass.mode_launches[MODE_NAMES[mode]] += 1
     return tuple(outs[:5]), tuple(outs[5:])
 
 
 march_pass.launches = 0
+#: the same launches by template instance (a tail instance whose flag was 0
+#: ran the max-mip march)
+march_pass.mode_launches = {"maxmip": 0, "l0": 0, "relax": 0}

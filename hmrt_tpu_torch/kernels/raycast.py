@@ -27,7 +27,7 @@ from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, check_counts, check_r
 from hmrt_tpu_torch.kernels.shade_pass import shade_pass_reference
 from hmrt_tpu_torch.traversal.intersect import INTERSECTOR_IDS
 from hmrt_tpu_torch.traversal.march import WorkCounter
-from hmrt_tpu_torch.types import Camera, Frame, Scene, recip_f32
+from hmrt_tpu_torch.types import Camera, Frame, Scene, recip_f32, tan_half
 
 # params vector layout (f32[32]), as hmrt_tpu/kernels/raycast.py
 _P_EYE = 0        # 0-2
@@ -58,7 +58,7 @@ def make_params(scene: Scene, camera: Camera, config: RenderConfig, row0=None,
     def scalar(v):
         return torch.tensor([v], dtype=torch.float32, device=scene.device)
 
-    vals = torch.cat([camera.eye, right, up, fwd, torch.tan(camera.fov_y * 0.5)[None],
+    vals = torch.cat([camera.eye, right, up, fwd, tan_half(camera.fov_y)[None],
                       scalar(config.width / fh), light.sun_dir, light.sun_color,
                       light.sky_top, light.sky_horizon, light.fog_color,
                       scene.pyr_flat[-1:], scalar(0.0 if row0 is None else row0)])

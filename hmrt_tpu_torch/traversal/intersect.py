@@ -120,3 +120,39 @@ INTERSECTORS = {
 
 #: the integer the CUDA march kernel selects its intersector by
 INTERSECTOR_IDS = {"triangle": 0, "bilinear": 1, "flat": 2}
+
+
+# Point evaluation of the SAME cell surface each intersector tests against,
+# for the relaxed stride tail (traversal/march.py::l0_step_relaxed): a sample
+# point below surface_*() implies, by continuity of the piecewise surface, a
+# crossing between the last sample above and this one, so the exact walk over
+# that bracket (the matching intersect_*() in every cell) finds a hit. An
+# evaluator is never paired with another kind's intersector. The expressions
+# are those of `hmrt_tpu/traversal/intersect.py`, in the same order.
+
+def surface_triangle(u, v, z00, z10, z01, z11):
+    """Height of the two-triangle cell surface at local (u, v): the planes of
+    intersect_triangles, split along the (10)-(01) diagonal."""
+    zl = z00 + (z10 - z00) * u + (z01 - z00) * v
+    zu = (z10 - z11 + z01) + (z11 - z01) * u + (z11 - z10) * v
+    return torch.where(u + v <= 1.0, zl, zu)
+
+
+def surface_bilinear(u, v, z00, z10, z01, z11):
+    """Height of the bilinear patch at local (u, v)."""
+    b = z10 - z00
+    c = z01 - z00
+    e = z11 - z10 - z01 + z00
+    return z00 + b * u + c * v + e * u * v
+
+
+def surface_flat(u, v, z00, z10, z01, z11):
+    """Height of the flat column top: the cell's max corner height."""
+    return torch.maximum(torch.maximum(z00, z10), torch.maximum(z01, z11))
+
+
+SURFACES = {
+    "triangle": surface_triangle,
+    "bilinear": surface_bilinear,
+    "flat": surface_flat,
+}

@@ -5,7 +5,11 @@ per-lane state is {t, level, cell, alive} plus the hit results, and every
 branch is a `torch.where` select. One step of the max-mip march is
 `maxmip_step`; the oracle's `march_maxmip` and the plain version of the
 march kernel (`kernels/march_pass.py::march_pass_reference`) both run it,
-and the CUDA kernel repeats it line for line.
+and the CUDA kernel repeats it line for line. The level-0 tail of the
+compact path has two more steps, `l0_step` (exact, every cell) and
+`l0_step_relaxed` (stride sampling with an exact walk over each bracket),
+the counterparts of `hmrt_tpu/kernels/march_body.py::wavefront_step_l0`
+and `wavefront_step_l0_relaxed`.
 
 Robustness rules, as in the JAX package: cell coordinates are INTEGER
 per-lane state, so every step makes integer progress and no epsilon is
@@ -23,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from hmrt_tpu_torch.core.pyramid import flat_index
+from hmrt_tpu_torch.core.pyramid import NEG_INF, flat_index
 from hmrt_tpu_torch.traversal.intersect import BIG_T, INTERSECTORS
 
 EPS_EXIT = 1.0e-6
@@ -172,12 +176,16 @@ class WorkCounter:
 
 
 def maxmip_step(ray, st, pyr_flat, heights_flat, gmax, *, n: int, m: int,
-                levels: int, intersector, counter: WorkCounter | None = None):
+                levels: int, intersector, counter: WorkCounter | None = None,
+                cone=None):
     """One masked max-mip step for the alive lanes of `st`.
 
     ray = (ox, oy, oz, dx, dy, dz, inv_x, inv_y, t1); st holds t, lvl,
     icx, icy, alive (bool), hit (bool), t_hit, hx, hy. A lane that is not
-    alive is left exactly as it was. `counter` records the step's work."""
+    alive is left exactly as it was. `counter` records the step's work.
+    `cone=(cone_flat, cone_radius)`: the cone field of core/cone.py; a
+    level-0 lane whose exact test missed then advances by its safe jump of
+    several cells where the cone allows one (hits unchanged)."""
     ox, oy, oz, dx, dy, dz, inv_x, inv_y, t1 = ray
     t, lvl, alive = st["t"], st["lvl"], st["alive"]
     icx, icy = st["icx"], st["icy"]
@@ -218,13 +226,33 @@ def maxmip_step(ray, st, pyr_flat, heights_flat, gmax, *, n: int, m: int,
     new_icy = torch.where(descend, dcy, torch.where(advance, ny >> asc, icy))
     new_t = torch.where(advance, torch.maximum(t, t_exit_c), t)
 
+    jump = None
+    if cone is not None:
+        # the cone jump (core/cone.py): a level-0 lane whose cell-max skip
+        # and exact test both failed (the grazing regime) may advance
+        # several cells when the cone over its apex sample clears the ray
+        from hmrt_tpu_torch.core.cone import cone_safe_cells
+        cone_flat, cone_radius = cone
+        inv_vmax = 1.0 / torch.clamp_min(torch.maximum(torch.abs(dx), torch.abs(dy)), 1e-20)
+        capex = cone_flat.index_select(
+            0, torch.clamp(icy, 0, n - 2) * n + torch.clamp(icx, 0, n - 2))
+        kj = cone_safe_cells(oz + t_exit_c * dz, z00, capex, dz * inv_vmax, cone_radius)
+        jump = advance & at_fine & ~skip & (kj >= 2)
+        t_j = t_exit_c + kj.to(torch.float32) * inv_vmax
+        new_t = torch.where(jump, t_j, new_t)
+        new_icx = torch.where(jump, floor_cell(ox + t_j * dx, m), new_icx)
+        new_icy = torch.where(jump, floor_cell(oy + t_j * dy, m), new_icy)
+        new_lvl = torch.where(jump, 0, new_lvl)
+
     new_side = m >> new_lvl
     # exact escape test: above the global max and climbing => miss
     escaped = advance & (oz + new_t * dz > gmax) & (dz > 0.0)
-    out = (advance & ((t_exit >= t1 - EPS_EXIT)
-                      | (new_icx < 0) | (new_icx >= new_side)
-                      | (new_icy < 0) | (new_icy >= new_side))
-           | escaped)
+    ends = ((t_exit >= t1 - EPS_EXIT) | (new_icx < 0) | (new_icx >= new_side)
+            | (new_icy < 0) | (new_icy >= new_side))
+    if jump is None:
+        out = (advance & ends) | escaped
+    else:
+        out = (advance & ~jump & ends) | (jump & (t_j >= t1 - EPS_EXIT)) | escaped
     return dict(
         t=new_t,
         lvl=torch.where(alive, new_lvl, lvl),
@@ -236,6 +264,160 @@ def maxmip_step(ray, st, pyr_flat, heights_flat, gmax, *, n: int, m: int,
         hx=torch.where(hit_now, icx, st["hx"]),
         hy=torch.where(hit_now, icy, st["hy"]),
     )
+
+
+def floor_cell(x, m: int):
+    """Integer cell of coordinate x, floor(x) clamped to [0, m-1]."""
+    return torch.clamp(torch.floor(x), 0.0, float(m - 1)).to(torch.int32)
+
+
+def record_corners(heights_flat, n: int, m: int):
+    """corners(cx, cy) -> the four corner heights of level-0 cell (cx, cy)
+    as the kernels read them from its corner record (core/pyramid.py
+    corner_records): the cell clamped into [0, m-1], NEG_INF in all four on
+    a padded cell (cx or cy >= n-1), so a padded cell is never hit."""
+    def corners(cx, cy):
+        pad = (torch.clamp(cx, 0, m - 1) >= n - 1) | (torch.clamp(cy, 0, m - 1) >= n - 1)
+        return tuple(torch.where(pad, NEG_INF, z)
+                     for z in corner_heights(heights_flat, n, cx, cy))
+    return corners
+
+
+def _cell_index0(m: int, icx, icy):
+    """Flat pyramid index of level-0 cell (icx, icy), clamped into the grid:
+    the entry a level-0 step reads (the max of the cell's record)."""
+    return torch.clamp(icy, 0, m - 1) * m + torch.clamp(icx, 0, m - 1)
+
+
+def l0_step(ray, st, corners, gmax, *, m: int, intersector,
+            counter: WorkCounter | None = None):
+    """One masked step of the forced-level-0 tail: the level-0 DDA with the
+    exact test in every cell whose max the ray does not clear, no pyramid
+    and no ascent (`hmrt_tpu/kernels/march_body.py::wavefront_step_l0`).
+    Every lane is taken as a level-0 lane; `lvl` is not read. The skip
+    test, the test window and the intersector are those of `maxmip_step`
+    at level 0, so the hits are the max-mip march's.
+
+    ray and st as in `maxmip_step`; `corners(icx, icy)` gives a cell's four
+    corner heights (`record_corners`)."""
+    ox, oy, oz, dx, dy, dz, inv_x, inv_y, t1 = ray
+    t, icx, icy, act = st["t"], st["icx"], st["icy"], st["alive"]
+    t_exit, nx, ny, _ = step_geometry(ox, oy, dx, dy, icx, icy, 0, inv_x, inv_y)
+    t_exit_c = torch.minimum(t_exit, t1)
+    zmin = oz + torch.minimum(t * dz, t_exit_c * dz)
+
+    z00, z10, z01, z11 = corners(icx, icy)
+    cmax0 = torch.maximum(torch.maximum(z00, z10), torch.maximum(z01, z11))
+    h, t_c = intersector(ox, oy, oz, dx, dy, dz, icx, icy, z00, z10, z01, z11,
+                         t - T_TOL, t_exit_c + T_TOL)
+    skip = zmin > cmax0
+    if counter is not None:
+        counter.observe(act, _cell_index0(m, icx, icy), act & ~skip, icx, icy)
+    hit_now = h & act & ~skip
+    advance = act & ~hit_now
+
+    new_t = torch.maximum(t, t_exit_c)
+    escaped = advance & (oz + new_t * dz > gmax) & (dz > 0.0)
+    out = (advance & ((t_exit >= t1 - EPS_EXIT)
+                      | (nx < 0) | (nx >= m) | (ny < 0) | (ny >= m))
+           | escaped)
+    return dict(st,
+                t=torch.where(advance, new_t, t),
+                icx=torch.where(advance, nx, icx),
+                icy=torch.where(advance, ny, icy),
+                alive=act & ~hit_now & ~out,
+                hit=st["hit"] | hit_now,
+                t_hit=torch.where(hit_now, t_c, st["t_hit"]),
+                hx=torch.where(hit_now, icx, st["hx"]),
+                hy=torch.where(hit_now, icy, st["hy"]))
+
+
+def relaxed_planes(t):
+    """The relaxed step's own lane planes at the start of a tail pass:
+    rmode 0 (sampling), tprev = t (the last sample above), wend = BIG_T
+    (the bracket's end), as `hmrt_tpu/kernels/compact.py` sets them."""
+    return dict(rmode=torch.zeros(t.shape, dtype=torch.int32, device=t.device),
+                tprev=t.clone(), wend=torch.full_like(t, BIG_T))
+
+
+def l0_step_relaxed(ray, st, corners, gmax, *, m: int, intersector, surface,
+                    stride: int, counter: WorkCounter | None = None):
+    """One masked step of the RELAXED level-0 tail
+    (`hmrt_tpu/kernels/march_body.py::wavefront_step_l0_relaxed`). Not
+    exact; opt-in.
+
+    Mode A (rmode 0, stride sampling): compare the ray's height with the
+    cell surface (`surface`, the evaluator of `intersector`'s own surface)
+    at the current sample point; while above, jump `stride` cells along the
+    dominant axis. A sample below starts mode B from the last sample above.
+    Mode B (rmode 1, the exact walk): the level-0 DDA with the exact test in
+    every cell (no skip test), up to the sample that was below; past it
+    without a hit, back to mode A from where the walk stands.
+
+    A sample below implies a crossing in the bracket, so a detected hit is
+    the exact hit with the exact t, and there are no false hits; a feature
+    narrower than `stride` cells along the ray can be tunnelled.
+
+    st also holds the planes rmode, tprev and wend (`relaxed_planes`).
+    `counter` counts every step, and the walk's intersector calls as cell
+    tests."""
+    ox, oy, oz, dx, dy, dz, inv_x, inv_y, t1 = ray
+    t, icx, icy, act = st["t"], st["icx"], st["icy"], st["alive"]
+    rmode, tprev, wend = st["rmode"], st["tprev"], st["wend"]
+
+    # bracket passed without a hit -> sample again from where the walk stands
+    exhaust = act & (rmode != 0) & (t > wend + T_TOL)
+    rmode = torch.where(exhaust, 0, rmode)
+    tprev = torch.where(exhaust, t, tprev)
+    walk = act & (rmode != 0)
+    samp = act & (rmode == 0)
+
+    z00, z10, z01, z11 = corners(icx, icy)
+
+    # mode B: the exact walk (the expressions of l0_step)
+    t_exit, nx, ny, _ = step_geometry(ox, oy, dx, dy, icx, icy, 0, inv_x, inv_y)
+    t_exit_c = torch.minimum(t_exit, t1)
+    h, t_c = intersector(ox, oy, oz, dx, dy, dz, icx, icy, z00, z10, z01, z11,
+                         t - T_TOL, t_exit_c + T_TOL)
+    hit_now = h & walk
+    wadv = walk & ~hit_now
+    wt = torch.maximum(t, t_exit_c)
+    wesc = wadv & (oz + wt * dz > gmax) & (dz > 0.0)
+    wout = (wadv & ((t_exit >= t1 - EPS_EXIT)
+                    | (nx < 0) | (nx >= m) | (ny < 0) | (ny >= m))
+            | wesc)
+
+    # mode A: a sample at the current position
+    zs = surface(ox + t * dx - icx.to(torch.float32), oy + t * dy - icy.to(torch.float32),
+                 z00, z10, z01, z11)
+    below = samp & (oz + t * dz <= zs)
+    above = samp & ~below
+    stride_t = stride * torch.minimum(torch.abs(inv_x), torch.abs(inv_y))
+    ts_new = torch.maximum(t, torch.minimum(t + stride_t, t1 - EPS_EXIT))
+    sout = above & (t >= t1 - 2.0 * EPS_EXIT)
+    sesc = above & (oz + ts_new * dz > gmax) & (dz > 0.0)
+    sadv = above & ~sout & ~sesc
+    if counter is not None:
+        counter.observe(act, _cell_index0(m, icx, icy), walk, icx, icy)
+
+    new_t = torch.where(below, tprev,
+                        torch.where(sadv, ts_new, torch.where(wadv, wt, t)))
+    new_icx = torch.where(below, floor_cell(ox + tprev * dx, m),
+                          torch.where(sadv, floor_cell(ox + ts_new * dx, m),
+                                      torch.where(wadv, nx, icx)))
+    new_icy = torch.where(below, floor_cell(oy + tprev * dy, m),
+                          torch.where(sadv, floor_cell(oy + ts_new * dy, m),
+                                      torch.where(wadv, ny, icy)))
+    dead = hit_now | wout | sout | sesc
+    return dict(st, t=new_t, icx=new_icx, icy=new_icy,
+                rmode=torch.where(below, 1, rmode),
+                tprev=torch.where(sadv, t, tprev),
+                wend=torch.where(below, t, wend),
+                alive=act & ~dead,
+                hit=st["hit"] | hit_now,
+                t_hit=torch.where(hit_now, t_c, st["t_hit"]),
+                hx=torch.where(hit_now, icx, st["hx"]),
+                hy=torch.where(hit_now, icy, st["hy"]))
 
 
 def run_masked(step, st, max_steps: int):
@@ -262,10 +444,19 @@ def march_maxmip(ox, oy, oz, dx, dy, dz, pyr_flat, heights_flat, *,
                  n: int, m: int, levels: int, max_steps: int,
                  cell_intersect: str = "triangle",
                  start_level: int | None = None,
-                 clip: tuple | None = None) -> MarchResult:
+                 any_hit: bool = False,
+                 clip: tuple | None = None,
+                 cone_flat=None, cone_radius: int = 0,
+                 counter: WorkCounter | None = None) -> MarchResult:
     """Masked-wavefront maximum-mipmap march over a batch of f32[P] rays,
     descending from level `start_level` (default: the pyramid top). The
-    shadow march is the same traversal; its caller reads only `hit`."""
+    shadow march is the same traversal; its caller reads only `hit`
+    (`any_hit`, as in the JAX package, changes nothing).
+
+    `cone_flat`/`cone_radius`: the conservative cone field of core/cone.py
+    (flat (n*n,) f32) and its radius; level-0 lanes whose exact test misses
+    then take its multi-cell safe jumps, with the same hits. No render path
+    uses it. `counter` records the march's work."""
     top = levels - 1 if start_level is None else min(start_level, levels - 1)
     t0, t1, valid = ray_box_range(ox, oy, dx, dy, float(n - 1), clip)
     inv_x, inv_y = ray_inverses(dx, dy)
@@ -278,9 +469,11 @@ def march_maxmip(ox, oy, oz, dx, dy, dz, pyr_flat, heights_flat, *,
               **_results(ox.shape[0], ox.device))
     ray = (ox, oy, oz, dx, dy, dz, inv_x, inv_y, t1)
     intersector = INTERSECTORS[cell_intersect]
+    cone = None if cone_flat is None else (cone_flat, cone_radius)
     st = run_masked(lambda s: maxmip_step(ray, s, pyr_flat, heights_flat, gmax,
                                           n=n, m=m, levels=levels,
-                                          intersector=intersector),
+                                          intersector=intersector, counter=counter,
+                                          cone=cone),
                     st, max_steps)
     return MarchResult(st["hit"], st["t_hit"], st["hx"], st["hy"])
 

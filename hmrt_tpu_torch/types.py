@@ -35,6 +35,14 @@ def recip_f32(k: int) -> float:
     return float(np.float32(1.0) / np.float32(k))
 
 
+def tan_half(fov_y: torch.Tensor) -> torch.Tensor:
+    """tan(fov_y / 2) as raygen uses it: the f32 half-angle's tan taken in
+    f64 and rounded once to f32, on fov_y's device with no host copy. The
+    f32 `tan` of torch differs by an ulp between the CPU and CUDA for some
+    angles (60 degrees among them); this gives the same bits on both."""
+    return torch.tan((fov_y * 0.5).to(torch.float64)).to(torch.float32)
+
+
 def _vec3(v, device):
     return torch.as_tensor(v, dtype=torch.float32, device=device)
 
@@ -82,7 +90,7 @@ class Camera:
         full_height-row screen (the row-band form used under sharding)."""
         dev = self.eye.device
         r, u, f = self.basis()
-        tan_half = torch.tan(self.fov_y * 0.5)
+        th = tan_half(self.fov_y)
         fh = height if full_height is None else full_height
         aspect = width / fh
         jj = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) \
@@ -91,8 +99,8 @@ class Camera:
         if row0 is not None:
             rr = rr + row0
         ii = 1.0 - (rr + 0.5) * recip_f32(fh) * 2.0
-        dx = jj * tan_half * aspect      # (W,)
-        dy = ii * tan_half               # (H,)
+        dx = jj * th * aspect      # (W,)
+        dy = ii * th               # (H,)
         d = (f[None, None, :]
              + dx[None, :, None] * r[None, None, :]
              + dy[:, None, None] * u[None, None, :])

@@ -13,9 +13,11 @@ the shade_pass kernel's device ms on the lanes of the B3 frame (untextured)
 and of B4's orbit frame 0 (textured), three times each by CUDA events over
 SHADE_REPS calls queued behind a spin kernel, with the 32-byte sectors its
 gathers touch in either layout (chip_smoke.py::shade_sectors), the B3
-frame's ms through each path (CUDA events, median of 5), and the registers
-and spill bytes ptxas gave each kernel, beside the card's name and power
-limit.
+frame's ms through each path (CUDA events, median of 5), each march_pass
+launch of the B3 frame with its level-0 tail off, forced, "auto" and relaxed
+at strides 4, 8 and 16 (render_frame_compact's l0_tail and relax), and the
+registers and spill bytes ptxas gave each kernel (march_pass by mode),
+beside the card's name and power limit.
 
 --root DIR imports hmrt_tpu_torch from another checkout, e.g. an older
 commit unpacked with `git archive` into a directory that .gitignore lists,
@@ -31,6 +33,7 @@ package (no --root).
 import argparse
 import ctypes
 import dataclasses
+import inspect
 import json
 import re
 import shutil
@@ -81,9 +84,14 @@ def registers(log: str) -> dict:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
-            for k in ("march_pass_kernel", "render_tile_kernel"):
-                if k in entry and "ILb1E" not in entry:
-                    regs[k] = [int(m.group(1)), spill]
+            if "march_pass_kernel" in entry and "ILb1E" not in entry:
+                # one timed instance per mode (march_pass.cu MODE_*), or one
+                # before the tail modes
+                mode = re.search(r"ILb0ELi(\d)E", entry)
+                suffix = {None: "", "0": "", "1": "_l0", "2": "_relax"}[mode and mode.group(1)]
+                regs["march_pass_kernel" + suffix] = [int(m.group(1)), spill]
+            if "render_tile_kernel" in entry and "ILb1E" not in entry:
+                regs["render_tile_kernel"] = [int(m.group(1)), spill]
             if "shade_pass_kernel" in entry:  # one instance before the records
                 suffix = ("_textured" if "ILb1E" in entry else
                           "_untextured" if "ILb0E" in entry else "")
@@ -132,6 +140,7 @@ def main() -> int:
     from hmrt_tpu_torch.api.flythrough import frame_camera, orbit_flythrough
     from hmrt_tpu_torch.bench.configs import BENCH_CONFIGS, bench_scene
     from hmrt_tpu_torch.kernels import _build
+    from hmrt_tpu_torch.kernels.compact import render_frame_compact
     from hmrt_tpu_torch.kernels.raycast import render_frame_fused
     from hmrt_tpu_torch.kernels.shade_pass import shade_pass
     if args.root != str(HERE) and args.variants != ["base"]:
@@ -167,6 +176,18 @@ def main() -> int:
         k2 = {f"shade_pass_ms_{k}": [queued_ms(lambda: shade_pass(*lanes, *inputs), SHADE_REPS)
                                      for _ in range(3)]
               for k, (lanes, inputs) in shade_cases.items()}
+        # K1's tail modes on the B3 frame: each launch with the tail off,
+        # forced, "auto" (the default) and relaxed (in a checkout from before
+        # the tail modes, none)
+        tails = {}
+        if "l0_tail" in inspect.signature(render_frame_compact).parameters:
+            for label, kw in (("l0_tail_false", dict(l0_tail=False)),
+                              ("l0_tail_true", dict(l0_tail=True)), ("l0_tail_auto", {}),
+                              *((f"relax{k}", dict(l0_tail=True, relax=k))
+                                for k in (4, 8, 16))):
+                launches = launch_times(lambda: render_frame_compact(scene, cam, cfg_c, **kw),
+                                        ("march_pass_kernel",))
+                tails[label] = [ms for _, ms in launches]
         frames = {}
         for label, cf in (("compact", cfg_c), ("fused", cfg_f), ("fused", cfg_f),
                           ("compact", cfg_c)):
@@ -177,6 +198,7 @@ def main() -> int:
             "march_pass_ms_per_launch": [ms for _, ms in per_launch],
             "march_pass_ms_per_frame": sum(ms for _, ms in per_launch),
             "render_tile_ms_b3": k3, "render_tile_ms_b1": k3_b1, **k2,
+            "march_pass_ms_per_launch_by_tail": tails,
             "shade_sectors": sectors,
             "frame_ms_compact": frames["compact"], "frame_ms_fused": frames["fused"],
             "registers": registers(log)}), flush=True)

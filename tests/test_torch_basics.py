@@ -72,6 +72,25 @@ def test_camera_rays_match_jax(cam):
         np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=1e-6)
 
 
+def test_raygen_tan_is_the_rounded_f64_tan():
+    """Raygen's tan(fov/2) is the f64 tan of the f32 half-angle rounded once
+    to f32, for fields of view from 20 to 100 degrees: the bits the card
+    gives too (torch's f32 tan on CUDA differs by an ulp at 60 degrees).
+    Camera.rays and the fused kernel's params use the same value."""
+    import math
+    from hmrt_tpu_torch.kernels.raycast import _P_TANHALF, make_params
+    from hmrt_tpu_torch.types import tan_half
+    scene = T.make_scene(T.procedural_terrain(17, seed=3), device="cpu")
+    cfg = T.RenderConfig(width=8, height=4)
+    for deg in range(20, 101):
+        cam = T.Camera.create(eye=(8, -4, 9), target=(8, 8, 2), fov_y_deg=float(deg),
+                              device="cpu")
+        half = float((cam.fov_y * 0.5).item())
+        want = np.float32(math.tan(np.float64(half))).view(np.int32)
+        assert tan_half(cam.fov_y).view(torch.int32).item() == want, deg
+        assert make_params(scene, cam, cfg)[_P_TANHALF].view(torch.int32).item() == want, deg
+
+
 def test_light_matches_jax():
     jl = JaxLight.create(sun_dir=(0.2, -0.5, 0.7))
     tl = T.Light.create(sun_dir=(0.2, -0.5, 0.7), device="cpu")

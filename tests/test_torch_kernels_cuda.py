@@ -14,7 +14,7 @@ import torch
 import hmrt_tpu_torch as T
 from conftest import random_rays
 from hmrt_tpu_torch.kernels import _build
-from hmrt_tpu_torch.kernels.compact import init_state, render_frame_compact
+from hmrt_tpu_torch.kernels.compact import force_level0, init_state, render_frame_compact
 from hmrt_tpu_torch.core.renderer import render_frame_oracle
 from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, march_pass,
                                                march_pass_reference)
@@ -72,6 +72,81 @@ def test_march_kernel_equals_plain(cuda, n, budget, ci):
         for a, b in zip(sk + rk, sr + rr):
             assert torch.equal(a, b)
         st, res = sk, rk
+
+
+def _grazing_rays(n, dev, p=4096, seed=0):
+    """Near-horizontal rays from just outside the y=0 edge: the rays that
+    end in the level-0 tail."""
+    rng = np.random.default_rng(seed)
+    hmax = float(T.procedural_terrain(n, seed=3).max())
+    o = np.stack([rng.uniform(0, n - 1, p), np.full(p, -0.5),
+                  rng.uniform(0.3 * hmax, 1.1 * hmax, p)], -1)
+    d = np.stack([rng.uniform(-0.3, 0.3, p), np.ones(p), rng.uniform(-0.05, 0.02, p)], -1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+                 for a in (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2]))
+
+
+@pytest.mark.parametrize("mode", ["l0", 4, 8, 16, "auto-l0", "auto-maxmip", "auto-relax"])
+@pytest.mark.parametrize("ci", ["triangle", "bilinear", "flat"])
+def test_march_kernel_tail_modes_equal_plain(cuda, ci, mode):
+    """K1's level-0 tail (l0_only) and relaxed tail (relax=k), and both
+    under a device flag, equal their plain versions in all 9 planes and in
+    the counting instance's per-ray counts, from the state a budgeted
+    max-mip pass and force_level0 leave, on mixed and grazing rays."""
+    n = 1024
+    sc = _scene(n, cuda)
+    rays = tuple(torch.cat([a, b]) for a, b in zip(_rays(n, cuda), _grazing_rays(n, cuda)))
+    p = rays[0].shape[0]
+    st = init_state(rays, None, sc.pyr_flat[-1], n=sc.n, m=sc.m, levels=sc.levels)
+    kw = dict(n=sc.n, m=sc.m, levels=sc.levels, cell_intersect=ci)
+    st, res = march_pass(rays, st, _empty_results(p, cuda), sc.pyr_flat, sc.heights,
+                         sc.corners, budget=64, **kw)
+    st = force_level0(rays, st)
+    l0_only = {"auto-l0": torch.tensor(True, device=cuda),
+               "auto-relax": torch.tensor(True, device=cuda),
+               "auto-maxmip": torch.tensor(False, device=cuda)}.get(mode, True)
+    relax = mode if isinstance(mode, int) else 8 if mode == "auto-relax" else 0
+    cnt = torch.empty((2, p), dtype=torch.int32, device=cuda)
+    before = march_pass.launches
+    sk, rk = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners,
+                        budget=UNBUDGETED, counts=cnt, l0_only=l0_only, relax=relax, **kw)
+    torch.cuda.synchronize()
+    assert march_pass.launches == before + 1
+    work = WorkCounter(sc.pyr_flat.shape[0], sc.n, cuda, lanes=p)
+    sr, rr = march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights, budget=UNBUDGETED,
+                                  counter=work, l0_only=l0_only, relax=relax, **kw)
+    for a, b in zip(sk + rk, sr + rr):
+        assert torch.equal(a, b)
+    assert torch.equal(cnt[0], work.lane_steps) and torch.equal(cnt[1], work.lane_tests)
+    assert int(st[0].sum()) > 0 and not sk[0].any()
+    with pytest.raises(ValueError, match="unbudgeted"):
+        march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners, budget=64,
+                   l0_only=True, relax=4, **kw)
+
+
+@pytest.mark.parametrize("l0_tail", [True, "auto"])
+def test_compact_tails_on_card(cuda, l0_tail):
+    """On the card, render_frame_compact with the level-0 tail (relax=0)
+    equals the frame without it in every buffer, and its hits are the torch
+    oracle's; the relaxed tail (stride 8) has no false hits and differs on at
+    most 2% of the hits."""
+    terr = T.procedural_terrain(257, seed=3)
+    cfg = T.RenderConfig(width=160, height=64, shading="phong", shadows=True,
+                         aux_buffers=True)
+    sc = T.make_scene(terr, device=cuda)
+    cam = T.Camera.create(eye=(128, -40, float(terr.max()) + 4), target=(128, 128, 10),
+                          device=cuda)
+    kw = dict(first_budget=8, round_budget=16)
+    base = render_frame_compact(sc, cam, cfg, l0_tail=False, **kw)
+    exact = render_frame_compact(sc, cam, cfg, l0_tail=l0_tail, **kw)
+    for f in ("hit", "depth", "normal", "color"):
+        assert torch.equal(getattr(exact, f), getattr(base, f)), f
+    assert torch.equal(exact.hit, render_frame_oracle(sc, cam, cfg).hit)
+    relaxed = render_frame_compact(sc, cam, cfg, l0_tail=l0_tail, relax=8, **kw)
+    assert not (relaxed.hit & ~exact.hit).any()
+    assert int((relaxed.hit != exact.hit).sum()) <= 0.02 * int(exact.hit.sum())
+    assert exact.hit.any()
 
 
 @pytest.mark.parametrize("p", [0, 1, 33, 300_000])
