@@ -23,8 +23,10 @@ entry points:
     against its plain version on the B1 frame and on a 16-row band of B3
     at the horizon; B1's counter planes through render_frame with
     debug_counters; B2 under both backends;
-  - raygen's tan(fov/2) bits for 55 and 60 degrees, equal on the card and
-    the CPU, and the hostile camera under the terrain hitting the CPU
+  - raygen's tan(fov/2) bits for 55 and 60 degrees, and B3's ray
+    directions, equal on the card and the CPU, the pixels of B3 and B4
+    that raygen's correctly rounded norm moves against torch's f32 sqrt
+    on the card, and the hostile camera under the terrain hitting the CPU
     oracle's pixels on the card;
   - the four hostile cameras of tests/test_sanitizers.py through the
     compact and fused kernels against their plain versions and the oracle,
@@ -66,12 +68,19 @@ entry points:
     in a thread on 127.0.0.1 (GET /, /state, POST /frame draft and full,
     a non-finite camera), each against render_frame at that camera; and
     load_heightmap on a PNG, a PGM, a TIFF and an ESRI ASCII grid;
-  - the grazing tail (phase 16): march_pass's level-0 tail and its relaxed
-    tail at strides 4, 8 and 16 against their plain versions on ~8,192 of
-    B3's tail rays (all 9 planes and the per-ray counts exact), timed beside
-    their plain versions and bounds; the relaxed tail's fidelity and time on
-    full B3 and B4 frames (bench/fidelity.py: no false hit anywhere, B3's
-    mismatch at most 1e-3); the longest per-ray step chain of the tail
+  - the grazing tail (phase 16): march_pass's level-0 tail at one lane and
+    32 lanes a ray on ~8,192 of B3's tail rays and on B4's 16, and its
+    relaxed tail at strides 4, 8 and 16 on B3's, against their plain
+    versions (all 9 planes and the per-ray counts exact), timed beside
+    their plain versions and bounds, with the warp efficiency of B3's tail
+    at one lane a ray (B4's main path must have taken the group march,
+    phase 11); B4's tail launch and B3's shadow tail launch as the main
+    path makes them, at their full width, replayed with every lane group
+    against the plain version on their live lanes; B4's latency bound by
+    group from the probe bench/latency.py (one dependent record load and
+    cell test a step, on one lane); the relaxed tail's fidelity and
+    time on full B3 and B4 frames (bench/fidelity.py: no false hit
+    anywhere, B3's mismatch at most 1e-3); the longest per-ray step chain of the tail
     launch on B3 and B4 with each tail; the runner's B2, B3 and B4 rows with
     l0_tail False and "auto".
 
@@ -186,11 +195,12 @@ def profiled(fn, calls: int, cuda_only: bool = True, counted=None):
 
 def kernel_wrapper(kernel: str):
     """The port's wrapper that launches (and counts) the CUDA kernel `kernel`."""
+    from hmrt_tpu_torch.bench.latency import l0_walk
     from hmrt_tpu_torch.kernels.march_pass import march_pass
     from hmrt_tpu_torch.kernels.raycast import render_frame_fused
     from hmrt_tpu_torch.kernels.shade_pass import shade_pass
     return {"march_pass_kernel": march_pass, "shade_pass_kernel": shade_pass,
-            "render_tile_kernel": render_frame_fused}[kernel]
+            "render_tile_kernel": render_frame_fused, "l0_probe_kernel": l0_walk}[kernel]
 
 
 def queued_ms(fn, reps: int) -> float:
@@ -1178,9 +1188,9 @@ TAIL_RAYS = 8192     # B3 tail survivors that K1's tail modes are held to plain 
 STRIDES = (4, 8, 16)  # the relaxed tail's strides in cells
 
 
-def tail_survivors(scene, cam, cfg):
-    """About TAIL_RAYS of B3's rays that reach the compact path's tail: the
-    rays alive after pass 0 and the first sorted round (a per-ray budget
+def tail_survivors(scene, cam, cfg, count: int = TAIL_RAYS):
+    """About `count` of the frame's rays that reach the compact path's tail:
+    the rays alive after pass 0 and the first sorted round (a per-ray budget
     composes), forced to level 0 and sorted by column as the tail round
     takes them. Returns (rays, state, results, rays alive before the tail)."""
     import torch
@@ -1195,7 +1205,7 @@ def tail_survivors(scene, cam, cfg):
                          scene.heights, scene.corners, n=scene.n, m=scene.m,
                          levels=scene.levels, budget=FIRST_BUDGET + ROUND_BUDGET)
     alive = torch.nonzero(st[0] != 0).squeeze(1)
-    pick = torch.unique(alive[torch.linspace(0, alive.numel() - 1, min(TAIL_RAYS, alive.numel()),
+    pick = torch.unique(alive[torch.linspace(0, alive.numel() - 1, min(count, alive.numel()),
                                              device=alive.device).long()])
     t_rays = tuple(r.index_select(0, pick) for r in rays)
     t_state = force_level0(t_rays, tuple(x.index_select(0, pick) for x in st))
@@ -1241,24 +1251,204 @@ def plain_tail(rays, state, results, scene, relax, counter, cell_intersect="tria
             (st["hit"].to(torch.int32), st["t_hit"], st["hx"], st["hy"]))
 
 
+#: the level-0 tail's instances held to the plain tail: the label, as in
+#: march_pass.mode_launches, and the lanes a ray the instance is forced to
+TAIL_GROUPS = (("l0", 1), ("l0_g32", 32))
+
+
+def hold_tail(label, tail, scene, plain, run_kw, card):
+    """One instance of K1's tail (`run_kw`: relax, group) against the plain
+    tail on the same rays: its counting and timed launches must equal the
+    plain planes and per-ray counts exactly. `tail` is (rays, state,
+    results); `plain` is (out, WorkCounter, plain ms, lanes of the plain
+    run that are these rays). Returns the kernels line's entry: error, ms,
+    plain ms, bound, steps, tests, the longest ray, hits, and the per-ray
+    steps (key "lane_steps", dropped before printing)."""
+    import torch
+    from hmrt_tpu_torch.bench.floor import MARCH_PLANE_BYTES, OPS_PER_STEP, OPS_PER_TEST, bound
+    from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass
+    t_rays, t_state, t_res = tail
+    out, work, plain_ms, lanes = plain
+    p = t_rays[0].shape[0]
+    dev = t_rays[0].device
+    want = tuple(x[lanes] for x in out[0]), tuple(x[lanes] for x in out[1])
+    steps, tests = work.lane_steps[lanes], work.lane_tests[lanes]
+    kw = dict(n=scene.n, m=scene.m, levels=scene.levels, budget=UNBUDGETED, l0_only=True,
+              **run_kw)
+    args = (t_rays, t_state, t_res, scene.pyr_flat, scene.heights, scene.corners)
+    cnt = torch.empty((2, p), dtype=torch.int32, device=dev)
+    counted = march_pass(*args, counts=cnt, **kw)
+    timed = march_pass(*args, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for got in (counted, timed):
+        for name, a, b in zip(STATE + RESULTS, got[0] + got[1], want[0] + want[1]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"march_pass {label}: plane {name} differs from the plain "
+                                     f"tail on {int((a != b).sum())} lanes")
+            err = max(err, float((a.double() - b.double()).abs().max()))
+    if not (torch.equal(cnt[0], steps) and torch.equal(cnt[1], tests)):
+        raise AssertionError(f"march_pass {label}: counting instance differs from the plain "
+                             "WorkCounter")
+    ms = kernel_ms(lambda: march_pass(*args, **kw), "march_pass_kernel", 10)
+    n_steps, n_tests = int(steps.sum(dtype=torch.int64)), int(tests.sum(dtype=torch.int64))
+    # bytes: the ray planes and, for a bound, every distinct terrain value
+    # the plain loop read (all strides together for the relaxed)
+    b = bound(p * MARCH_PLANE_BYTES + work.unique_bytes(),
+              n_steps * OPS_PER_STEP + n_tests * OPS_PER_TEST)
+    entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+             "bound_by": b[1], "library_ms": None, "steps": n_steps, "tests": n_tests,
+             "longest": int(cnt[0].max()), "hits": int(want[1][0].sum()), "lane_steps": cnt[0]}
+    log(f"  march_pass {label} on {p} tail rays: 9 planes and per-ray counts equal the plain "
+        f"tail's; {entry['hits']} hits, {n_steps} steps (longest ray {entry['longest']}), "
+        f"{n_tests} cell tests; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{b[0]:.4f} ms ({b[1]})  [{card}]")
+    return entry
+
+
+def tail_launches(render, march_pass) -> list:
+    """The inputs of every exact level-0 tail launch of march_pass (l0_only
+    set, relax 0) in one call of render(): [(args, kwargs), ...] in launch
+    order."""
+    import hmrt_tpu_torch.kernels.compact as compact
+    seen = []
+
+    def spy(*args, **kw):
+        if kw.get("l0_only") is not False and not kw.get("relax"):
+            seen.append((args, dict(kw)))
+        return march_pass(*args, **kw)
+
+    compact.march_pass = spy
+    try:
+        render()
+    finally:
+        compact.march_pass = march_pass
+    return seen
+
+
+def live_plain(launch, scene):
+    """The plain version of a captured march_pass launch (tail_launches) on
+    its live lanes alone: march_pass_reference with the launch's arguments
+    (the level-0 tail, or the max-mip pass when its "auto" flag reads
+    false) and a WorkCounter. Returns (the live lanes' indices, their
+    (rays, state, results), their plain (state, results), the WorkCounter,
+    the plain run's ms)."""
+    import torch
+    from hmrt_tpu_torch.kernels.march_pass import march_pass_reference
+    from hmrt_tpu_torch.traversal.march import WorkCounter
+    args, kw = launch
+    live = torch.nonzero(args[1][0] != 0).squeeze(1)
+    sub = tuple(tuple(x.index_select(0, live).contiguous() for x in planes)
+                for planes in args[:3])
+    work = WorkCounter(scene.pyr_flat.shape[0], scene.n, live.device, lanes=live.numel())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = march_pass_reference(*sub, scene.pyr_flat, scene.heights, counter=work,
+                               **{k: kw[k] for k in ("n", "m", "levels", "budget",
+                                                     "cell_intersect", "clip", "l0_only",
+                                                     "relax")})
+    torch.cuda.synchronize()
+    return live, sub, out, work, 1e3 * (time.perf_counter() - t0)
+
+
+def hold_launch(label, launch, plain, card) -> dict:
+    """A tail launch as the main path made it (tail_launches), at its full
+    width, replayed with every lane group: "auto" and each of TAIL_GROUPS.
+    Its counting and its timed launch must equal the plain version in all
+    9 planes and in the per-ray counts: on the live lanes the plain run of
+    `plain` (live_plain), the dead lanes as they came with 0 steps and 0
+    tests, which is what the plain version leaves them. A forced group must
+    run its instance (march_pass.mode_launches), or max-mip when the
+    launch's flag reads false. Returns the rays, the live rays, the plain
+    ms and, by group, the kernel's ms and the instance it ran."""
+    import torch
+    from hmrt_tpu_torch.kernels.march_pass import march_pass
+    args, kw = launch
+    live, _, out, work, plain_ms = plain
+    p = args[0][0].shape[0]
+    want = tuple(x.clone().index_copy_(0, live, o)
+                 for x, o in zip(args[1] + args[2], out[0] + out[1]))
+    want_cnt = torch.zeros((2, p), dtype=torch.int32, device=live.device)
+    want_cnt[0].index_copy_(0, live, work.lane_steps)
+    want_cnt[1].index_copy_(0, live, work.lane_tests)
+    tail = bool(kw["l0_only"])
+    entry = {"rays": p, "live": int(live.numel()), "tail": tail, "max_abs_err": 0.0,
+             "plain_ms": plain_ms}
+    for group in ("auto", *(g for _, g in TAIL_GROUPS)):
+        kw_g = {**kw, "group": group}
+        cnt = torch.empty_like(want_cnt)
+        march_pass.mode_launches.reset()
+        got = (march_pass(*args, **{**kw_g, "counts": cnt}), march_pass(*args, **kw_g))
+        ran = [k for k, v in march_pass.mode_launches.read().items() if v]
+        for planes in got:
+            for name, a, b in zip(STATE + RESULTS, planes[0] + planes[1], want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{label}, group {group}: plane {name} differs from "
+                                         f"the plain version on {int((a != b).sum())} lanes")
+        if not torch.equal(cnt, want_cnt):
+            raise AssertionError(f"{label}, group {group}: per-ray counts differ from the "
+                                 "plain WorkCounter")
+        may = (("maxmip",) if not tail else tuple(k for k, g in TAIL_GROUPS)
+               if group == "auto" else tuple(k for k, g in TAIL_GROUPS if g == group))
+        if len(ran) != 1 or ran[0] not in may:
+            raise AssertionError(f"{label}, group {group}: the launches ran {ran}, not one "
+                                 f"of {may}")
+        entry[str(group)] = {"ms": kernel_ms(lambda: march_pass(*args, **kw_g),
+                                             "march_pass_kernel", 5), "ran": ran[0]}
+    log(f"  {label}: {p} lanes, {entry['live']} live, flag {tail}; 9 planes and per-ray "
+        f"counts equal the plain version (live lanes {plain_ms:.1f} ms) with every group; "
+        + ", ".join(f"{g} ({entry[g]['ran']}) {entry[g]['ms']:.4f} ms"
+                    for g in entry if g in ("auto", "1", "32"))
+        + f"  [{card}]")
+    return entry
+
+
+def parent_raygen_moves(sc, cm, cf) -> dict:
+    """Pixels of the frame (with its depth and normal buffers) whose hit,
+    depth or colour move when raygen's norm takes torch's f32 `sqrt`, as it
+    did before its f64 root, on the same device."""
+    import torch
+    import hmrt_tpu_torch as T
+    import hmrt_tpu_torch.types as types
+    cf = dataclasses.replace(cf, aux_buffers=True)
+    now = T.render_frame(sc, cm, cf)
+    norm = types._norm
+    types._norm = lambda v: torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
+                                       + v[..., 2] * v[..., 2])
+    try:
+        before = T.render_frame(sc, cm, cf)
+    finally:
+        types._norm = norm
+    return {"hit": int((now.hit != before.hit).sum()),
+            "depth": int((now.depth != before.depth).sum()),
+            "color": int((now.color != before.color).any(-1).sum())}
+
+
 def grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4,
                        main_modes) -> dict:
-    """Phase 16, the grazing tail. K1's level-0 tail (l0_only) and relaxed
-    tail (strides 4, 8, 16) against their plain versions on B3's tail
-    survivors, exact, in all 9 planes and in the counting instance's per-ray
+    """Phase 16, the grazing tail. K1's level-0 tail (l0_only; one lane or 32
+    lanes a ray) and relaxed tail (strides 4, 8, 16) against their plain
+    versions on B3's tail survivors, and the level-0 tail's instances on
+    B4's, exact, in all 9 planes and in the counting instance's per-ray
     counts, each timed beside its plain version (with its WorkCounter) and
-    its bound; the relaxed
+    its bound; B3's tail warp efficiency at one lane a ray; B3's shadow tail
+    launch and B4's tail launch as the main path makes them, replayed with
+    every lane group against the plain version on their live lanes (B4's
+    16 are the rays held above); B4's latency bound by group (the longest
+    chain over G, times the probe's dependent step on that ray); the raygen
+    root's moves on B4; the relaxed
     tail's fidelity and time on full B3 and B4 (orbit frame 0) frames
     (bench/fidelity.py), failing on any false hit or on a B3 mismatch above
     1e-3; the longest per-ray step chain of the tail launch, counted, with
     the max-mip, the exact and the relaxed tails; the runner's B2, B3 and B4
     rows with l0_tail False and "auto". Returns march_pass's tail-mode
     entries of the kernels line. `main_modes`: march_pass's launches by
-    instance on the B3 main path."""
+    the march they ran on the B3 and B4 main paths ({"B3": ..., "B4": ...})."""
     import torch
+    import hmrt_tpu_torch as T
     from hmrt_tpu_torch.bench.fidelity import fidelity
-    from hmrt_tpu_torch.bench.floor import (MARCH_PLANE_BYTES, OPS_PER_STEP, OPS_PER_TEST,
-                                            bound, count_frame)
+    from hmrt_tpu_torch.bench.floor import count_frame
+    from hmrt_tpu_torch.bench.latency import l0_walk
     from hmrt_tpu_torch.bench.runner import run_bench
     from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass
     from hmrt_tpu_torch.traversal.intersect import SURFACES
@@ -1277,8 +1467,6 @@ def grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4
     log(f"B3 tail: {n_surv} rays alive after pass 0 and the first sorted round; {p} of them, "
         f"forced to level 0 and sorted by column; {int(under.sum())} of those stand below "
         f"the surface")
-    kw = dict(n=scene.n, m=scene.m, levels=scene.levels, budget=UNBUDGETED, l0_only=True)
-    args = (t_rays, t_state, t_res, scene.pyr_flat, scene.heights)
     # the plain versions: the level-0 tail, and the relaxed tail at every
     # stride in one masked loop over the rays repeated once per stride (the
     # plain loop's time is its launches, whatever its width), each with its
@@ -1300,50 +1488,96 @@ def grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4
         torch.cuda.synchronize()
         plain[label] = (out, work, 1e3 * (time.perf_counter() - t0))
     modes = {}
-    for label, relax in [("l0", 0)] + [(f"relax{k}", k) for k in STRIDES]:
-        out, work, plain_ms = plain["relax" if relax else "l0"]
-        lanes = slice(None)
-        if relax:  # this stride's copy of the rays in the batched plain loop
-            k = STRIDES.index(relax)
-            lanes = slice(k * p, (k + 1) * p)
-        want = tuple(x[lanes] for x in out[0]), tuple(x[lanes] for x in out[1])
-        steps, tests = work.lane_steps[lanes], work.lane_tests[lanes]
-        cnt = torch.empty((2, p), dtype=torch.int32, device=dev)
-        counted = march_pass(*args, scene.corners, counts=cnt, relax=relax, **kw)
-        timed = march_pass(*args, scene.corners, relax=relax, **kw)
-        torch.cuda.synchronize()
-        err = 0.0
-        for got in (counted, timed):
-            for name, a, b in zip(STATE + RESULTS, got[0] + got[1], want[0] + want[1]):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"march_pass {label} on the B3 tail: plane {name} "
-                                         f"differs on {int((a != b).sum())} lanes")
-                err = max(err, float((a.double() - b.double()).abs().max()))
-        if not (torch.equal(cnt[0], steps) and torch.equal(cnt[1], tests)):
-            raise AssertionError(f"march_pass {label}: counting instance differs from the "
-                                 "plain WorkCounter")
-        ms = kernel_ms(lambda: march_pass(*args, scene.corners, relax=relax, **kw),
-                       "march_pass_kernel", 10)
-        n_steps, n_tests = int(steps.sum(dtype=torch.int64)), int(tests.sum(dtype=torch.int64))
-        # bytes: the ray planes and, for a bound, every distinct terrain
-        # value the plain loop read (all strides together for the relaxed)
-        b = bound(p * MARCH_PLANE_BYTES + work.unique_bytes(),
-                  n_steps * OPS_PER_STEP + n_tests * OPS_PER_TEST)
-        modes[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
-                        "bound_by": b[1], "steps": n_steps, "tests": n_tests,
-                        "longest": int(cnt[0].max()), "hits": int(want[1][0].sum())}
-        log(f"  march_pass {label} on {p} B3 tail rays: 9 planes and per-ray counts equal the "
-            f"plain version's; {int(want[1][0].sum())} hits, {n_steps} steps (longest ray "
-            f"{int(cnt[0].max())}), {n_tests} cell tests; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.1f} ms{' (all strides in one loop)' if relax else ''}, bound "
-            f"{b[0]:.4f} ms ({b[1]})  [{card}]")
+    tail3 = (t_rays, t_state, t_res)
+    for label, group in TAIL_GROUPS:
+        modes[label] = hold_tail(label, tail3, scene, (*plain["l0"], slice(None)),
+                                 dict(group=group), card)
+    for k in STRIDES:  # this stride's copy of the rays in the batched plain loop
+        i = STRIDES.index(k)
+        modes[f"relax{k}"] = hold_tail(f"relax{k}", tail3, scene,
+                                       (*plain["relax"], slice(i * p, (i + 1) * p)),
+                                       dict(relax=k), card)
+    # one lane a ray, as the kernel claims them: 32 neighbours of the sorted
+    # tail a warp, each warp as long as its longest ray
+    eff = warp_efficiency([modes["l0"]["lane_steps"]], lambda st: torch.nn.functional.pad(
+        st, (0, -st.shape[0] % 32)).reshape(-1, 32))
+    log(f"  B3 tail, one lane a ray: warps of 32 sorted tail rays keep {100 * eff:.1f}% of "
+        f"their lanes busy  [{card}]")
+
+    # the main path's own tail launches at their full width: B3's shadow
+    # tail (its flag reads false, no ray being left; and forced, so that
+    # each group's sweep of the dead rays runs) and B4's (16 live rays)
+    launches3 = tail_launches(lambda: T.render_frame(scene, cam, cfg), march_pass)
+    if len(launches3) != 2:
+        raise AssertionError(f"B3's frame made {len(launches3)} tail launches, not 2")
+    shadow3 = launches3[1]
+    forced3 = (shadow3[0], {**shadow3[1], "l0_only": True})
+    held = {"B3 shadow": hold_launch("B3 shadow tail launch", shadow3,
+                                     live_plain(shadow3, scene), card),
+            "B3 shadow, tail forced": hold_launch("B3 shadow tail launch, tail forced",
+                                                  forced3, live_plain(forced3, scene), card)}
+    launches4 = tail_launches(lambda: T.render_frame(scene4, cam40, cfg4), march_pass)
+    if len(launches4) != 1:
+        raise AssertionError(f"B4's frame made {len(launches4)} tail launches, not 1")
+    plain4 = live_plain(launches4[0], scene4)
+    held["B4"] = hold_launch("B4 orbit frame 0 tail launch", launches4[0], plain4, card)
+    # its live rays alone (the frame's longest), held the same way, and the
+    # latency bound of their launch by group: the longest chain's windows,
+    # each at least one step of the probe (bench/latency.py: one lane, each
+    # record load waiting on the previous cell's test)
+    _, (r4, s4, res4), out4, work4, plain4_ms = plain4
+    b4_modes = {label: hold_tail(f"{label} (B4)", (r4, s4, res4), scene4,
+                                 (out4, work4, plain4_ms, slice(None)), dict(group=group), card)
+                for label, group in TAIL_GROUPS}
+    longest = int(torch.argmax(b4_modes["l0"]["lane_steps"]))
+    chain = int(b4_modes["l0"]["lane_steps"][longest])
+    one = tuple(tuple(x[longest:longest + 1].contiguous() for x in planes)
+                for planes in (r4, s4, res4))
+    walk_kw = dict(steps=chain, cell_intersect=cfg4.cell_intersect)
+    walk = l0_walk(one[0], one[1], scene4, **walk_kw)
+    at = slice(longest, longest + 1)
+    ended = dict(t=out4[0][1][at], icx=out4[0][3][at], icy=out4[0][4][at], hit=out4[1][0][at],
+                 tests=work4.lane_tests[at])
+    for (name, want), got in zip(ended.items(), (walk[0], *walk[2:])):
+        if not torch.equal(got, want):
+            raise AssertionError(f"the probe's walk ends with {name} {got.tolist()}, the "
+                                 f"march with {want.tolist()}")
+    if bool(walk[4]) and not torch.equal(walk[1], out4[1][1][at]):
+        raise AssertionError("the probe's walk hits at another t than the march")
+    probe_ms = kernel_ms(lambda: l0_walk(one[0], one[1], scene4, **walk_kw), "l0_probe_kernel",
+                         5)
+    step_us = 1e3 * probe_ms / chain
+    kw1 = dict(n=scene4.n, m=scene4.m, levels=scene4.levels, budget=UNBUDGETED, l0_only=True,
+               group=1)
+    one_ms = kernel_ms(lambda: march_pass(*one, scene4.pyr_flat, scene4.heights,
+                                          scene4.corners, **kw1), "march_pass_kernel", 5)
+    log(f"  B4 tail's longest ray, {chain} cells: the probe walks it in {probe_ms:.4f} ms "
+        f"({step_us:.4f} us a dependent record load and cell test) and ends in the march's "
+        f"state; march_pass at one lane a ray on it alone {one_ms:.4f} ms  [{card}]")
+    for label, group in TAIL_GROUPS:
+        e = b4_modes[label]
+        e["latency_bound_ms"] = -(-chain // group) * step_us / 1e3
+        e["probe_us_per_step"] = step_us
+        e["one_ray_ms"] = one_ms
+        log(f"  B4 tail, {group} lane(s) a ray: {e['ms']:.4f} ms against a latency bound of "
+            f"{e['latency_bound_ms']:.4f} ms ({-(-chain // group)} windows of the longest "
+            f"chain at {step_us:.4f} us)  [{card}]")
+    for label, _ in TAIL_GROUPS:
+        modes[label]["launches"] = main_modes["B3"][label]
+        modes[label]["b4_launches"] = main_modes["B4"][label]
+        modes[label]["b4_tail"] = {k: v for k, v in b4_modes[label].items() if k != "lane_steps"}
+    for e in modes.values():
+        e.pop("lane_steps")
+    moves4 = parent_raygen_moves(scene4, cam40, cfg4)
+    log(f"B4 orbit frame 0 on the card, raygen's f64 root against torch's f32 sqrt: {moves4} "
+        f"pixels move  [{card}]")
 
     fid = {}
     for name, sc, cm, cf in (("B3", scene, cam, cfg), ("B4 orbit frame 0", scene4, cam40, cfg4)):
         out = run_path(f"{name}: the relaxed tail's fidelity (bench/fidelity.py)",
                        lambda: fidelity(sc, cm, cf, STRIDES, reps=3),
                        ("march_pass", "shade_pass"), ("render_tile",))
-        modes_run = dict(march_pass.mode_launches)
+        modes_run = march_pass.mode_launches.read()
         log(json.dumps({"config": name, **out}))
         log(f"  {name} exact tail {out['exact_ms_per_frame']:.3f} ms/frame, {out['exact_hits']} "
             f"hits; march_pass launches by instance {modes_run}  [{card}]")
@@ -1363,7 +1597,6 @@ def grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4
         for k in STRIDES:
             modes[f"relax{k}"].setdefault("launches", 0)
             modes[f"relax{k}"]["launches"] += modes_run["relax"] // len(STRIDES)
-    modes["l0"]["launches"] = main_modes["l0"]
 
     # the longest per-ray step chain of the tail launch (the last primary
     # march_pass launch), counted by the kernels
@@ -1385,7 +1618,7 @@ def grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4
                          ("march_pass", "shade_pass"), ("render_tile",))
             log(f"  runner {name} l0_tail={lt}: {r['ms_per_frame']:.3f} ms/frame, reps "
                 f"{[round(t, 3) for t in r['all_times_ms']]}  [{card}]")
-    return {"tail_modes": modes,
+    return {"tail_modes": modes, "tail_launches": held, "b4_raygen_moves": moves4,
             "relaxed_fidelity": {k: [{key: row[key] for key in ("stride", "false_hits",
                                                                 "hit_mismatch_frac")}
                                      for row in v["rows"]] for k, v in fid.items()}}
@@ -1474,12 +1707,12 @@ def main(argv=None) -> int:
         `none` must not."""
         for f in kernel_fns.values():
             f.launches = 0
-        march_pass.mode_launches = dict.fromkeys(march_pass.mode_launches, 0)
+        march_pass.mode_launches.reset()
         out = fn()
         torch.cuda.synchronize()
         got = {k: f.launches for k, f in kernel_fns.items()}
         paths[label] = got
-        mode_paths[label] = dict(march_pass.mode_launches)
+        mode_paths[label] = march_pass.mode_launches.read()
         log(f"{label}: launches {got}; march_pass by instance {mode_paths[label]}")
         for k in want:
             if got[k] <= 0:
@@ -1870,16 +2103,25 @@ def main(argv=None) -> int:
         if new_bits["cpu"] != new_bits["cuda"]:
             raise AssertionError(f"raygen's tan of {deg} degrees differs between the CPU "
                                  f"and the card: {new_bits}")
-    # the rays themselves: B3's on each device, and torch's sqrt (the ray
-    # norm's) on the same 2^20 values on each device
+    # the rays themselves: B3's on each device must be the same bits (the
+    # norm's root taken in f64 and rounded, types.py::sqrt_f32); torch's f32
+    # sqrt on the same 2^20 values on each device, against the correctly
+    # rounded root, for the record
     b3_rays = {d: T.Camera.create(eye=tuple(cam.eye.tolist()), target=tuple(cam.target.tolist()),
                                   fov_y_deg=55.0, device=d).rays(cfg.height, cfg.width)[1].cpu()
                for d in ("cpu", "cuda")}
     vals = torch.from_numpy(np.random.default_rng(0).uniform(0.5, 4.0, 1 << 20).astype(np.float32))
-    log(f"  B3's ray directions: {int((b3_rays['cpu'] != b3_rays['cuda']).sum())} of "
-        f"{b3_rays['cpu'].numel()} components differ between the CPU and the card; torch's "
-        f"sqrt differs on {int((torch.sqrt(vals) != torch.sqrt(vals.to(dev)).cpu()).sum())} of "
-        f"{vals.numel()} values")
+    exact = torch.from_numpy(np.sqrt(vals.numpy()))
+    off = {d: int((torch.sqrt(vals.to(d)).cpu() != exact).sum()) for d in ("cpu", "cuda")}
+    n_diff = int((b3_rays["cpu"] != b3_rays["cuda"]).sum())
+    log(f"  B3's ray directions: {n_diff} of {b3_rays['cpu'].numel()} components differ "
+        f"between the CPU and the card; torch's f32 sqrt is off the correctly rounded root on "
+        f"{off} of {vals.numel()} values")
+    if n_diff:
+        raise AssertionError(f"B3's ray directions differ between the CPU and the card on "
+                             f"{n_diff} components")
+    log(f"  B3 on the card, raygen's f64 root against torch's f32 sqrt: "
+        f"{parent_raygen_moves(scene, cam, cfg)} pixels move  [{card}]")
     # the hostile camera's 256 hits on the card are the CPU's
     under = HOSTILE_CAMERAS["under the terrain, looking up"]
     hits = {}
@@ -2018,6 +2260,9 @@ def main(argv=None) -> int:
                    lambda: T.render_frame(scene4, cam40, cfg4),
                    ("march_pass", "shade_pass"), ("render_tile",))
     b4_launches = paths["B4 main path (render_frame, auto, orbit frame 0)"]
+    b4_marches = mode_paths["B4 main path (render_frame, auto, orbit frame 0)"]
+    if not b4_marches["l0_g32"]:
+        raise AssertionError(f"B4's tail launch took no lane group: {b4_marches}")
     b4_frac = check_frame("B4 orbit frame 0", fr4, cfg4)
     b4_ms, b4_times = median_ms(lambda: T.render_frame(scene4, cam40, cfg4), 5)
     log_rate("B4 orbit frame 0", b4_ms, b4_times, cfg4, b4_frac)
@@ -2166,7 +2411,9 @@ def main(argv=None) -> int:
     t16 = time.perf_counter()
     phase("16. the grazing tail")
     tail = grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4,
-                              mode_paths["B3 main path (render_frame, auto)"])
+                              {"B3": mode_paths["B3 main path (render_frame, auto)"],
+                               "B4": mode_paths["B4 main path (render_frame, auto, orbit "
+                                                "frame 0)"]})
     log(f"phase 16 took {time.perf_counter() - t16:.1f} s")
 
     phase("done")

@@ -33,9 +33,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signature of every kernel entry point: argument types, in order
 SIGNATURES = {
     # 24 state/ray planes, pyr_flat, corners; p m levels budget
-    # intersector mode stride; box_lo box_hi; tail flag or null, ray
-    # counter, counts or null, stream
-    "hmrt_march_pass": [_P] * 26 + [_I] * 7 + [_F] * 2 + [_P] * 4,
+    # intersector mode stride; box_lo box_hi; tail flag or null; group;
+    # live-ray count or null, tally or null, ray counter, counts or null,
+    # stream
+    "hmrt_march_pass": [_P] * 26 + [_I] * 7 + [_F] * 2 + [_P] + [_I] + [_P] * 5,
     # hit hx hy fx fy shade_rec albedo_rec, 6 outputs; p c (cells a side); stream
     "hmrt_shade_pass": [_P] * 13 + [_I] * 2 + [_P],
     # params pyr corners gx gy albedo, color hit depth normal cell;
@@ -43,6 +44,8 @@ SIGNATURES = {
     # ambient specular shininess fog_density box_lo box_hi;
     # pixel counter, counts or null, stream
     "hmrt_render_tile": [_P] * 11 + [_I] * 10 + [_F] * 6 + [_P] * 3,
+    # ray, t, cell, corners; m intersector steps; box_lo box_hi; t_o i_o stream
+    "hmrt_l0_probe": [_P] * 4 + [_I] * 3 + [_F] * 2 + [_P] * 3,
 }
 
 

@@ -119,11 +119,13 @@ def force_level0(rays, state):
     return alive, t, torch.zeros_like(lvl), descend(ox, dx, icx), descend(oy, dy, icy)
 
 
-def l0_tail_flag(state):
+def l0_tail_flag(state, n_alive=None):
     """The "auto" tail's choice, a 0-dim bool on the planes' device: more
-    than L0_TAIL_AUTO_THRESH of the alive lanes are at level 0."""
+    than L0_TAIL_AUTO_THRESH of the alive lanes are at level 0. `n_alive`:
+    the count of alive lanes on the device, or None to count them."""
     alive = state[0] != 0
-    n_alive = alive.sum(dtype=torch.int32)
+    if n_alive is None:
+        n_alive = alive.sum()
     n_l0 = (alive & (state[2] == 0)).sum(dtype=torch.int32)
     return n_l0 > (L0_TAIL_AUTO_THRESH * n_alive.to(torch.float32)).to(torch.int32)
 
@@ -166,26 +168,28 @@ def march_rounds(rays, state, scene: Scene, *, cell_intersect: str, clip,
     kw = dict(n=scene.n, m=scene.m, levels=scene.levels,
               cell_intersect=cell_intersect, clip=clip)
 
-    def run(rays, state, res, budget, tail=False):
+    def run(rays, state, res, budget, tail=False, live=None):
         cnt = None
         if counts is not None:
             cnt = torch.empty((2, p), dtype=torch.int32, device=rays[0].device)
             counts.append(cnt)
         return march_pass(rays, state, res, scene.pyr_flat, scene.heights, scene.corners,
                           budget=budget, counts=cnt, l0_only=tail,
-                          relax=0 if tail is False else relax, **kw)
+                          relax=0 if tail is False else relax, n_alive=live, **kw)
 
     if not skip_pass0 and first_budget > 0:
         state, res = run(rays, state, res, first_budget)
     m5 = max(scene.m // 32, 1)
     perm_tot = None
     for r in range(rounds):
-        tail = False
+        tail, live = False, None
         if r == rounds - 1 and l0_tail:
             # force level 0 before the sort, so the sort key is the tail's column
             forced = force_level0(rays, state)
             if l0_tail == "auto":
-                tail = l0_tail_flag(state)
+                # counted once: the flag and the kernel's lane group read it
+                live = (state[0] != 0).sum()
+                tail = l0_tail_flag(state, live)
                 forced = tuple(torch.where(tail, f, s) for f, s in zip(forced, state))
             else:
                 tail = True
@@ -197,7 +201,7 @@ def march_rounds(rays, state, scene: Scene, *, cell_intersect: str, clip,
         res = tuple(x.index_select(0, perm) for x in res)
         perm_tot = perm if perm_tot is None else perm_tot.index_select(0, perm)
         state, res = run(rays, state, res,
-                         UNBUDGETED if r == rounds - 1 else round_budget, tail)
+                         UNBUDGETED if r == rounds - 1 else round_budget, tail, live)
     # back to launch order: lane k of the sorted planes is launch lane perm_tot[k]
     return tuple(torch.empty_like(x).index_copy_(0, perm_tot, x) for x in res)
 

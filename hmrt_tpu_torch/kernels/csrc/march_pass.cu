@@ -50,6 +50,39 @@
 // not tuned). With a tail flag (the compact path's "auto" tail, decided on
 // the device) a tail instance reads it once and, when it is 0, runs the
 // max-mip march instead: a uniform branch, no host wait.
+//
+// The level-0 tail has two regimes on the card, and the MODE_L0 instance
+// has a march for each. B3's tail (513k live rays under the terrain, every
+// step an exact cell test) fills the card, so it is bound by the
+// instructions of a cell test; B4's (16 such rays, the longest 8,654
+// cells) holds one warp of one SM, so it is bound by the serial chain of
+// one ray, a record load and a cell test a step. For the first, one lane a
+// ray (march_steps' L0 instance, with its ring). For the second, a group of
+// GROUP lanes a ray (l0_group_steps): each window tests 32 consecutive
+// cells of one ray at once, with the next window's 32 loads in flight, so a
+// chain of L cells takes L / 32 dependent windows, and the groups spread
+// the few rays over the SMs. A group marches its ray to the end; groups
+// take rays by a fixed stride (group g the rays g, g + groups, ...), which
+// turns the sorted tail's live rays, a prefix of the planes, into at most
+// one live ray a group, and needs no counter. Measured on the H100
+// (kernel_times.py, PERF.md): B4's tail launch 3.96 -> 0.32 ms; on samples
+// of B3's tail rays a group is 15x faster than one lane a ray at 1,024
+// live rays, 1.33x at 32,768, and 1.42x slower at 65,536 (2.06x slower on
+// all 513k); groups of 4 were never the faster one, so there is no such
+// instance. The group march needs more registers than the one-lane march;
+// L0_MIN_BLOCKS keeps the instance at 80 (8 bytes spilled) and so at 24
+// warps an SM, where 91 registers cost B3's tail 6%. Two things measured
+// and dropped: a triangle test that skipped the division where the window
+// already settled it (B3's tail 25% slower), and refilling a warp of the
+// one-lane march at 8 idle lanes (3% slower).
+//
+// The group is chosen on the card, per launch, from the count of live rays
+// n (a device value the wrapper computes, so no host wait) and the lanes
+// of the launch (one resident wave, 101,376 on the H100): GROUP when
+// n * GROUP_SHARE <= lanes, else one lane a ray, and one lane a ray when n
+// is 0 (its sweep writes the dead rays back fastest). The wrapper may force
+// it (march_pass(group=)). The launch records which march it ran in a
+// tally on the card (march_pass.py `mode_launches`).
 
 #include <cuda_runtime.h>
 
@@ -61,13 +94,23 @@ constexpr int THREADS = 64;
 // steps a lane marches between two looks at the queue (each look drops the
 // prefetch ring)
 constexpr int CHUNK = 256;
-// idle lanes of a warp that make it claim new rays
+// idle lanes of a warp that make it claim new rays (the level-0 tail's
+// march of one lane a ray as well: 8 was 3% slower there, PERF.md)
 constexpr int REFILL_MIN = 32;
+// the level-0 tail's lanes a ray in a group, and the share of a launch's
+// lanes the live rays may take for "auto" to march them by groups (see above)
+constexpr int GROUP = 32;
+constexpr int GROUP_SHARE = 2;
 // blocks an SM must hold at once: caps the registers a thread may use
-// (1: no cap; a cap that buys more warps made ptxas spill)
+// (1: no cap; a cap that buys more warps made ptxas spill). The level-0
+// instance holds the group march beside the march of one lane a ray; 12
+// keeps it at the 24 warps an SM of the latter alone (80 registers).
 constexpr int MIN_BLOCKS = 1;
+constexpr int L0_MIN_BLOCKS = 12;
 // what a pass marches (march_pass.py MODE_*)
 constexpr int MODE_MAXMIP = 0, MODE_L0 = 1, MODE_RELAX = 2;
+// what a launch ran, the slots of its tally (march_pass.py TALLY_KEYS)
+constexpr int RAN_MAXMIP = 0, RAN_L0 = 1, RAN_L0_GROUP = 2, RAN_RELAX = 3;
 
 struct Planes {
   const float *ox, *oy, *oz, *dx, *dy, *dz;
@@ -84,13 +127,112 @@ struct Planes {
   int* counts;  // (2, p) steps and cell tests per ray, COUNT instances only
 };
 
+// Ray i's state and results as it leaves the pass: `s` and the hit `h` of
+// its last steps (a ray that hit in this pass ends there; any other keeps
+// the results it came with), and its counts.
+template <bool COUNT>
+static __device__ __forceinline__ void write_ray(const Planes& a, long long i, int p,
+                                                 const MarchState& s, const MarchHit& h,
+                                                 const Work& w) {
+  a.alive_o[i] = s.alive;
+  a.t_o[i] = s.t;
+  a.lvl_o[i] = s.lvl;
+  a.icx_o[i] = s.icx;
+  a.icy_o[i] = s.icy;
+  a.hit_o[i] = h.hit ? 1 : a.hit[i];
+  a.t_hit_o[i] = h.hit ? h.t_hit : a.t_hit[i];
+  a.hx_o[i] = h.hit ? h.hx : a.hx[i];
+  a.hy_o[i] = h.hit ? h.hy : a.hy[i];
+  if (COUNT) {
+    a.counts[i] = w.steps;
+    a.counts[(long long)p + i] = w.tests;
+  }
+}
+
+// Ray i as march_pass.py reads it: the direction's inverses and the exit
+// t1 of the box (ray_inverses / ray_box_range).
+static __device__ __forceinline__ MarchRay load_ray(const Planes& a, long long i, float box_lo,
+                                                   float box_hi) {
+  MarchRay r;
+  r.ox = a.ox[i], r.oy = a.oy[i], r.oz = a.oz[i];
+  r.dx = a.dx[i], r.dy = a.dy[i], r.dz = a.dz[i];
+  r.inv_x = 1.0f / safe(r.dx);
+  r.inv_y = 1.0f / safe(r.dy);
+  float t0;
+  ray_box(r.ox, r.oy, r.inv_x, r.inv_y, box_lo, box_hi, t0, r.t1);
+  return r;
+}
+
+// The level-0 tail by groups of G lanes (l0_group_steps): group g of the
+// launch takes rays g, g + groups, g + 2 groups, ..., G of them a window
+// (lane k reads the alive flag of the window's k-th), and marches the live
+// ones one after the other, each to the end of its budget. Then every lane
+// of the launch writes back its share of the rays that are not alive, as
+// they came, in index order so that the writes coalesce.
+template <bool COUNT, int G>
+static __device__ __forceinline__ void group_tail(const Planes& a, const Terrain& g, int p,
+                                                  int budget, float box_lo, float box_hi,
+                                                  float gmax) {
+  const int lane = threadIdx.x & 31;
+  const int k = lane & (G - 1);
+  const int gbase = lane & ~(G - 1);
+  const unsigned gbits = G == 32 ? FULL_WARP : (1u << (G & 31)) - 1u;
+  const unsigned gmask = gbits << gbase;
+  const long long groups = (long long)gridDim.x * THREADS / G;
+  const long long group = ((long long)blockIdx.x * THREADS + threadIdx.x) / G;
+  for (long long j0 = 0; group + groups * j0 < p; j0 += G) {
+    const long long i = group + groups * (j0 + k);
+    unsigned live = (__ballot_sync(gmask, i < p && a.alive[i] != 0) >> gbase) & gbits;
+    while (live) {
+      const int src = __ffs(live) - 1;
+      live &= live - 1;
+      const long long ri = __shfl_sync(gmask, i, src, G);
+      MarchState s = {a.alive[ri], a.t[ri], a.lvl[ri], a.icx[ri], a.icy[ri]};
+      const MarchRay r = load_ray(a, ri, box_lo, box_hi);
+      MarchHit h{0, BIG_T, 0, 0};
+      Work w{0, 0};
+      l0_group_steps<COUNT, G>(r, s, h, budget, g, gmax, w, k, gmask);
+      if (k == 0) write_ray<COUNT>(a, ri, p, s, h, w);
+    }
+  }
+  const long long lanes = (long long)gridDim.x * THREADS;
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < p; i += lanes)
+    if (!a.alive[i])
+      write_ray<COUNT>(a, i, p, MarchState{0, a.t[i], a.lvl[i], a.icx[i], a.icy[i]},
+                       MarchHit{0, BIG_T, 0, 0}, Work{0, 0});
+}
+
+// The lanes a ray in the level-0 tail: `group` when the caller forces it,
+// else GROUP when the n live rays take at most 1 / GROUP_SHARE of the
+// launch's lanes, and 1 when they take more or there are none (then the
+// sweep of one lane a ray writes the dead ones back fastest).
+static __device__ __forceinline__ int tail_group(int group, const long long* n_alive) {
+  if (group > 0) return group;
+  const long long n = __ldg(n_alive);
+  return n > 0 && n * GROUP_SHARE <= (long long)gridDim.x * THREADS ? GROUP : 1;
+}
+
 template <bool COUNT, int MODE>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, MODE == MODE_L0 ? L0_MIN_BLOCKS : MIN_BLOCKS)
     march_pass_kernel(const Planes a, const Terrain g, int p, int budget, int stride,
-                      float box_lo, float box_hi, const int* tail_flag, int* next) {
+                      float box_lo, float box_hi, const int* tail_flag, int group,
+                      const long long* n_alive, int* tally, int* next) {
   const float gmax = __ldg(g.pyr + pyramid_top(g.m));
   // the tail instances run their tail unless the flag says otherwise
   const bool tail = MODE != MODE_MAXMIP && (tail_flag == nullptr || __ldg(tail_flag) != 0);
+  const int gsize = MODE == MODE_L0 && tail ? tail_group(group, n_alive) : 1;
+  if (tally != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(tally + (!tail                ? RAN_MAXMIP
+                       : MODE == MODE_RELAX ? RAN_RELAX
+                       : gsize == GROUP     ? RAN_L0_GROUP
+                                            : RAN_L0),
+              1);
+  if constexpr (MODE == MODE_L0) {
+    if (gsize == GROUP) {
+      group_tail<COUNT, GROUP>(a, g, p, budget, box_lo, box_hi, gmax);
+      return;
+    }
+  }
   int i = -1;        // the ray this lane holds; -1: idle
   int used = 0;      // steps the held ray has taken in this pass
   bool more = true;  // the counter still hands out rays (warp-uniform)
@@ -109,15 +251,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
         s.tprev = s.t;
         s.wend = BIG_T;
       }
-      if (s.alive) {
-        r.ox = a.ox[i], r.oy = a.oy[i], r.oz = a.oz[i];
-        r.dx = a.dx[i], r.dy = a.dy[i], r.dz = a.dz[i];
-        // ray_inverses / ray_box_range (only the exit t1 is needed here)
-        r.inv_x = 1.0f / safe(r.dx);
-        r.inv_y = 1.0f / safe(r.dy);
-        float t0;
-        ray_box(r.ox, r.oy, r.inv_x, r.inv_y, box_lo, box_hi, t0, r.t1);
-      }
+      if (s.alive) r = load_ray(a, i, box_lo, box_hi);
     }
     if (!__any_sync(FULL_WARP, i >= 0)) break;  // a warp with no ray has claimed past p
 
@@ -130,59 +264,57 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
         used += march_steps<COUNT, true>(r, s, h, steps, g, gmax, w);
       else
         used += march_steps<COUNT>(r, s, h, steps, g, gmax, w);
-      if (!s.alive || used >= budget) {
-        a.alive_o[i] = s.alive;
-        a.t_o[i] = s.t;
-        a.lvl_o[i] = s.lvl;
-        a.icx_o[i] = s.icx;
-        a.icy_o[i] = s.icy;
-        // a ray that hit in this pass ends in its last chunk; any other
-        // keeps the results it came with
-        a.hit_o[i] = h.hit ? 1 : a.hit[i];
-        a.t_hit_o[i] = h.hit ? h.t_hit : a.t_hit[i];
-        a.hx_o[i] = h.hit ? h.hx : a.hx[i];
-        a.hy_o[i] = h.hit ? h.hy : a.hy[i];
-        if (COUNT) {
-          a.counts[i] = w.steps;
-          a.counts[(long long)p + i] = w.tests;
-        }
+      if (!s.alive || used >= budget) {  // a hit ends the ray in its last chunk
+        write_ray<COUNT>(a, i, p, s, h, w);
         i = -1;
       }
     }
   }
 }
 
+// The launch's arguments after the planes and the terrain.
+struct Pass {
+  int p, budget, stride;
+  float box_lo, box_hi;
+  const int* tail_flag;
+  int group;
+  const long long* n_alive;
+  int* tally;
+  int* next;
+};
+
 template <bool COUNT, int MODE>
-int launch(const Planes& a, const Terrain& g, int p, int budget, int stride, float box_lo,
-           float box_hi, const int* tail_flag, int* next, cudaStream_t stream) {
-  const int blocks = persistent_blocks(march_pass_kernel<COUNT, MODE>, THREADS, p);
-  march_pass_kernel<COUNT, MODE><<<blocks, THREADS, 0, stream>>>(a, g, p, budget, stride, box_lo,
-                                                                   box_hi, tail_flag, next);
+int launch(const Planes& a, const Terrain& g, const Pass& q, cudaStream_t stream) {
+  // the level-0 tail's groups may take GROUP lanes a ray
+  const long long lanes = (long long)q.p * (MODE != MODE_L0 ? 1 : q.group > 0 ? q.group : GROUP);
+  const int blocks = persistent_blocks(march_pass_kernel<COUNT, MODE>, THREADS, lanes);
+  march_pass_kernel<COUNT, MODE><<<blocks, THREADS, 0, stream>>>(
+      a, g, q.p, q.budget, q.stride, q.box_lo, q.box_hi, q.tail_flag, q.group, q.n_alive,
+      q.tally, q.next);
   return (int)cudaGetLastError();
 }
 
 template <bool COUNT>
-int launch_mode(int mode, const Planes& a, const Terrain& g, int p, int budget, int stride,
-                float box_lo, float box_hi, const int* tail_flag, int* next,
+int launch_mode(int mode, const Planes& a, const Terrain& g, const Pass& q,
                 cudaStream_t stream) {
-  if (mode == MODE_L0)
-    return launch<COUNT, MODE_L0>(a, g, p, budget, stride, box_lo, box_hi, tail_flag, next,
-                                  stream);
-  if (mode == MODE_RELAX)
-    return launch<COUNT, MODE_RELAX>(a, g, p, budget, stride, box_lo, box_hi, tail_flag, next,
-                                     stream);
-  return launch<COUNT, MODE_MAXMIP>(a, g, p, budget, stride, box_lo, box_hi, tail_flag, next,
-                                    stream);
+  if (mode == MODE_L0) return launch<COUNT, MODE_L0>(a, g, q, stream);
+  if (mode == MODE_RELAX) return launch<COUNT, MODE_RELAX>(a, g, q, stream);
+  return launch<COUNT, MODE_MAXMIP>(a, g, q, stream);
 }
 
 }  // namespace
 
 // `mode` is MODE_MAXMIP, MODE_L0 or MODE_RELAX (then `stride` > 0 cells and
 // an unbudgeted pass); `tail_flag` is null (a tail mode always runs its tail)
-// or one int32 on the device. `next` is a zeroed int32 on the device (the ray
-// counter); `counts` is null or an int32 (2, p) plane that takes each ray's
-// steps and cell tests. An unknown mode, or a relaxed pass with a budget or
-// no stride, returns cudaErrorInvalidValue and launches nothing.
+// or one int32 on the device. `group` (MODE_L0 only): the level-0 tail's
+// lanes a ray, 1 or GROUP, or 0 to choose on the card from
+// `n_alive`, one int64 on the device (the live rays), null otherwise.
+// `tally` is null or four int32 on the device, one of which each launch adds
+// 1 to (RAN_*). `next` is a zeroed int32 on the device (the ray counter);
+// `counts` is null or an int32 (2, p) plane that takes each ray's steps and
+// cell tests. An unknown mode or group, a group without MODE_L0, an auto
+// group without `n_alive`, or a relaxed pass with a budget or no stride,
+// returns cudaErrorInvalidValue and launches nothing.
 extern "C" int hmrt_march_pass(const float* ox, const float* oy, const float* oz,
                                const float* dx, const float* dy, const float* dz,
                                const int* alive, const float* t, const int* lvl,
@@ -193,18 +325,20 @@ extern "C" int hmrt_march_pass(const float* ox, const float* oy, const float* oz
                                int* hy_o, const float* pyr_flat, const float* corners, int p,
                                int m, int levels, int budget, int intersector, int mode,
                                int stride, float box_lo, float box_hi, const int* tail_flag,
-                               int* next, int* counts, void* stream) {
+                               int group, const long long* n_alive, int* tally, int* next,
+                               int* counts, void* stream) {
   if (mode < MODE_MAXMIP || mode > MODE_RELAX ||
-      (mode == MODE_RELAX && (stride <= 0 || budget != UNBUDGETED)))
+      (mode == MODE_RELAX && (stride <= 0 || budget != UNBUDGETED)) ||
+      (group != 0 && group != 1 && group != GROUP) ||
+      (group != 0 && mode != MODE_L0) || (mode == MODE_L0 && group == 0 && n_alive == nullptr))
     return (int)cudaErrorInvalidValue;
   if (p <= 0) return (int)cudaSuccess;
   Planes a{ox,    oy,    oz,    dx,   dy,   dz,   alive,   t,     lvl,  icx,
            icy,   hit,   t_hit, hx,   hy,   alive_o, t_o,  lvl_o, icx_o, icy_o,
            hit_o, t_hit_o, hx_o, hy_o, counts};
   Terrain g{pyr_flat, reinterpret_cast<const float4*>(corners), m, levels, intersector};
+  const Pass q{p, budget, stride, box_lo, box_hi, tail_flag, group, n_alive, tally, next};
   cudaStream_t st = (cudaStream_t)stream;
-  return counts != nullptr
-             ? launch_mode<true>(mode, a, g, p, budget, stride, box_lo, box_hi, tail_flag, next, st)
-             : launch_mode<false>(mode, a, g, p, budget, stride, box_lo, box_hi, tail_flag, next,
-                                  st);
+  return counts != nullptr ? launch_mode<true>(mode, a, g, q, st)
+                           : launch_mode<false>(mode, a, g, q, st);
 }

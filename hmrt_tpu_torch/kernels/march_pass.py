@@ -27,6 +27,13 @@ relaxed stride tail (`l0_step_relaxed`), defined only unbudgeted, as in the
 JAX package. `l0_only` may also be a 0-dim tensor on the planes' device, a
 flag that the kernel reads on the card: when it is false the pass is the
 max-mip pass (the "auto" tail decides it on the device, with no host wait).
+
+The kernel marches the level-0 tail with one lane a ray or with a group of
+32 lanes a ray (testing 32 consecutive cells of the ray at once); "auto"
+chooses on the card from the count of live rays, with no host wait
+(march_pass.cu). Every choice gives the same planes; the
+plain version ignores it. `march_pass.mode_launches` counts, on the card,
+which march each launch ran.
 """
 
 from __future__ import annotations
@@ -44,20 +51,57 @@ UNBUDGETED = 1 << 22
 #: the kernel's mode argument: the max-mip march, the exact level-0 tail,
 #: the relaxed tail (march_pass.cu MODE)
 MODE_MAXMIP, MODE_L0, MODE_RELAX = 0, 1, 2
-MODE_NAMES = ("maxmip", "l0", "relax")
+#: the level-0 tail's lanes a ray that a caller may force: one, or a group
+#: (march_pass.cu GROUP)
+GROUPS = (1, 32)
+#: what a launch ran, the slots of the kernel's tally (march_pass.cu RAN_*)
+TALLY_KEYS = ("maxmip", "l0", "l0_g32", "relax")
 STATE_DTYPES = (torch.int32, torch.float32, torch.int32, torch.int32, torch.int32)
 RESULT_DTYPES = (torch.int32, torch.float32, torch.int32, torch.int32)
 
 
-def check_tail(l0_only, relax: int, budget: int) -> None:
-    """Raise unless (l0_only, relax, budget) is a pass the kernel defines:
-    relax >= 0, and relax > 0 only for an unbudgeted level-0 tail."""
+def check_tail(l0_only, relax: int, budget: int, group="auto") -> None:
+    """Raise unless (l0_only, relax, budget, group) is a pass the kernel
+    defines: relax >= 0, and relax > 0 only for an unbudgeted level-0 tail;
+    group "auto", or one of GROUPS for the exact level-0 tail."""
+    tail = isinstance(l0_only, torch.Tensor) or bool(l0_only)
     if relax < 0:
         raise ValueError(f"relax {relax} < 0")
-    if relax and not isinstance(l0_only, torch.Tensor) and not l0_only:
+    if relax and not tail:
         raise ValueError("relax > 0 is a mode of the level-0 tail: it needs l0_only")
     if relax and budget != UNBUDGETED:
         raise ValueError(f"a relaxed pass is defined only unbudgeted, not at budget {budget}")
+    if group != "auto" and (group not in GROUPS or not tail or relax):
+        raise ValueError(f"group {group!r}: want 'auto', or one of {GROUPS} for the exact "
+                         "level-0 tail (l0_only, relax 0)")
+
+
+class LaunchTally:
+    """Launches of the march kernel by the march each one ran (TALLY_KEYS),
+    counted on the card by the kernel itself: an "auto" tail whose flag
+    was false ran "maxmip", and an exact level-0 tail ran "l0" (one lane a
+    ray) or "l0_g32" (32 lanes a ray), as the kernel chose.
+    `read()` waits for the card."""
+
+    def __init__(self):
+        self._slots = {}  # device -> int32 (len(TALLY_KEYS),)
+
+    def slots(self, dev) -> torch.Tensor:
+        """The device's tally, made at its first launch."""
+        if dev not in self._slots:
+            self._slots[dev] = torch.zeros(len(TALLY_KEYS), dtype=torch.int32, device=dev)
+        return self._slots[dev]
+
+    def reset(self) -> None:
+        for t in self._slots.values():
+            t.zero_()
+
+    def read(self) -> dict:
+        counts = dict.fromkeys(TALLY_KEYS, 0)
+        for t in self._slots.values():
+            for key, v in zip(TALLY_KEYS, t.tolist()):
+                counts[key] += v
+        return counts
 
 
 def march_pass_reference(rays, state, results, pyr_flat, heights, *, n: int,
@@ -150,7 +194,7 @@ def _check_inputs(rays, state, results, pyr_flat, corners, n, m, levels, budget)
 def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: int,
                levels: int, budget: int, cell_intersect: str = "triangle",
                clip=None, counts: torch.Tensor | None = None, l0_only=False,
-               relax: int = 0):
+               relax: int = 0, group="auto", n_alive: torch.Tensor | None = None):
     """One budgeted march pass. Returns (new_state, new_results).
 
     CPU tensors run `march_pass_reference`; CUDA tensors launch the kernel
@@ -159,8 +203,11 @@ def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: i
     steps and exact cell tests in this pass (the kernel's counting
     instance; the timed path passes none). `l0_only` and `relax`: the tail
     modes (module docstring); a relaxed pass counts every step, and the
-    exact walk's intersector calls as cell tests."""
-    check_tail(l0_only, relax, budget)
+    exact walk's intersector calls as cell tests. `group`: the level-0
+    tail's lanes a ray, "auto" or one of GROUPS (module docstring).
+    `n_alive`: the live rays of `state`, a one-element int64 on its device,
+    from which "auto" chooses; None counts them here."""
+    check_tail(l0_only, relax, budget, group)
     p = rays[0].shape[0]
     flag = l0_only if isinstance(l0_only, torch.Tensor) else None
     dev = _build.device_of([*rays, *state, *results, pyr_flat, heights, corners]
@@ -169,6 +216,10 @@ def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: i
         raise ValueError(f"l0_only: want a bool or a 0-dim flag, got shape {tuple(flag.shape)}")
     if counts is not None:
         check_counts(counts, (2, p), dev)
+    if n_alive is not None and (n_alive.numel() != 1 or n_alive.dtype != torch.int64
+                                or n_alive.device != dev):
+        raise ValueError(f"n_alive: want one int64 on {dev}, got {n_alive.dtype} "
+                         f"{tuple(n_alive.shape)} on {n_alive.device}")
     if dev.type == "cpu":
         work = None if counts is None else WorkCounter(pyr_flat.shape[0], n, dev, lanes=p)
         out = march_pass_reference(rays, state, results, pyr_flat, heights,
@@ -189,21 +240,27 @@ def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: i
     with torch.cuda.device(dev):
         next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
         flag_i = None if flag is None else flag.reshape(1).to(torch.int32)
+        # the live rays, from which the kernel chooses the tail's group
+        if mode != MODE_L0 or group != "auto":
+            n_alive = None
+        elif n_alive is None:
+            n_alive = torch.count_nonzero(state[0])
         err = lib.hmrt_march_pass(
             *[x.data_ptr() for x in (*rays, *state, *results, *outs)],
             pyr_flat.data_ptr(), corners.data_ptr(), p, m, levels, budget,
             INTERSECTOR_IDS[cell_intersect], mode, relax, float(lo), float(hi),
-            None if flag_i is None else flag_i.data_ptr(), next_ray.data_ptr(),
+            None if flag_i is None else flag_i.data_ptr(),
+            0 if group == "auto" else group,
+            None if n_alive is None else n_alive.data_ptr(),
+            march_pass.mode_launches.slots(dev).data_ptr(), next_ray.data_ptr(),
             None if counts is None else counts.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "march_pass")
     if p:  # an empty pass launches nothing
         march_pass.launches += 1
-        march_pass.mode_launches[MODE_NAMES[mode]] += 1
     return tuple(outs[:5]), tuple(outs[5:])
 
 
 march_pass.launches = 0
-#: the same launches by template instance (a tail instance whose flag was 0
-#: ran the max-mip march)
-march_pass.mode_launches = {"maxmip": 0, "l0": 0, "relax": 0}
+#: the same launches by the march each one ran, counted on the card
+march_pass.mode_launches = LaunchTally()

@@ -27,7 +27,7 @@ from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, check_counts, check_r
 from hmrt_tpu_torch.kernels.shade_pass import shade_pass_reference
 from hmrt_tpu_torch.traversal.intersect import INTERSECTOR_IDS
 from hmrt_tpu_torch.traversal.march import WorkCounter
-from hmrt_tpu_torch.types import Camera, Frame, Scene, recip_f32, tan_half
+from hmrt_tpu_torch.types import Camera, Frame, Scene, recip_f32, sqrt_f32, tan_half
 
 # params vector layout (f32[32]), as hmrt_tpu/kernels/raycast.py
 _P_EYE = 0        # 0-2
@@ -80,7 +80,7 @@ def params_rays(params: torch.Tensor, height: int, width: int, full_height: int)
     sy = (ii * P[_P_TANHALF])[:, None]                   # (H, 1)
     dx, dy, dz = (P[_P_FWD + c] + sx * P[_P_RIGHT + c] + sy * P[_P_UP + c]
                   for c in range(3))
-    nrm = torch.sqrt(dx * dx + dy * dy + dz * dz)
+    nrm = sqrt_f32(dx * dx + dy * dy + dz * dz)
     p = height * width
     return (tuple(P[_P_EYE + c].expand(p).contiguous() for c in range(3))
             + tuple((v / nrm).reshape(p) for v in (dx, dy, dz)))

@@ -158,13 +158,16 @@ class WorkCounter:
 
     def observe(self, alive, idx, test, icx, icy):
         """One step: every alive lane reads pyramid entry `idx`; the lanes
-        in `test` also read the 4 corner heights of cell (icx, icy)."""
+        in `test` also read the 4 corner heights of cell (icx, icy). With
+        (lanes, G) planes, a window of G steps of each lane (l0_group_march)."""
         n = self.n
         self.steps += alive.sum()
         self.tests += test.sum()
         if self.lane_steps is not None:
-            self.lane_steps += alive.to(torch.int32)
-            self.lane_tests += test.to(torch.int32)
+            dim = alive.dim() - 1
+            self.lane_steps += alive.sum(dim, dtype=torch.int32) if dim else alive.to(torch.int32)
+            self.lane_tests += test.sum(dim, dtype=torch.int32) if dim else test.to(torch.int32)
+        alive, idx, test, icx, icy = (x.reshape(-1) for x in (alive, idx, test, icx, icy))
         self.pyr_reads.index_add_(0, idx, alive.to(torch.int32))
         base = torch.clamp(icy, 0, n - 2) * n + torch.clamp(icx, 0, n - 2)
         for off in (0, 1, n, n + 1):
@@ -330,6 +333,116 @@ def l0_step(ray, st, corners, gmax, *, m: int, intersector,
                 t_hit=torch.where(hit_now, t_c, st["t_hit"]),
                 hx=torch.where(hit_now, icx, st["hx"]),
                 hy=torch.where(hit_now, icy, st["hy"]))
+
+
+def _axis_exit(b0, k, step, o, inv, none):
+    """The boundary exit of the level-0 DDA k cells along one axis from
+    boundary index b0 (`step_geometry`'s tx or ty of that cell, the same
+    expression), BIG_T on an axis the ray does not cross."""
+    return torch.where(none, BIG_T, ((b0 + k * step).to(torch.float32) * 1.0 - o) * inv)
+
+
+def l0_group_march(ray, st, corners, gmax, *, m: int, intersector, group: int,
+                   budget: int, counter: WorkCounter | None = None):
+    """The forced-level-0 tail as the CUDA kernel's lane groups march it
+    (`march_common.cuh::l0_group_steps`), written on tensors: up to
+    `budget` steps of every alive lane, `group` cells of a lane's level-0
+    DDA a window. Not on any render path: the tests hold it against `l0_step`
+    iterated and against JAX's step, bit for bit.
+
+    Each window, column k of a lane takes the cell k steps on from its
+    current one: its x-steps among those k are the merge of the x and y
+    boundary exit sequences (x first on a tie, as `step_geometry`), found
+    by binary search; its exit, skip, exact and out tests are `l0_step`'s;
+    the t it enters at is the prefix max of the earlier columns' exits (a
+    log-step scan, the kernel's order). The first column that ends the
+    lane (a hit, out, or past the budget) gives the lane its state, as
+    `l0_step` leaves it after that cell; with none, the lane moves on
+    `group` cells. ray, st and corners as in `l0_step`; returns the new st.
+    `counter` records each window's steps and cell tests."""
+    ox, oy, oz, dx, dy, dz, inv_x, inv_y, t1 = (x[:, None] for x in ray)
+    G = group
+    dev = ox.device
+    k = torch.arange(G, dtype=torch.int32, device=dev)[None, :]
+    pos_x, pos_y = dx > 0.0, dy > 0.0
+    step_x = torch.where(pos_x, 1, -1).to(torch.int32)
+    step_y = torch.where(pos_y, 1, -1).to(torch.int32)
+    none_x, none_y = torch.abs(dx) < 1e-20, torch.abs(dy) < 1e-20
+    st = dict(st)
+    used = torch.zeros(ox.shape[0], dtype=torch.int32, device=dev)
+    while True:
+        act = st["alive"] & (used < budget)
+        if not bool(act.any()):
+            return st
+        t, icx, icy = st["t"][:, None], st["icx"][:, None], st["icy"][:, None]
+        bx0, by0 = icx + pos_x.to(torch.int32), icy + pos_y.to(torch.int32)
+        # the smallest i in [0, k] with not tx(i) <= ty(k - 1 - i)
+        lo, hi = torch.zeros_like(k).expand(icx.shape[0], G), k.expand(icx.shape[0], G)
+        for _ in range(G.bit_length()):
+            go = lo < hi
+            mid = (lo + hi) >> 1
+            later = ~(_axis_exit(bx0, mid, step_x, ox, inv_x, none_x)
+                      <= _axis_exit(by0, k - 1 - mid, step_y, oy, inv_y, none_y))
+            hi = torch.where(go & later, mid, hi)
+            lo = torch.where(go & ~later, mid + 1, lo)
+        cx, cy = icx + lo * step_x, icy + (k - lo) * step_y
+        t_exit, nx, ny, _ = step_geometry(ox, oy, dx, dy, cx, cy, 0, inv_x, inv_y)
+        t_exit_c = torch.minimum(t_exit, t1)
+        inc = t_exit_c
+        d = 1
+        while d < G:
+            o = torch.cat([inc[:, :d], inc[:, :-d]], 1)
+            inc = torch.where(k >= d, torch.maximum(inc, o), inc)
+            d <<= 1
+        before = torch.cat([inc[:, :1], inc[:, :-1]], 1)
+        t_k = torch.where(k == 0, t, torch.maximum(t, before))
+        zmin = oz + torch.minimum(t_k * dz, t_exit_c * dz)
+        z = tuple(x.reshape(cx.shape)
+                  for x in corners(cx.reshape(-1), cy.reshape(-1)))
+        cmax = torch.maximum(torch.maximum(z[0], z[1]), torch.maximum(z[2], z[3]))
+        run = act[:, None] & (k < (budget - used)[:, None])
+        test = run & ~(zmin > cmax)
+        h, t_c = intersector(ox, oy, oz, dx, dy, dz, cx, cy, *z, t_k - T_TOL, t_exit_c + T_TOL)
+        hit_now = h & test
+        t_new = torch.maximum(t, inc)
+        escaped = (oz + t_new * dz > gmax) & (dz > 0.0)
+        out = ((t_exit >= t1 - EPS_EXIT) | (nx < 0) | (nx >= m) | (ny < 0) | (ny >= m)
+               | escaped)
+        ends = ~run | hit_now | out
+        # the first column that ends the lane, G if none; the cells stepped
+        f = torch.where(ends.any(1), torch.argmax(ends.to(torch.int32), 1), G)[:, None]
+        fc = torch.clamp(f, max=G - 1)
+
+        def at(x):
+            return x.gather(1, fc).squeeze(1)
+
+        f_run, f_hit = at(run), at(hit_now)
+        none = f.squeeze(1) == G
+        taken = torch.where(none, G, f.squeeze(1) + f_run.to(torch.int32))
+        if counter is not None:
+            stepped = act[:, None] & (k < taken[:, None])
+            counter.observe(stepped, _cell_index0(m, cx, cy), stepped & test, cx, cy)
+        out_f = ~none & f_run & ~f_hit
+        stand = ~none & ~out_f  # a hit in cell f, or the budget spent before it
+        last = torch.full_like(fc, G - 1)
+
+        def pick(x_none, x_out, x_stand):
+            return torch.where(none, x_none, torch.where(out_f, x_out, x_stand))
+
+        new_t = pick(t_new.gather(1, last).squeeze(1), at(t_new), at(t_k))
+        new_icx = pick(nx.gather(1, last).squeeze(1), at(nx), at(cx))
+        new_icy = pick(ny.gather(1, last).squeeze(1), at(ny), at(cy))
+        hit_l = act & stand & f_hit
+        st = dict(st,
+                  t=torch.where(act, new_t, st["t"]),
+                  icx=torch.where(act, new_icx, st["icx"]),
+                  icy=torch.where(act, new_icy, st["icy"]),
+                  alive=st["alive"] & ~(act & (out_f | (stand & f_hit))),
+                  hit=st["hit"] | hit_l,
+                  t_hit=torch.where(hit_l, at(t_c), st["t_hit"]),
+                  hx=torch.where(hit_l, at(cx), st["hx"]),
+                  hy=torch.where(hit_l, at(cy), st["hy"]))
+        used = used + torch.where(act, taken, 0).to(torch.int32)
 
 
 def relaxed_planes(t):

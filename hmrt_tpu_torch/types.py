@@ -21,10 +21,19 @@ def _cross(a, b):
                         a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
 
 
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of f32 `x`, the same bits on every
+    device: taken in f64 and rounded once to f32 (53 >= 2*24 + 2 bits, so
+    the double rounding is exact). It is what torch's f32 `sqrt` gives on
+    CUDA and `sqrtf` in the kernels (built with -prec-sqrt=true); torch's
+    vectorised f32 `sqrt` on the CPU is an ulp off it on some values."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def _norm(v):
-    """Euclidean norm over the last axis, summed x, y, z in that order."""
-    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
-                      + v[..., 2] * v[..., 2])
+    """Euclidean norm over the last axis: the f32 sum of squares, x, y, z in
+    that order, and its correctly rounded root (`sqrt_f32`)."""
+    return sqrt_f32(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2])
 
 
 def recip_f32(k: int) -> float:

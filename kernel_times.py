@@ -15,9 +15,18 @@ SHADE_REPS calls queued behind a spin kernel, with the 32-byte sectors its
 gathers touch in either layout (chip_smoke.py::shade_sectors), the B3
 frame's ms through each path (CUDA events, median of 5), each march_pass
 launch of the B3 frame with its level-0 tail off, forced, "auto" and relaxed
-at strides 4, 8 and 16 (render_frame_compact's l0_tail and relax), and the
-registers and spill bytes ptxas gave each kernel (march_pass by mode),
-beside the card's name and power limit.
+at strides 4, 8 and 16 (render_frame_compact's l0_tail and relax) with the
+march's bound on that frame (bench/floor.py, from the counting instance), the
+level-0 tail launches of the B3 frame (primary and shadow) and of B4's
+orbit frame 0 (primary) replayed on their own inputs with each lane group
+the kernel takes (march_pass's `group`: 1, 32 and "auto"; in a checkout
+from before the groups, its one tail march), the tail launch on samples of
+B3's tail rays from 1,024 to 131,072 live rays by group (the measurements
+behind march_pass.cu's rule), the latency bound of B4's tail launch (the
+probe bench/latency.py on its longest ray: the ms of its walk, one
+dependent record load and cell test a step, and ceil(chain / G) steps at
+each lane group), and the registers and spill bytes ptxas gave
+each kernel (march_pass by mode), beside the card's name and power limit.
 
 --root DIR imports hmrt_tpu_torch from another checkout, e.g. an older
 commit unpacked with `git archive` into a directory that .gitignore lists,
@@ -33,6 +42,7 @@ package (no --root).
 import argparse
 import ctypes
 import dataclasses
+import importlib.util
 import inspect
 import json
 import re
@@ -42,6 +52,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 SHADE_REPS = 200   # shade_pass calls per timing (~40-150 us each)
+#: live rays of the tail samples timed by lane group
+SWEEP_RAYS = (1024, 4096, 16384, 32768, 65536, 131072)
 
 
 def variant_library(build, spec: str):
@@ -123,6 +135,48 @@ def shade_inputs(scene, textured: bool) -> tuple:
     return scene.gx, scene.gy, scene.albedo if textured else None
 
 
+def tail_ms_by_group(launches, march_pass, kernel_ms, event_ms) -> list:
+    """Each captured tail launch replayed with every lane group: the
+    kernel's device ms (profiler), the wrapper call's ms by events (with
+    the live-ray count of "auto") and the launch's live rays."""
+    import torch
+    has_group = "group" in inspect.signature(march_pass).parameters
+    out = []
+    for args, kw in launches:
+        row = {"rays": int(args[0][0].shape[0]), "live": int((args[1][0] != 0).sum())}
+        for g in ((1, 32, "auto") if has_group else ("parent",)):
+            kw_g = dict(kw) if g == "parent" else {**kw, "group": g}
+            fn = (lambda kw_g=kw_g: march_pass(*args, **kw_g))
+            row[str(g)] = {"kernel_ms": kernel_ms(fn, "march_pass_kernel", 5),
+                           "call_ms": event_ms(fn, 5)}
+        out.append(row)
+        torch.cuda.synchronize()
+    return out
+
+
+def latency_probe(launch, scene, march_pass, kernel_ms) -> dict:
+    """The probe of bench/latency.py on the longest live ray of a captured
+    tail launch (its steps at one lane a ray, counted): the chain, the
+    probe's device ms over it, the time of one step and the latency bound
+    ceil(chain / G) steps at each lane group G."""
+    import torch
+    from hmrt_tpu_torch.bench.latency import l0_walk
+    args, kw = launch
+    live = torch.nonzero(args[1][0] != 0).squeeze(1)
+    sub = tuple(tuple(x.index_select(0, live).contiguous() for x in planes)
+                for planes in args[:3])
+    cnt = torch.empty((2, live.numel()), dtype=torch.int32, device=live.device)
+    march_pass(*sub, *args[3:], **{**kw, "counts": cnt, "group": 1, "n_alive": None})
+    k = int(torch.argmax(cnt[0]))
+    chain = int(cnt[0][k])
+    one = [tuple(x[k:k + 1].contiguous() for x in planes) for planes in sub[:2]]
+    ms = kernel_ms(lambda: l0_walk(*one, scene, steps=chain, cell_intersect=kw["cell_intersect"]),
+                   "l0_probe_kernel", 5)
+    us = 1e3 * ms / chain
+    return {"chain": chain, "probe_ms": ms, "us_per_step": us,
+            "bound_ms": {str(g): -(-chain // g) * us / 1e3 for g in (1, 32)}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE), help="checkout to import hmrt_tpu_torch from")
@@ -133,14 +187,15 @@ def main() -> int:
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE))
-    from chip_smoke import (card_line, kernel_ms, launch_times, median_ms, queued_ms,
-                            shade_sectors)
+    from chip_smoke import (card_line, event_ms, kernel_ms, launch_times, median_ms,
+                            queued_ms, shade_sectors, tail_launches, tail_survivors)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import hmrt_tpu_torch as T
     from hmrt_tpu_torch.api.flythrough import frame_camera, orbit_flythrough
     from hmrt_tpu_torch.bench.configs import BENCH_CONFIGS, bench_scene
     from hmrt_tpu_torch.kernels import _build
     from hmrt_tpu_torch.kernels.compact import render_frame_compact
+    from hmrt_tpu_torch.kernels.march_pass import march_pass
     from hmrt_tpu_torch.kernels.raycast import render_frame_fused
     from hmrt_tpu_torch.kernels.shade_pass import shade_pass
     if args.root != str(HERE) and args.variants != ["base"]:
@@ -179,8 +234,9 @@ def main() -> int:
         # K1's tail modes on the B3 frame: each launch with the tail off,
         # forced, "auto" (the default) and relaxed (in a checkout from before
         # the tail modes, none)
-        tails = {}
+        tails, tail_bounds = {}, {}
         if "l0_tail" in inspect.signature(render_frame_compact).parameters:
+            from hmrt_tpu_torch.bench.floor import count_frame
             for label, kw in (("l0_tail_false", dict(l0_tail=False)),
                               ("l0_tail_true", dict(l0_tail=True)), ("l0_tail_auto", {}),
                               *((f"relax{k}", dict(l0_tail=True, relax=k))
@@ -188,6 +244,39 @@ def main() -> int:
                 launches = launch_times(lambda: render_frame_compact(scene, cam, cfg_c, **kw),
                                         ("march_pass_kernel",))
                 tails[label] = [ms for _, ms in launches]
+                fc = count_frame(scene, cam, cfg_c, **kw)
+                tail_bounds[label] = {"steps": sum(fc.totals(0)), "tests": sum(fc.totals(1)),
+                                      "bound": fc.bound()}
+        # the level-0 tail launches, replayed by lane group (B3: primary and
+        # shadow; B4 orbit frame 0: primary, its frame has no shadows)
+        by_group, b4_latency = {}, {}
+        if tails:
+            for name, sc, cm, cf in (("b3", scene, cam, cfg_c), ("b4", scene4, cam4, b4.render)):
+                launches = tail_launches(lambda: render_frame_compact(sc, cm, cf, l0_tail=True),
+                                         march_pass)
+                runs = tail_ms_by_group(launches, march_pass, kernel_ms, event_ms)
+                for label, row in zip(("primary", "shadow"), runs):
+                    by_group[f"{name}_{label}"] = row
+                if name == "b4" and importlib.util.find_spec("hmrt_tpu_torch.bench.latency"):
+                    b4_latency = latency_probe(launches[0], sc, march_pass, kernel_ms)
+        # the tail launch by the number of live rays: samples of B3's tail
+        # rays, each sorted as the tail takes them, at each lane group
+        by_live = {}
+        if "group" in inspect.signature(march_pass).parameters:
+            for count in SWEEP_RAYS:
+                rays_t, state_t, res_t, _ = tail_survivors(scene, cam, cfg_c, count)
+                kw_t = dict(n=scene.n, m=scene.m, levels=scene.levels, budget=1 << 22,
+                            l0_only=True)
+                by_live[count] = {
+                    str(g): kernel_ms(lambda g=g: march_pass(
+                        rays_t, state_t, res_t, scene.pyr_flat, scene.heights, scene.corners,
+                        group=g, **kw_t), "march_pass_kernel", 3)
+                    for g in (1, 32, "auto")}
+                march_pass.mode_launches.reset()
+                march_pass(rays_t, state_t, res_t, scene.pyr_flat, scene.heights,
+                           scene.corners, **kw_t)
+                by_live[count]["auto_ran"] = [k for k, v in
+                                              march_pass.mode_launches.read().items() if v]
         frames = {}
         for label, cf in (("compact", cfg_c), ("fused", cfg_f), ("fused", cfg_f),
                           ("compact", cfg_c)):
@@ -199,6 +288,10 @@ def main() -> int:
             "march_pass_ms_per_frame": sum(ms for _, ms in per_launch),
             "render_tile_ms_b3": k3, "render_tile_ms_b1": k3_b1, **k2,
             "march_pass_ms_per_launch_by_tail": tails,
+            "march_bound_by_tail": tail_bounds,
+            "tail_launch_ms_by_group": by_group,
+            "b4_tail_latency": b4_latency,
+            "tail_ms_by_live_rays": by_live,
             "shade_sectors": sectors,
             "frame_ms_compact": frames["compact"], "frame_ms_fused": frames["fused"],
             "registers": registers(log)}), flush=True)

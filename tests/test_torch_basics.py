@@ -91,6 +91,59 @@ def test_raygen_tan_is_the_rounded_f64_tan():
         assert make_params(scene, cam, cfg)[_P_TANHALF].view(torch.int32).item() == want, deg
 
 
+def _norm_f32_sqrt(v):
+    """Raygen's norm as it was before the f64 root: torch's f32 `sqrt`."""
+    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2])
+
+
+def test_norm_is_the_correctly_rounded_root():
+    """Raygen's norm takes its root in f64 rounded once to f32 (the same
+    bits on the card): the correctly rounded f32 root of the same f32 sum
+    of squares, which numpy's and JAX's f32 sqrt give, for 2^16 vectors of
+    many magnitudes. torch's own f32 `sqrt` on the CPU gives it too except
+    on a small share of values, where its vectorised root is an ulp off."""
+    from hmrt_tpu_torch.types import _norm, sqrt_f32
+    rng = np.random.default_rng(9)
+    v = torch.from_numpy((rng.normal(size=(1 << 16, 3))
+                          * 10.0 ** rng.uniform(-6, 6, (1 << 16, 1))).astype(np.float32))
+    s = v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1] + v[:, 2] * v[:, 2]
+    want = np.sqrt(s.numpy())
+    np.testing.assert_array_equal(np.asarray(jnp.sqrt(jnp.asarray(s.numpy()))), want)
+    np.testing.assert_array_equal(_norm(v).numpy().view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(sqrt_f32(s).numpy().view(np.int32), want.view(np.int32))
+    off = (torch.sqrt(s).numpy() != want).mean()
+    assert off < 0.02, off
+
+
+def test_b3_camera_rays_move_only_where_the_f32_sqrt_rounded_off(monkeypatch):
+    """Camera.rays of the B3 bench camera at 64x36 keep the bits they had
+    with torch's f32 `sqrt` in the norm, except on the pixels whose norm
+    that `sqrt` rounded off the correctly rounded root; there each
+    component is the unnormalised one over the correctly rounded norm."""
+    import hmrt_tpu_torch.types as types
+    # bench/configs.py's B3 camera over the 4096^2 map of seed 3 (its max
+    # 491.39999 and mean 359.84427)
+    cam = T.Camera.create(eye=(2048.0, -1024.0, 491.39999 + 4096 * 0.06),
+                          target=(2048.0, 2048.0, 359.84427), fov_y_deg=55.0, device="cpu")
+    _, got = cam.rays(36, 64)
+    seen = {}
+
+    def old_norm(v):
+        seen[v.dim()] = v
+        return _norm_f32_sqrt(v)
+
+    monkeypatch.setattr(types, "_norm", old_norm)
+    _, old = cam.rays(36, 64)
+    raw = seen[3]  # the unnormalised directions, (36, 64, 3)
+    s = raw[..., 0] * raw[..., 0] + raw[..., 1] * raw[..., 1] + raw[..., 2] * raw[..., 2]
+    moved = torch.from_numpy(torch.sqrt(s).numpy() != np.sqrt(s.numpy()))
+    keep = ~moved[..., None].expand_as(got)
+    assert torch.equal(got[keep].view(torch.int32), old[keep].view(torch.int32))
+    want = raw / torch.from_numpy(np.sqrt(s.numpy()))[..., None]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert int((got != old).sum()) <= 3 * int(moved.sum())
+
+
 def test_light_matches_jax():
     jl = JaxLight.create(sun_dir=(0.2, -0.5, 0.7))
     tl = T.Light.create(sun_dir=(0.2, -0.5, 0.7), device="cpu")

@@ -87,13 +87,16 @@ def _grazing_rays(n, dev, p=4096, seed=0):
                  for a in (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2]))
 
 
-@pytest.mark.parametrize("mode", ["l0", 4, 8, 16, "auto-l0", "auto-maxmip", "auto-relax"])
+@pytest.mark.parametrize("mode", ["l0", "l0-g1", "l0-g32", 4, 8, 16, "auto-l0", "auto-maxmip",
+                                  "auto-relax"])
 @pytest.mark.parametrize("ci", ["triangle", "bilinear", "flat"])
 def test_march_kernel_tail_modes_equal_plain(cuda, ci, mode):
-    """K1's level-0 tail (l0_only) and relaxed tail (relax=k), and both
+    """K1's level-0 tail (l0_only; its group chosen on the card, or forced
+    to one lane or 32 lanes a ray) and relaxed tail (relax=k), and both
     under a device flag, equal their plain versions in all 9 planes and in
     the counting instance's per-ray counts, from the state a budgeted
-    max-mip pass and force_level0 leave, on mixed and grazing rays."""
+    max-mip pass and force_level0 leave, on mixed and grazing rays; the
+    tally records the march each launch ran."""
     n = 1024
     sc = _scene(n, cuda)
     rays = tuple(torch.cat([a, b]) for a, b in zip(_rays(n, cuda), _grazing_rays(n, cuda)))
@@ -107,12 +110,20 @@ def test_march_kernel_tail_modes_equal_plain(cuda, ci, mode):
                "auto-relax": torch.tensor(True, device=cuda),
                "auto-maxmip": torch.tensor(False, device=cuda)}.get(mode, True)
     relax = mode if isinstance(mode, int) else 8 if mode == "auto-relax" else 0
+    group = int(mode[4:]) if isinstance(mode, str) and mode.startswith("l0-g") else "auto"
     cnt = torch.empty((2, p), dtype=torch.int32, device=cuda)
     before = march_pass.launches
+    march_pass.mode_launches.reset()
     sk, rk = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners,
-                        budget=UNBUDGETED, counts=cnt, l0_only=l0_only, relax=relax, **kw)
+                        budget=UNBUDGETED, counts=cnt, l0_only=l0_only, relax=relax, group=group,
+                        **kw)
     torch.cuda.synchronize()
     assert march_pass.launches == before + 1
+    ran = {k: v for k, v in march_pass.mode_launches.read().items() if v}
+    want = ({"relax"} if relax else {"maxmip"} if mode == "auto-maxmip"
+            else {"l0", "l0_g32"} if group == "auto"
+            else {{1: "l0", 32: "l0_g32"}[group]})
+    assert len(ran) == 1 and set(ran) <= want and sum(ran.values()) == 1, ran
     work = WorkCounter(sc.pyr_flat.shape[0], sc.n, cuda, lanes=p)
     sr, rr = march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights, budget=UNBUDGETED,
                                   counter=work, l0_only=l0_only, relax=relax, **kw)
@@ -149,49 +160,129 @@ def test_compact_tails_on_card(cuda, l0_tail):
     assert exact.hit.any()
 
 
-@pytest.mark.parametrize("p", [0, 1, 33, 300_000])
-def test_march_kernel_equals_plain_at_ray_counts(cuda, p):
-    """The persistent kernel on no ray, one ray, a warp and a lane, and more
-    rays than one resident wave of the card holds (132 SMs x 2,048 threads
-    is 270,336): all 9 planes equal, unbudgeted and at a budget that ends
-    rays inside a chunk."""
+#: K1's marches: max-mip, and the level-0 tail with its group forced to
+#: one lane or 32 lanes a ray, or chosen on the card
+MARCHES = ["maxmip", 1, 32, "auto"]
+
+
+def _march_kw(march, rays, st):
+    """(state, march_pass keywords) of a march of MARCHES: the level-0 tail
+    starts from force_level0 of the state."""
+    if march == "maxmip":
+        return st, {}
+    return force_level0(rays, st), dict(l0_only=True, group=march)
+
+
+@pytest.mark.parametrize("march", MARCHES)
+@pytest.mark.parametrize("p", [0, 1, 16, 31, 33, 4097, 300_000])
+def test_march_kernel_equals_plain_at_ray_counts(cuda, p, march):
+    """The persistent kernel on no ray, one ray, a warp and a lane, less
+    than a warp, and more rays than one resident wave of the card holds
+    (132 SMs x 2,048 threads is 270,336), in every march: all 9 planes
+    equal, unbudgeted and at a budget that ends rays inside a chunk and a
+    window."""
     sc = _scene(128, cuda)
     rays = _rays(128, cuda, p=max(p, 1), seed=5)
     rays = tuple(x[:p].contiguous() for x in rays)
     st = init_state(rays, None, sc.pyr_flat[-1], n=sc.n, m=sc.m, levels=sc.levels)
+    st, tail = _march_kw(march, rays, st)
     res = _empty_results(p, cuda)
     kw = dict(n=sc.n, m=sc.m, levels=sc.levels)
     for budget in (37, UNBUDGETED):
         before = march_pass.launches
         sk, rk = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners,
-                            budget=budget, **kw)
+                            budget=budget, **kw, **tail)
         torch.cuda.synchronize()
         assert march_pass.launches == before + (1 if p else 0)
         sr, rr = march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights,
-                                      budget=budget, **kw)
+                                      budget=budget, **kw, l0_only=bool(tail))
         for a, b in zip(sk + rk, sr + rr):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("march", MARCHES[:-1])
 @pytest.mark.parametrize("budget", [37, UNBUDGETED])
-def test_march_kernel_counts_equal_work_counter(cuda, budget):
-    """The counting instance: per-ray steps and cell tests equal the plain
-    version's per-lane counts, and the planes equal the timed instance's."""
+def test_march_kernel_counts_equal_work_counter(cuda, budget, march):
+    """The counting instance, in every march: per-ray steps and cell tests
+    equal the plain version's per-lane counts, and the planes equal the
+    timed instance's."""
     sc = _scene(1024, cuda)
     rays = _rays(1024, cuda, p=20_000, seed=6)
     st = init_state(rays, None, sc.pyr_flat[-1], n=sc.n, m=sc.m, levels=sc.levels)
+    st, tail = _march_kw(march, rays, st)
     res = _empty_results(20_000, cuda)
     kw = dict(n=sc.n, m=sc.m, levels=sc.levels, budget=budget)
     counts = torch.full((2, 20_000), -1, dtype=torch.int32, device=cuda)
-    got = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners, counts=counts, **kw)
-    timed = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners, **kw)
+    got = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners, counts=counts, **kw,
+                     **tail)
+    timed = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners, **kw, **tail)
     torch.cuda.synchronize()
     work = WorkCounter(sc.pyr_flat.shape[0], sc.n, cuda, lanes=20_000)
-    march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights, counter=work, **kw)
+    march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights, counter=work, **kw,
+                         l0_only=bool(tail))
     for a, b in zip(got[0] + got[1], timed[0] + timed[1]):
         assert torch.equal(a, b)
     assert torch.equal(counts[0], work.lane_steps) and torch.equal(counts[1], work.lane_tests)
     assert int(counts[0].sum()) == int(work.steps) and int(counts[1].sum()) == int(work.tests)
+
+
+@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("live", [0, 16, 5000])
+def test_march_kernel_wide_tail_launch_equals_plain(cuda, live, given):
+    """A tail launch shaped as the main path makes it: many lanes, few of
+    them live (B4's is 921,600 lanes with 16 live), its group chosen on the
+    card from the live-ray count, counted by the wrapper or handed in as
+    march_rounds hands it. All 9 planes and the per-ray counts equal the
+    plain version on the live lanes, the dead lanes come out as they came
+    with 0 steps, and the launch takes 32 lanes a ray while the live rays
+    are few and one lane a ray when none is live."""
+    sc = _scene(1024, cuda)
+    p = 300_000
+    rays = _rays(1024, cuda, p=p, seed=9)
+    st = init_state(rays, None, sc.pyr_flat[-1], n=sc.n, m=sc.m, levels=sc.levels)
+    st, res = march_pass(rays, st, _empty_results(p, cuda), sc.pyr_flat, sc.heights,
+                         sc.corners, n=sc.n, m=sc.m, levels=sc.levels, budget=24)
+    keep = torch.zeros(p, dtype=torch.bool, device=cuda)
+    keep[torch.nonzero(st[0] != 0).squeeze(1)[:live]] = True
+    st = force_level0(rays, (torch.where(keep, st[0], 0),) + st[1:])
+    assert int(st[0].sum()) == live
+    kw = dict(n=sc.n, m=sc.m, levels=sc.levels, budget=UNBUDGETED, l0_only=True,
+              n_alive=(st[0] != 0).sum() if given else None)
+    cnt = torch.empty((2, p), dtype=torch.int32, device=cuda)
+    march_pass.mode_launches.reset()
+    sk, rk = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners, counts=cnt, **kw)
+    ran = {k for k, v in march_pass.mode_launches.read().items() if v}
+    assert ran == ({"l0_g32"} if live else {"l0"}), ran
+    work = WorkCounter(sc.pyr_flat.shape[0], sc.n, cuda, lanes=p)
+    sr, rr = march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights, counter=work,
+                                  **{k: v for k, v in kw.items() if k != "n_alive"})
+    for a, b in zip(sk + rk, sr + rr):
+        assert torch.equal(a, b)
+    assert torch.equal(cnt[0], work.lane_steps) and torch.equal(cnt[1], work.lane_tests)
+
+
+@pytest.mark.parametrize("ci", ["triangle", "bilinear", "flat"])
+def test_latency_probe_equals_plain_walk(cuda, ci):
+    """The latency probe (csrc/l0_probe.cu) walks a ray's level-0 DDA as the
+    plain walk does on the card, past the march's end (a hit cell taken
+    again, records clamped past the edge): the same t, t_hit, cell, hit
+    and cell tests, and the wrapper counts each launch."""
+    from hmrt_tpu_torch.bench.latency import l0_walk, l0_walk_reference
+    sc = _scene(128, cuda)
+    rays = tuple(torch.cat([a, b]) for a, b in zip(_rays(128, cuda, p=64, seed=3),
+                                                   _grazing_rays(128, cuda, p=64)))
+    st = force_level0(rays, init_state(rays, None, sc.pyr_flat[-1], n=sc.n, m=sc.m,
+                                       levels=sc.levels))
+    for k in range(0, 128, 9):
+        one_r = tuple(x[k:k + 1].contiguous() for x in rays)
+        one_s = tuple(x[k:k + 1].contiguous() for x in st)
+        for steps in (0, 1, 40, 300):
+            before = l0_walk.launches
+            got = l0_walk(one_r, one_s, sc, steps=steps, cell_intersect=ci)
+            assert l0_walk.launches == before + 1
+            want = l0_walk_reference(one_r, one_s, sc, steps=steps, cell_intersect=ci)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (k, steps)
 
 
 @pytest.mark.parametrize("bad", ["shape", "dtype", "strided", "misaligned"])
