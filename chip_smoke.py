@@ -71,14 +71,17 @@ entry points:
   - the grazing tail (phase 16): march_pass's level-0 tail at one lane and
     32 lanes a ray on ~8,192 of B3's tail rays and on B4's 16, and its
     relaxed tail at strides 4, 8 and 16 on B3's, against their plain
-    versions (all 9 planes and the per-ray counts exact), timed beside
-    their plain versions and bounds, with the warp efficiency of B3's tail
-    at one lane a ray (B4's main path must have taken the group march,
-    phase 11); B4's tail launch and B3's shadow tail launch as the main
-    path makes them, at their full width, replayed with every lane group
-    against the plain version on their live lanes; B4's latency bound by
-    group from the probe bench/latency.py (one dependent record load and
-    cell test a step, on one lane); the relaxed tail's fidelity and
+    versions (all 9 planes and the per-ray counts exact; the level-0
+    tail's hits also against the old walk, every cell tested, with its
+    steps beside the new), timed beside their plain versions and bounds,
+    with the warp efficiency of B3's tail at one lane a ray (B4's main path
+    must have taken the march of one lane a ray, phase 11); B3's primary and shadow
+    tail launches and B4's as the main path makes them, at their full
+    width, replayed with every lane group against the plain version of the
+    march each ran on their live lanes and against the old walk's hits;
+    the min pyramid's MB; B4's latency bound, the least of the two
+    marches' chains of dependent steps at the time of one step of the probe
+    bench/latency.py (one dependent record load and cell test); the relaxed tail's fidelity and
     time on full B3 and B4 frames (bench/fidelity.py: no false hit
     anywhere, B3's mismatch at most 1e-3); the longest per-ray step chain of the tail
     launch on B3 and B4 with each tail; the runner's B2, B3 and B4 rows with
@@ -1216,18 +1219,28 @@ def tail_survivors(scene, cam, cfg, count: int = TAIL_RAYS):
             alive.numel())
 
 
-def plain_tail(rays, state, results, scene, relax, counter, cell_intersect="triangle"):
-    """The plain version of an unbudgeted tail pass, as march_pass_reference
-    runs it (l0_step, or l0_step_relaxed when `relax` is set), with `relax`
-    an int or an int32 tensor of one stride per ray: a stride enters the
-    step only as the f32 product stride * min|1/d|, the same bits either way.
-    Returns (state, results) planes."""
+def plain_tail(rays, state, results, scene, relax, counter, cell_intersect="triangle",
+               group=1):
+    """The plain version of an unbudgeted tail pass: the exact tail as
+    march_pass_reference runs it for `group` (1: one lane a ray, passing
+    under the terrain by blocks; 32: the lane groups' walk, cell by cell to
+    the floor), "old" for the old walk (l0_step over every cell, whose hits
+    every form must give), or l0_step_relaxed when `relax` is set, with
+    `relax` an int or an int32 tensor of one stride per ray: a stride enters
+    the step only as the f32 product stride * min|1/d|, the same bits either
+    way. Returns (state, results) planes."""
     import torch
     from hmrt_tpu_torch.traversal.intersect import INTERSECTORS, SURFACES
     from hmrt_tpu_torch.traversal.march import (l0_step, l0_step_relaxed, ray_box_range,
                                                 ray_inverses, record_corners, relaxed_planes,
                                                 run_masked)
-    from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED
+    from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass_reference
+    if not (isinstance(relax, torch.Tensor) or relax) and group != "old":
+        return march_pass_reference(rays, state, results, scene.pyr_flat, scene.heights,
+                                    n=scene.n, m=scene.m, levels=scene.levels,
+                                    budget=UNBUDGETED, cell_intersect=cell_intersect,
+                                    counter=counter, l0_only=True, group=group,
+                                    pyr_min=scene.pyr_min_flat)
     ox, oy, oz, dx, dy, dz = rays
     inv_x, inv_y = ray_inverses(dx, dy)
     _, t1, _ = ray_box_range(ox, oy, dx, dy, float(scene.n - 1))
@@ -1256,16 +1269,18 @@ def plain_tail(rays, state, results, scene, relax, counter, cell_intersect="tria
 TAIL_GROUPS = (("l0", 1), ("l0_g32", 32))
 
 
-def hold_tail(label, tail, scene, plain, run_kw, card):
+def hold_tail(label, tail, scene, plain, run_kw, card, old=None):
     """One instance of K1's tail (`run_kw`: relax, group) against the plain
     tail on the same rays: its counting and timed launches must equal the
     plain planes and per-ray counts exactly. `tail` is (rays, state,
     results); `plain` is (out, WorkCounter, plain ms, lanes of the plain
-    run that are these rays). Returns the kernels line's entry: error, ms,
-    plain ms, bound, steps, tests, the longest ray, hits, and the per-ray
-    steps (key "lane_steps", dropped before printing)."""
+    run that are these rays). `old`: the old walk's (out, WorkCounter), on
+    the same lanes, whose hit, t_hit, hx and hy the instance must give.
+    Returns the kernels line's entry: error, ms, plain ms, bound, steps,
+    tests, the longest ray, hits, and the per-ray steps (key "lane_steps",
+    dropped before printing)."""
     import torch
-    from hmrt_tpu_torch.bench.floor import MARCH_PLANE_BYTES, OPS_PER_STEP, OPS_PER_TEST, bound
+    from hmrt_tpu_torch.bench.floor import OPS_PER_STEP, OPS_PER_TEST, bound, march_bytes
     from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass
     t_rays, t_state, t_res = tail
     out, work, plain_ms, lanes = plain
@@ -1274,7 +1289,7 @@ def hold_tail(label, tail, scene, plain, run_kw, card):
     want = tuple(x[lanes] for x in out[0]), tuple(x[lanes] for x in out[1])
     steps, tests = work.lane_steps[lanes], work.lane_tests[lanes]
     kw = dict(n=scene.n, m=scene.m, levels=scene.levels, budget=UNBUDGETED, l0_only=True,
-              **run_kw)
+              pyr_min=scene.pyr_min_flat, **run_kw)
     args = (t_rays, t_state, t_res, scene.pyr_flat, scene.heights, scene.corners)
     cnt = torch.empty((2, p), dtype=torch.int32, device=dev)
     counted = march_pass(*args, counts=cnt, **kw)
@@ -1290,19 +1305,31 @@ def hold_tail(label, tail, scene, plain, run_kw, card):
     if not (torch.equal(cnt[0], steps) and torch.equal(cnt[1], tests)):
         raise AssertionError(f"march_pass {label}: counting instance differs from the plain "
                              "WorkCounter")
+    old_note = ""
+    if old is not None:
+        old_res = tuple(x[lanes] for x in old[0][1])
+        for name, a, b in zip(RESULTS, timed[1], old_res):
+            if not torch.equal(a, b):
+                raise AssertionError(f"march_pass {label}: {name} differs from the old walk's "
+                                     f"on {int((a != b).sum())} lanes")
+        old_steps = int(old[1].lane_steps[lanes].sum(dtype=torch.int64))
+        old_note = (f"; hit, t_hit and cells equal the old walk's, whose {old_steps} steps and "
+                    f"{int(old[1].lane_tests[lanes].sum(dtype=torch.int64))} cell tests fall to")
     ms = kernel_ms(lambda: march_pass(*args, **kw), "march_pass_kernel", 10)
     n_steps, n_tests = int(steps.sum(dtype=torch.int64)), int(tests.sum(dtype=torch.int64))
-    # bytes: the ray planes and, for a bound, every distinct terrain value
-    # the plain loop read (all strides together for the relaxed)
-    b = bound(p * MARCH_PLANE_BYTES + work.unique_bytes(),
+    # bytes: the lanes' planes and, for a bound, every distinct terrain
+    # value the plain loop read (all strides together for the relaxed)
+    b = bound(march_bytes(p, int(torch.count_nonzero(cnt[0]))) + work.unique_bytes(),
               n_steps * OPS_PER_STEP + n_tests * OPS_PER_TEST)
     entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
              "bound_by": b[1], "library_ms": None, "steps": n_steps, "tests": n_tests,
              "longest": int(cnt[0].max()), "hits": int(want[1][0].sum()), "lane_steps": cnt[0]}
+    if old is not None:
+        entry["old_steps"] = old_steps
     log(f"  march_pass {label} on {p} tail rays: 9 planes and per-ray counts equal the plain "
-        f"tail's; {entry['hits']} hits, {n_steps} steps (longest ray {entry['longest']}), "
-        f"{n_tests} cell tests; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
-        f"{b[0]:.4f} ms ({b[1]})  [{card}]")
+        f"tail's{old_note}; {entry['hits']} hits, {n_steps} steps (longest ray "
+        f"{entry['longest']}), {n_tests} cell tests; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {b[0]:.4f} ms ({b[1]})  [{card}]")
     return entry
 
 
@@ -1326,11 +1353,12 @@ def tail_launches(render, march_pass) -> list:
     return seen
 
 
-def live_plain(launch, scene):
+def live_plain(launch, scene, group=1):
     """The plain version of a captured march_pass launch (tail_launches) on
     its live lanes alone: march_pass_reference with the launch's arguments
-    (the level-0 tail, or the max-mip pass when its "auto" flag reads
-    false) and a WorkCounter. Returns (the live lanes' indices, their
+    (the level-0 tail as `group` marches it, 1 or 32, or the max-mip pass
+    when its "auto" flag reads false; "old" for the old walk, l0_step over
+    every cell) and a WorkCounter. Returns (the live lanes' indices, their
     (rays, state, results), their plain (state, results), the WorkCounter,
     the plain run's ms)."""
     import torch
@@ -1343,62 +1371,94 @@ def live_plain(launch, scene):
     work = WorkCounter(scene.pyr_flat.shape[0], scene.n, live.device, lanes=live.numel())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = march_pass_reference(*sub, scene.pyr_flat, scene.heights, counter=work,
-                               **{k: kw[k] for k in ("n", "m", "levels", "budget",
-                                                     "cell_intersect", "clip", "l0_only",
-                                                     "relax")})
+    if group == "old":
+        out = plain_tail(*sub, scene, 0, work, kw["cell_intersect"], group="old")
+    else:
+        out = march_pass_reference(*sub, scene.pyr_flat, scene.heights, counter=work,
+                                   group=group, **{k: kw[k] for k in (
+                                       "n", "m", "levels", "budget", "cell_intersect", "clip",
+                                       "l0_only", "relax", "pyr_min")})
     torch.cuda.synchronize()
     return live, sub, out, work, 1e3 * (time.perf_counter() - t0)
 
 
-def hold_launch(label, launch, plain, card) -> dict:
+def hold_launch(label, launch, plains, card, old=None) -> dict:
     """A tail launch as the main path made it (tail_launches), at its full
     width, replayed with every lane group: "auto" and each of TAIL_GROUPS.
-    Its counting and its timed launch must equal the plain version in all
-    9 planes and in the per-ray counts: on the live lanes the plain run of
-    `plain` (live_plain), the dead lanes as they came with 0 steps and 0
-    tests, which is what the plain version leaves them. A forced group must
-    run its instance (march_pass.mode_launches), or max-mip when the
-    launch's flag reads false. Returns the rays, the live rays, the plain
-    ms and, by group, the kernel's ms and the instance it ran."""
+    Its counting and its timed launch must equal the plain version of the
+    march it ran in all 9 planes and in the per-ray counts: on the live
+    lanes the plain run in `plains` (live_plain) under the instance's name
+    ("l0", "l0_g32", or "maxmip" for a launch whose flag reads false), the
+    dead lanes as they came with 0 steps and 0 tests, which is what the
+    plain version leaves them. Each group must run its instance ("auto":
+    one lane a ray; march_pass.mode_launches), or max-mip when the
+    launch's flag reads false. `old`: the old walk's live_plain, whose hit, t_hit, hx and hy
+    every group must give. Returns the rays, the live rays, the plain ms
+    and, by group, the kernel's ms, the instance it ran and its steps and
+    cell tests, and the warp efficiency of one lane a ray."""
     import torch
     from hmrt_tpu_torch.kernels.march_pass import march_pass
     args, kw = launch
-    live, _, out, work, plain_ms = plain
     p = args[0][0].shape[0]
-    want = tuple(x.clone().index_copy_(0, live, o)
-                 for x, o in zip(args[1] + args[2], out[0] + out[1]))
-    want_cnt = torch.zeros((2, p), dtype=torch.int32, device=live.device)
-    want_cnt[0].index_copy_(0, live, work.lane_steps)
-    want_cnt[1].index_copy_(0, live, work.lane_tests)
+    live = next(iter(plains.values()))[0]
     tail = bool(kw["l0_only"])
     entry = {"rays": p, "live": int(live.numel()), "tail": tail, "max_abs_err": 0.0,
-             "plain_ms": plain_ms}
+             "plain_ms": {k: v[4] for k, v in plains.items()}}
     for group in ("auto", *(g for _, g in TAIL_GROUPS)):
         kw_g = {**kw, "group": group}
-        cnt = torch.empty_like(want_cnt)
+        cnt = torch.empty((2, p), dtype=torch.int32, device=live.device)
         march_pass.mode_launches.reset()
         got = (march_pass(*args, **{**kw_g, "counts": cnt}), march_pass(*args, **kw_g))
         ran = [k for k, v in march_pass.mode_launches.read().items() if v]
+        may = (("maxmip",) if not tail else ("l0",) if group == "auto"
+               else tuple(k for k, g in TAIL_GROUPS if g == group))
+        if len(ran) != 1 or ran[0] not in may:
+            raise AssertionError(f"{label}, group {group}: the launches ran {ran}, not one "
+                                 f"of {may}")
+        _, _, out, work, _ = plains[ran[0]]
+        want = tuple(x.clone().index_copy_(0, live, o)
+                     for x, o in zip(args[1] + args[2], out[0] + out[1]))
+        want_cnt = torch.zeros((2, p), dtype=torch.int32, device=live.device)
+        want_cnt[0].index_copy_(0, live, work.lane_steps)
+        want_cnt[1].index_copy_(0, live, work.lane_tests)
         for planes in got:
             for name, a, b in zip(STATE + RESULTS, planes[0] + planes[1], want):
                 if not torch.equal(a, b):
                     raise AssertionError(f"{label}, group {group}: plane {name} differs from "
                                          f"the plain version on {int((a != b).sum())} lanes")
+            if old is not None:
+                old_want = tuple(x.clone().index_copy_(0, live, o)
+                                 for x, o in zip(args[2], old[2][1]))
+                for name, a, b in zip(RESULTS, planes[1], old_want):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{label}, group {group}: {name} differs from "
+                                             f"the old walk's on {int((a != b).sum())} lanes")
         if not torch.equal(cnt, want_cnt):
             raise AssertionError(f"{label}, group {group}: per-ray counts differ from the "
                                  "plain WorkCounter")
-        may = (("maxmip",) if not tail else tuple(k for k, g in TAIL_GROUPS)
-               if group == "auto" else tuple(k for k, g in TAIL_GROUPS if g == group))
-        if len(ran) != 1 or ran[0] not in may:
-            raise AssertionError(f"{label}, group {group}: the launches ran {ran}, not one "
-                                 f"of {may}")
         entry[str(group)] = {"ms": kernel_ms(lambda: march_pass(*args, **kw_g),
-                                             "march_pass_kernel", 5), "ran": ran[0]}
+                                             "march_pass_kernel", 5), "ran": ran[0],
+                             "steps": int(cnt[0].sum(dtype=torch.int64)),
+                             "tests": int(cnt[1].sum(dtype=torch.int64))}
+        if group == 1 and tail and live.numel():
+            lane = cnt[0].index_select(0, live)
+            entry["warp_efficiency_one_lane"] = warp_efficiency(
+                [lane], lambda st: torch.nn.functional.pad(st, (0, -st.shape[0] % 32))
+                .reshape(-1, 32))
+    if old is not None:
+        entry["old_steps"] = int(old[3].steps)
+        entry["old_tests"] = int(old[3].tests)
     log(f"  {label}: {p} lanes, {entry['live']} live, flag {tail}; 9 planes and per-ray "
-        f"counts equal the plain version (live lanes {plain_ms:.1f} ms) with every group; "
-        + ", ".join(f"{g} ({entry[g]['ran']}) {entry[g]['ms']:.4f} ms"
-                    for g in entry if g in ("auto", "1", "32"))
+        f"counts equal the plain version of the march each group ran ("
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in entry["plain_ms"].items()) + ")"
+        + ("" if old is None else
+           f"; hit, t_hit and cells equal the old walk's ({entry['old_steps']} steps, "
+           f"{entry['old_tests']} cell tests)")
+        + "; " + ", ".join(f"{g} ({entry[g]['ran']}) {entry[g]['ms']:.4f} ms, "
+                           f"{entry[g]['steps']} steps, {entry[g]['tests']} tests"
+                           for g in entry if g in ("auto", "1", "32"))
+        + (f"; one lane a ray keeps {100 * entry['warp_efficiency_one_lane']:.1f}% of its "
+           "warps' lanes busy" if "warp_efficiency_one_lane" in entry else "")
         + f"  [{card}]")
     return entry
 
@@ -1466,13 +1526,18 @@ def grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4
         ox + t * dx - icx.to(torch.float32), oy + t * dy - icy.to(torch.float32), *z)
     log(f"B3 tail: {n_surv} rays alive after pass 0 and the first sorted round; {p} of them, "
         f"forced to level 0 and sorted by column; {int(under.sum())} of those stand below "
-        f"the surface")
-    # the plain versions: the level-0 tail, and the relaxed tail at every
-    # stride in one masked loop over the rays repeated once per stride (the
-    # plain loop's time is its launches, whatever its width), each with its
-    # WorkCounter; plain_ms is that loop's time
+        f"the surface; the min pyramid the tail reads: "
+        f"{scene.pyr_min_flat.numel() * 4 / 1e6:.1f} MB")
+    # the plain versions: the level-0 tail of each instance (one lane a ray
+    # under the terrain by blocks; 32 lanes a ray cell by cell to the
+    # floor), the old walk (every cell, no min pyramid: the hits all must
+    # give), and the relaxed tail at every stride in one masked loop over
+    # the rays repeated once per stride (the plain loop's time is its
+    # launches, whatever its width), each with its WorkCounter; plain_ms is
+    # that loop's time
     plain = {}
-    for label, relax in (("l0", 0), ("relax", STRIDES)):
+    for label, relax, group in (("l0", 0, 1), ("l0_g32", 0, 32), ("old", 0, "old"),
+                                ("relax", STRIDES, 1)):
         if relax:
             rep = len(STRIDES)
             rays_p = tuple(torch.cat([r] * rep) for r in t_rays)
@@ -1484,14 +1549,15 @@ def grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4
         work = WorkCounter(scene.pyr_flat.shape[0], scene.n, dev, lanes=rays_p[0].shape[0])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = plain_tail(rays_p, state_p, res_p, scene, relax, work, cfg.cell_intersect)
+        out = plain_tail(rays_p, state_p, res_p, scene, relax, work, cfg.cell_intersect,
+                         group)
         torch.cuda.synchronize()
         plain[label] = (out, work, 1e3 * (time.perf_counter() - t0))
     modes = {}
     tail3 = (t_rays, t_state, t_res)
     for label, group in TAIL_GROUPS:
-        modes[label] = hold_tail(label, tail3, scene, (*plain["l0"], slice(None)),
-                                 dict(group=group), card)
+        modes[label] = hold_tail(label, tail3, scene, (*plain[label], slice(None)),
+                                 dict(group=group), card, old=plain["old"][:2])
     for k in STRIDES:  # this stride's copy of the rays in the batched plain loop
         i = STRIDES.index(k)
         modes[f"relax{k}"] = hold_tail(f"relax{k}", tail3, scene,
@@ -1504,33 +1570,53 @@ def grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4
     log(f"  B3 tail, one lane a ray: warps of 32 sorted tail rays keep {100 * eff:.1f}% of "
         f"their lanes busy  [{card}]")
 
-    # the main path's own tail launches at their full width: B3's shadow
-    # tail (its flag reads false, no ray being left; and forced, so that
-    # each group's sweep of the dead rays runs) and B4's (16 live rays)
+    # the main path's own tail launches at their full width: B3's primary
+    # tail (513,374 live rays), B3's shadow tail (its flag reads false, no
+    # ray being left; and forced, so that each group's sweep of the dead
+    # rays runs) and B4's (16 live rays), each against the plain version of
+    # the march each group ran and in hits against the old walk
+    def plains(launch, sc):
+        if not bool(launch[1]["l0_only"]):
+            return {"maxmip": live_plain(launch, sc)}
+        return {label: live_plain(launch, sc, group) for label, group in TAIL_GROUPS}
+
+    def old_walk(launch, sc):  # a launch whose flag reads false runs no tail
+        return live_plain(launch, sc, "old") if bool(launch[1]["l0_only"]) else None
+
     launches3 = tail_launches(lambda: T.render_frame(scene, cam, cfg), march_pass)
     if len(launches3) != 2:
         raise AssertionError(f"B3's frame made {len(launches3)} tail launches, not 2")
-    shadow3 = launches3[1]
+    primary3, shadow3 = launches3
     forced3 = (shadow3[0], {**shadow3[1], "l0_only": True})
-    held = {"B3 shadow": hold_launch("B3 shadow tail launch", shadow3,
-                                     live_plain(shadow3, scene), card),
+    held = {"B3 primary": hold_launch("B3 primary tail launch", primary3,
+                                      plains(primary3, scene), card,
+                                      old=old_walk(primary3, scene)),
+            "B3 shadow": hold_launch("B3 shadow tail launch", shadow3, plains(shadow3, scene),
+                                     card),
             "B3 shadow, tail forced": hold_launch("B3 shadow tail launch, tail forced",
-                                                  forced3, live_plain(forced3, scene), card)}
+                                                  forced3, plains(forced3, scene), card,
+                                                  old=old_walk(forced3, scene))}
     launches4 = tail_launches(lambda: T.render_frame(scene4, cam40, cfg4), march_pass)
     if len(launches4) != 1:
         raise AssertionError(f"B4's frame made {len(launches4)} tail launches, not 1")
-    plain4 = live_plain(launches4[0], scene4)
-    held["B4"] = hold_launch("B4 orbit frame 0 tail launch", launches4[0], plain4, card)
-    # its live rays alone (the frame's longest), held the same way, and the
-    # latency bound of their launch by group: the longest chain's windows,
-    # each at least one step of the probe (bench/latency.py: one lane, each
-    # record load waiting on the previous cell's test)
-    _, (r4, s4, res4), out4, work4, plain4_ms = plain4
+    plain4 = plains(launches4[0], scene4)
+    old4 = old_walk(launches4[0], scene4)
+    held["B4"] = hold_launch("B4 orbit frame 0 tail launch", launches4[0], plain4, card,
+                             old=old4)
+    # its live rays alone, held the same way, and the latency bound of
+    # their launch by group: the longest chain of cells (the lane groups'
+    # walk) over G windows, each at least one step of the probe
+    # (bench/latency.py: one lane, each record load waiting on the previous
+    # cell's test)
+    _, (r4, s4, res4), _, _, _ = plain4["l0"]
     b4_modes = {label: hold_tail(f"{label} (B4)", (r4, s4, res4), scene4,
-                                 (out4, work4, plain4_ms, slice(None)), dict(group=group), card)
+                                 (*plain4[label][2:], slice(None)), dict(group=group), card,
+                                 old=old4[2:4])
                 for label, group in TAIL_GROUPS}
-    longest = int(torch.argmax(b4_modes["l0"]["lane_steps"]))
-    chain = int(b4_modes["l0"]["lane_steps"][longest])
+    out4 = plain4["l0_g32"][2]
+    work4 = plain4["l0_g32"][3]
+    longest = int(torch.argmax(b4_modes["l0_g32"]["lane_steps"]))
+    chain = int(b4_modes["l0_g32"]["lane_steps"][longest])
     one = tuple(tuple(x[longest:longest + 1].contiguous() for x in planes)
                 for planes in (r4, s4, res4))
     walk_kw = dict(steps=chain, cell_intersect=cfg4.cell_intersect)
@@ -1548,20 +1634,27 @@ def grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4
                          5)
     step_us = 1e3 * probe_ms / chain
     kw1 = dict(n=scene4.n, m=scene4.m, levels=scene4.levels, budget=UNBUDGETED, l0_only=True,
-               group=1)
+               group=1, pyr_min=scene4.pyr_min_flat)
     one_ms = kernel_ms(lambda: march_pass(*one, scene4.pyr_flat, scene4.heights,
                                           scene4.corners, **kw1), "march_pass_kernel", 5)
     log(f"  B4 tail's longest ray, {chain} cells: the probe walks it in {probe_ms:.4f} ms "
         f"({step_us:.4f} us a dependent record load and cell test) and ends in the march's "
         f"state; march_pass at one lane a ray on it alone {one_ms:.4f} ms  [{card}]")
+    # each march's chain of dependent steps on the longest ray (one lane a
+    # ray: its own steps; 32 lanes: the chain of cells, 32 a window); the
+    # launch's latency bound is the least of them, whichever march runs it
+    windows = {label: -(-(chain if group > 1 else b4_modes[label]["longest"]) // group)
+               for label, group in TAIL_GROUPS}
+    least = min(windows.values()) * step_us / 1e3
     for label, group in TAIL_GROUPS:
         e = b4_modes[label]
-        e["latency_bound_ms"] = -(-chain // group) * step_us / 1e3
+        e["own_latency_ms"] = windows[label] * step_us / 1e3
+        e["latency_bound_ms"] = least
         e["probe_us_per_step"] = step_us
         e["one_ray_ms"] = one_ms
         log(f"  B4 tail, {group} lane(s) a ray: {e['ms']:.4f} ms against a latency bound of "
-            f"{e['latency_bound_ms']:.4f} ms ({-(-chain // group)} windows of the longest "
-            f"chain at {step_us:.4f} us)  [{card}]")
+            f"{least:.4f} ms (its own chain: {windows[label]} dependent steps of the longest "
+            f"ray at {step_us:.4f} us, {e['own_latency_ms']:.4f} ms)  [{card}]")
     for label, _ in TAIL_GROUPS:
         modes[label]["launches"] = main_modes["B3"][label]
         modes[label]["b4_launches"] = main_modes["B4"][label]
@@ -1673,7 +1766,8 @@ def main(argv=None) -> int:
     from hmrt_tpu_torch.api.flythrough import frame_camera, orbit_flythrough
     from hmrt_tpu_torch.bench.configs import BENCH_CONFIGS, bench_albedo, bench_scene
     from hmrt_tpu_torch.bench.floor import (OPS_PER_ALBEDO, OPS_PER_PIXEL, OPS_PER_SHADE,
-                                            OPS_PER_STEP, OPS_PER_TEST, bound, count_frame)
+                                            OPS_PER_STEP, OPS_PER_TEST, bound, count_frame,
+                                            march_bytes)
     from hmrt_tpu_torch.bench.runner import ROW_KEYS, run_bench
     from hmrt_tpu_torch.core.renderer import render_frame_oracle
     from hmrt_tpu_torch.io import native
@@ -1847,8 +1941,10 @@ def main(argv=None) -> int:
     march_ms = kernel_ms(lambda: march_pass(*args, **kw), "march_pass_kernel", 10)
     march_call_ms = event_ms(lambda: march_pass(*args, **kw), 10)
     march_plain_ms = event_ms(lambda: march_pass_reference(*args[:5], **kw), 1)
-    # bytes: 15 planes in, 9 out, and the distinct pyramid and height values read
-    k1_bound = bound(N_SAMPLE * 4 * (15 + 9) + work_k1.unique_bytes(),
+    # bytes: the lanes' planes (15 in and 9 out for a live ray, 9 and 9 for
+    # a dead lane), and the distinct pyramid and height values read
+    k1_bound = bound(march_bytes(N_SAMPLE, int(torch.count_nonzero(cnt[0])))
+                     + work_k1.unique_bytes(),
                      int(work_k1.steps) * OPS_PER_STEP + int(work_k1.tests) * OPS_PER_TEST)
     log(f"march_pass, {N_SAMPLE} B3 primary rays unbudgeted: kernel {march_ms:.3f} ms "
         f"(wrapper call {march_call_ms:.3f} ms), plain {march_plain_ms:.3f} ms; {int(work_k1.steps)} steps, {int(work_k1.tests)} "
@@ -2192,6 +2288,7 @@ def main(argv=None) -> int:
     log(f"  without the level-0 tail (l0_tail=False): {sum(tot_mm[0])} steps, "
         f"{sum(tot_mm[1])} cell tests; per launch {tot_mm[0]}")
     k1_frame_bound = fc3.bound()
+    k1_tail_bound = fc3.launch_bound(n_primary - 1)
 
     def warps_of(st):
         return torch.nn.functional.pad(st, (0, -st.shape[0] % 32)).reshape(-1, 32)
@@ -2202,7 +2299,9 @@ def main(argv=None) -> int:
     log(f"march_pass, the full B3 frame: {sum(tot[0])} steps, {sum(tot[1])} cell tests over "
         f"{len(k1_counts)} launches; primary rays {prim_steps / p:.1f} steps per pixel, "
         f"{prim_steps / max(entered, 1):.1f} per ray that stepped ({entered}); bound "
-        f"{k1_frame_bound[0]:.4f} ms ({k1_frame_bound[1]}) against {k1_frame_ms:.4f} ms; "
+        f"{k1_frame_bound[0]:.4f} ms ({k1_frame_bound[1]}) against {k1_frame_ms:.4f} ms, the "
+        f"primary tail launch's {k1_tail_bound[0]:.4f} ms ({k1_tail_bound[1]}; live lanes "
+        f"{fc3.live()}); "
         f"one thread per ray, 32 lanes in launch order, would keep {100 * k1_eff:.1f}% of "
         f"its lanes busy  [{card}]")
 
@@ -2246,7 +2345,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     b4_build_s = time.perf_counter() - t0
     sizes = {"heights": scene4.heights, "pyramid": scene4.pyr_flat,
-             "corner records": scene4.corners, "gx, gy": (scene4.gx, scene4.gy),
+             "min pyramid": scene4.pyr_min_flat, "corner records": scene4.corners, "gx, gy": (scene4.gx, scene4.gy),
              "planar albedo": scene4.albedo, "shade records": scene4.shade_rec,
              "albedo records": scene4.albedo_rec}
     mb = {k: sum(x.numel() * x.element_size() for x in (v if isinstance(v, tuple) else (v,)))
@@ -2261,8 +2360,8 @@ def main(argv=None) -> int:
                    ("march_pass", "shade_pass"), ("render_tile",))
     b4_launches = paths["B4 main path (render_frame, auto, orbit frame 0)"]
     b4_marches = mode_paths["B4 main path (render_frame, auto, orbit frame 0)"]
-    if not b4_marches["l0_g32"]:
-        raise AssertionError(f"B4's tail launch took no lane group: {b4_marches}")
+    if not b4_marches["l0"] or b4_marches["l0_g32"]:
+        raise AssertionError(f"B4's tail launch did not march one lane a ray: {b4_marches}")
     b4_frac = check_frame("B4 orbit frame 0", fr4, cfg4)
     b4_ms, b4_times = median_ms(lambda: T.render_frame(scene4, cam40, cfg4), 5)
     log_rate("B4 orbit frame 0", b4_ms, b4_times, cfg4, b4_frac)

@@ -1,9 +1,10 @@
 """Scene construction on the card, or on the device the caller names.
 
 Counterpart of `hmrt_tpu/api/scene.py`: upload the height grid, build the
-max pyramid there, precompute the per-sample gradient planes, and pack the
-per-cell shade records that the shade kernel reads. Everything stays
-resident across frames.
+max pyramid there (and the min pyramid the CUDA level-0 tail reads),
+precompute the per-sample gradient planes, and pack the per-cell shade
+records that the shade kernel reads. Everything stays resident across
+frames.
 """
 
 from __future__ import annotations
@@ -11,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hmrt_tpu_torch.core.pyramid import (build_pyramid_flat, corner_records, next_pow2,
-                                         num_levels)
+from hmrt_tpu_torch.core.pyramid import (build_min_pyramid_flat, build_pyramid_flat,
+                                         corner_records, next_pow2, num_levels)
 from hmrt_tpu_torch.device import resolve
 from hmrt_tpu_torch.types import Camera, Light, Scene
 
@@ -85,7 +86,8 @@ def make_scene(heights, albedo=None, light: Light | None = None,
     gx, gy = corner_grads(ht)
     alb = None if albedo is None else _planar_albedo(albedo, n, device)
     shade_rec, albedo_rec = shade_records(gx, gy, alb)
-    return Scene(heights=ht, pyr_flat=build_pyramid_flat(ht), corners=corner_records(ht, m),
+    return Scene(heights=ht, pyr_flat=build_pyramid_flat(ht),
+                 pyr_min_flat=build_min_pyramid_flat(ht), corners=corner_records(ht, m),
                  albedo=alb, light=light if light is not None else Light.create(device=device),
                  gx=gx, gy=gy, shade_rec=shade_rec, albedo_rec=albedo_rec, n=n, m=m,
                  levels=num_levels(m))
@@ -99,7 +101,8 @@ def scene_from_arrays(heights, pyr_flat, albedo, light: dict, *, n: int,
                       m: int, levels: int, device=None) -> Scene:
     """A Scene from the numpy arrays of another package's scene (heights,
     flat pyramid, planar albedo or None, and a dict of the light's five
-    vectors), so both packages render the very same state."""
+    vectors), so both packages render the very same state. The min
+    pyramid, which the other package does not have, is built here."""
     device = resolve(device)
     ht = _tensor(heights, device)
     if ht.shape != (n, n):
@@ -108,7 +111,8 @@ def scene_from_arrays(heights, pyr_flat, albedo, light: dict, *, n: int,
     alb = None if albedo is None else _tensor(albedo, device)
     shade_rec, albedo_rec = shade_records(gx, gy, alb)
     return Scene(heights=ht, pyr_flat=_tensor(pyr_flat, device),
-                 corners=corner_records(ht, m), albedo=alb,
+                 pyr_min_flat=build_min_pyramid_flat(ht), corners=corner_records(ht, m),
+                 albedo=alb,
                  light=Light(**{k: _tensor(light[k], device) for k in
                                 ("sun_dir", "sun_color", "sky_top",
                                  "sky_horizon", "fog_color")}),

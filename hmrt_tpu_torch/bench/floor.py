@@ -8,7 +8,8 @@ launch; on a CPU scene the plain version counts them with `WorkCounter`.
 Under the max-mip march each ray's steps do not depend on the schedule (a
 per-ray budget composes), so the totals are a property of the scene, the
 camera and the exact algorithm; a forced level-0 tail (`l0_tail`) changes
-them.
+them, and so does its lane group: one lane a ray passes under whole blocks
+of the min pyramid, 32 lanes a ray step cell by cell (kernels/march_pass.py).
 
 The bound is the least time the card could take for that march: the
 larger of the bytes it must move over the memory rate and its operations
@@ -36,8 +37,16 @@ OPS_PER_TEST = 50    # the exact triangle test of a level-0 cell
 OPS_PER_SHADE = 40   # shade_lane of shade_common.cuh on a hit
 OPS_PER_ALBEDO = 40  # its three bilinear albedo samples on a textured hit
 OPS_PER_PIXEL = 150  # render_tile.cu outside the marches: raygen, box, shade, colour
-#: march_pass moves per ray 15 planes in (rays, state, results) and 9 out
+#: march_pass moves per live ray 15 planes in (rays, state, results) and 9
+#: out; a dead lane reads no ray plane, so 9 in (state, results) and 9 out
 MARCH_PLANE_BYTES = 4 * (15 + 9)
+MARCH_DEAD_BYTES = 4 * (9 + 9)
+
+
+def march_bytes(p: int, live: int) -> int:
+    """The bytes one march_pass launch over `p` lanes, `live` of them alive,
+    must move."""
+    return live * MARCH_PLANE_BYTES + (p - live) * MARCH_DEAD_BYTES
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -58,11 +67,23 @@ class FrameCounts:
         """Per launch, the sum of `row` (0: steps, 1: cell tests)."""
         return [int(c[row].sum(dtype=torch.int64)) for c in self.counts]
 
+    def live(self) -> list[int]:
+        """Per launch, the lanes alive when it started: those that took a
+        step (a live ray takes at least one, a dead lane none)."""
+        return [int(torch.count_nonzero(c[0])) for c in self.counts]
+
+    def launch_bound(self, k: int) -> tuple[float, str]:
+        """Launch k's bound: its lanes' planes (`march_bytes`), and its steps
+        and cell tests' operations."""
+        c = self.counts[k]
+        return bound(march_bytes(c.shape[1], self.live()[k]),
+                     self.totals(0)[k] * OPS_PER_STEP + self.totals(1)[k] * OPS_PER_TEST)
+
     def bound(self) -> tuple[float, str]:
-        """The march's bound on the frame: every launch moves its ray planes,
-        and every step and cell test costs its operations."""
+        """The march's bound on the frame: every launch moves its lanes'
+        planes, and every step and cell test costs its operations."""
         p = self.hit.shape[0]
-        return bound(len(self.counts) * p * MARCH_PLANE_BYTES,
+        return bound(sum(march_bytes(p, live) for live in self.live()),
                      sum(self.totals(0)) * OPS_PER_STEP + sum(self.totals(1)) * OPS_PER_TEST)
 
 
@@ -71,9 +92,10 @@ def count_frame(scene: Scene, camera: Camera, config: RenderConfig,
     """One compact frame of `config` from `camera` (`render_frame_compact`
     with `l0_tail` and `relax`), marched with the counting instance of
     `march_pass` (the plain `WorkCounter` on a CPU scene). A forced
-    level-0 tail changes a ray's steps (it descends without steps and never
-    ascends), so the totals equal the schedule-free max-mip march's only
-    where no tail is forced."""
+    level-0 tail changes a ray's steps (it descends without steps, steps
+    cell by cell above the terrain and passes under whole blocks below
+    it), so the totals equal the schedule-free max-mip march's only where
+    no tail is forced."""
     from hmrt_tpu_torch.kernels.compact import render_frame_compact
     counts = {"primary": [], "shadow": []}
     frame = render_frame_compact(scene, camera, config, counts=counts, l0_tail=l0_tail,
@@ -133,7 +155,7 @@ def floor_metrics(scene: Scene, camera: Camera, config: RenderConfig,
         "bound_model": (f"H100 SXM {HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
                         f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s f32; {OPS_PER_STEP} ops per "
                         f"step, {OPS_PER_TEST} per cell test, {MARCH_PLANE_BYTES} B of "
-                        "ray planes per ray and launch"),
+                        f"planes per live lane and launch, {MARCH_DEAD_BYTES} per dead one"),
     })
     if measured_ms is not None and bound_ms > 0:
         out["x_march_bound"] = measured_ms / bound_ms

@@ -6,8 +6,8 @@ again, and a walk past the map's edge reads clamped records. On CUDA
 tensors it launches the probe `kernels/csrc/l0_probe.cu`, one lane whose
 every record load waits on the previous cell's test; on CPU tensors it runs
 the plain loop, `l0_walk_reference`. Over a ray of a tail launch, for the
-steps the march took on it, the walk ends where the march ends: the same t,
-cell, hit and cell tests.
+steps the lane groups' march took on it (a cell a step, to the floor), the
+walk ends where that march ends: the same t, cell, hit and cell tests.
 
 The probe is on no render path. Its time over `steps` is the latency of
 one dependent record load plus one cell test, and ceil(chain / G) of them

@@ -6,6 +6,12 @@ its 4 corner heights, padded with NEG_INF to the next power of two M so
 every level halves exactly. Flat layout:
     offset(l) = sum_{k<l} (M >> k)^2 = (M^2 - (M^2 >> 2l)) * 4 // 3
     index(l, cy, cx) = offset(l) + cy * (M >> l) + cx
+
+The MIN pyramid is the same over each cell's lowest corner, padded with
+POS_INF, for the CUDA level-0 tail's test of a ray that passes under a
+whole block. It keeps levels >= 1 only (a level-0 cell's min is the min of
+its corner record), so its index is the max pyramid's less M^2; over a
+single cell (M = 1) it is that cell's min alone.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -3.0e38  # sentinel for padded cells; avoids inf arithmetic traps
+POS_INF = 3.0e38   # the min pyramid's sentinel for padded cells
 
 
 def next_pow2(x: int) -> int:
@@ -34,24 +41,54 @@ def cell_maxes(heights: torch.Tensor) -> torch.Tensor:
                          torch.maximum(heights[1:, :-1], heights[1:, 1:]))
 
 
-def build_levels(heights: torch.Tensor) -> list[torch.Tensor]:
-    """All pyramid levels as (M>>k, M>>k) tensors, finest first."""
-    c = cell_maxes(heights)
+def cell_mins(heights: torch.Tensor) -> torch.Tensor:
+    """Per-cell min of the 4 corner samples, (N, N) -> (N-1, N-1)."""
+    return torch.minimum(torch.minimum(heights[:-1, :-1], heights[:-1, 1:]),
+                         torch.minimum(heights[1:, :-1], heights[1:, 1:]))
+
+
+def _pool_levels(c: torch.Tensor, pad: float, reduce) -> list[torch.Tensor]:
     n_cells = c.shape[0]
     m = next_pow2(n_cells)
-    cur = torch.full((m, m), NEG_INF, dtype=c.dtype, device=c.device)
+    cur = torch.full((m, m), pad, dtype=c.dtype, device=c.device)
     cur[:n_cells, :n_cells] = c
     levels = [cur]
     while cur.shape[0] > 1:
         s = cur.shape[0] // 2
-        cur = cur.reshape(s, 2, s, 2).amax(dim=(1, 3))
+        cur = reduce(cur.reshape(s, 2, s, 2), dim=(1, 3))
         levels.append(cur)
     return levels
+
+
+def build_levels(heights: torch.Tensor) -> list[torch.Tensor]:
+    """All pyramid levels as (M>>k, M>>k) tensors, finest first."""
+    return _pool_levels(cell_maxes(heights), NEG_INF, torch.amax)
+
+
+def build_min_levels(heights: torch.Tensor) -> list[torch.Tensor]:
+    """All min-pyramid levels as (M>>k, M>>k) tensors, finest first: level 0
+    the per-cell min of the corners (POS_INF on padded cells), each level
+    above the min of its 4 children."""
+    return _pool_levels(cell_mins(heights), POS_INF, torch.amin)
 
 
 def build_pyramid_flat(heights: torch.Tensor) -> torch.Tensor:
     """heights (N, N) -> flat level-major max pyramid, shape (flat_size(M),)."""
     return torch.cat([lvl.reshape(-1) for lvl in build_levels(heights)])
+
+
+def min_flat_size(m: int) -> int:
+    """Entries of the flat min pyramid: levels >= 1, or the one cell when m = 1."""
+    return max(flat_size(m) - m * m, 1)
+
+
+def build_min_pyramid_flat(heights: torch.Tensor) -> torch.Tensor:
+    """heights (N, N) -> flat level-major min pyramid of levels >= 1 (level 0
+    alone when M = 1), shape (min_flat_size(M),); entry flat_index(M, l, cy,
+    cx) - M^2 is the min of level-l block (cx, cy)'s cell corners. Its last
+    entry is the map's lowest height."""
+    levels = build_min_levels(heights)
+    return torch.cat([lvl.reshape(-1) for lvl in levels[1:] or levels])
 
 
 def corner_records(heights: torch.Tensor, m: int) -> torch.Tensor:

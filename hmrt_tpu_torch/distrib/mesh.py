@@ -37,6 +37,7 @@ import torch.distributed as dist
 
 from hmrt_tpu_torch.api.scene import shade_records
 from hmrt_tpu_torch.config import RenderConfig
+from hmrt_tpu_torch.core.pyramid import build_min_pyramid_flat
 from hmrt_tpu_torch.core.renderer import COMPACT_MIN_M, choose_backend, render_frame
 from hmrt_tpu_torch.device import resolve
 from hmrt_tpu_torch.types import Camera, Frame, Light, Scene
@@ -233,9 +234,10 @@ def replicate_scene(scene: Scene | None, mesh: Mesh) -> Scene:
     """Rank 0's scene on every rank's device, bit for bit: heights,
     pyr_flat, corners, gx, gy, albedo and the light are broadcast once
     (BASELINE.json:5, "replicated height pyramid"), and each rank packs the
-    shade records from its copies of gx, gy and albedo (copies of the same
-    values, so the same bits, without sending 2.5 times the planes' bytes
-    again). Ranks other than 0 may pass None (only rank 0 read the file)."""
+    shade records from its copies of gx, gy and albedo and builds the min
+    pyramid from its heights (copies of the same values, so the same bits,
+    without sending 2.5 times the planes' bytes again). Ranks other than 0
+    may pass None (only rank 0 read the file)."""
     meta = None
     if mesh.rank == 0:
         meta = {"geom": (scene.n, scene.m, scene.levels),
@@ -259,8 +261,8 @@ def replicate_scene(scene: Scene | None, mesh: Mesh) -> Scene:
     light = Light(**{k: bcast(getattr(scene.light, k) if mesh.rank == 0 else None, (3,))
                      for k in _LIGHT_FIELDS})
     shade_rec, albedo_rec = shade_records(planes["gx"], planes["gy"], planes["albedo"])
-    return Scene(**planes, light=light, shade_rec=shade_rec, albedo_rec=albedo_rec, n=n, m=m,
-                 levels=levels)
+    return Scene(**planes, pyr_min_flat=build_min_pyramid_flat(planes["heights"]), light=light,
+                 shade_rec=shade_rec, albedo_rec=albedo_rec, n=n, m=m, levels=levels)
 
 
 # ---- sharded renders -----------------------------------------------------

@@ -32,11 +32,10 @@ NVCC_FLAGS = ["-O3", "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signature of every kernel entry point: argument types, in order
 SIGNATURES = {
-    # 24 state/ray planes, pyr_flat, corners; p m levels budget
-    # intersector mode stride; box_lo box_hi; tail flag or null; group;
-    # live-ray count or null, tally or null, ray counter, counts or null,
-    # stream
-    "hmrt_march_pass": [_P] * 26 + [_I] * 7 + [_F] * 2 + [_P] + [_I] + [_P] * 5,
+    # 24 state/ray planes, pyr_flat, corners, pyr_min or null; p m levels
+    # budget intersector mode stride; box_lo box_hi; tail flag or null;
+    # group; tally or null, ray counter, counts or null, stream
+    "hmrt_march_pass": [_P] * 27 + [_I] * 7 + [_F] * 2 + [_P] + [_I] + [_P] * 4,
     # hit hx hy fx fy shade_rec albedo_rec, 6 outputs; p c (cells a side); stream
     "hmrt_shade_pass": [_P] * 13 + [_I] * 2 + [_P],
     # params pyr corners gx gy albedo, color hit depth normal cell;

@@ -23,11 +23,12 @@ The tail, as in the JAX package: the last sorted round of the primary and
 of the shadow march may run as the forced-level-0 tail (`l0_tail`). Its
 survivors are first descended to the level-0 cell at their position
 (`force_level0`, so the sort key is their level-0 column), then march the
-level-0 DDA with the exact test and no pyramid. That gives up skips the
-pyramid could still take and never changes a hit, so every `l0_tail`
-gives the same frame. "auto" forces the tail when more than
-L0_TAIL_AUTO_THRESH of the survivors are already at level 0, decided on
-the device (a flag the kernel reads), with no host wait. `relax=k` runs the
+level-0 DDA with the exact test, skipping no cell whose max they do not
+clear, but passing under whole blocks of the min pyramid (march_pass.py).
+That gives up skips the max pyramid could still take and never changes a
+hit, so every `l0_tail` gives the same frame. "auto" forces the tail when
+more than L0_TAIL_AUTO_THRESH of the survivors are already at level 0,
+decided on the device (a flag the kernel reads), with no host wait. `relax=k` runs the
 relaxed stride tail there instead: not exact (a feature narrower than k
 cells along a ray can be tunnelled; no false hits), opt-in.
 """
@@ -119,13 +120,11 @@ def force_level0(rays, state):
     return alive, t, torch.zeros_like(lvl), descend(ox, dx, icx), descend(oy, dy, icy)
 
 
-def l0_tail_flag(state, n_alive=None):
+def l0_tail_flag(state):
     """The "auto" tail's choice, a 0-dim bool on the planes' device: more
-    than L0_TAIL_AUTO_THRESH of the alive lanes are at level 0. `n_alive`:
-    the count of alive lanes on the device, or None to count them."""
+    than L0_TAIL_AUTO_THRESH of the alive lanes are at level 0."""
     alive = state[0] != 0
-    if n_alive is None:
-        n_alive = alive.sum()
+    n_alive = alive.sum()
     n_l0 = (alive & (state[2] == 0)).sum(dtype=torch.int32)
     return n_l0 > (L0_TAIL_AUTO_THRESH * n_alive.to(torch.float32)).to(torch.int32)
 
@@ -168,28 +167,27 @@ def march_rounds(rays, state, scene: Scene, *, cell_intersect: str, clip,
     kw = dict(n=scene.n, m=scene.m, levels=scene.levels,
               cell_intersect=cell_intersect, clip=clip)
 
-    def run(rays, state, res, budget, tail=False, live=None):
+    def run(rays, state, res, budget, tail=False):
         cnt = None
         if counts is not None:
             cnt = torch.empty((2, p), dtype=torch.int32, device=rays[0].device)
             counts.append(cnt)
         return march_pass(rays, state, res, scene.pyr_flat, scene.heights, scene.corners,
                           budget=budget, counts=cnt, l0_only=tail,
-                          relax=0 if tail is False else relax, n_alive=live, **kw)
+                          relax=0 if tail is False else relax,
+                          pyr_min=scene.pyr_min_flat, **kw)
 
     if not skip_pass0 and first_budget > 0:
         state, res = run(rays, state, res, first_budget)
     m5 = max(scene.m // 32, 1)
     perm_tot = None
     for r in range(rounds):
-        tail, live = False, None
+        tail = False
         if r == rounds - 1 and l0_tail:
             # force level 0 before the sort, so the sort key is the tail's column
             forced = force_level0(rays, state)
             if l0_tail == "auto":
-                # counted once: the flag and the kernel's lane group read it
-                live = (state[0] != 0).sum()
-                tail = l0_tail_flag(state, live)
+                tail = l0_tail_flag(state)
                 forced = tuple(torch.where(tail, f, s) for f, s in zip(forced, state))
             else:
                 tail = True
@@ -201,7 +199,7 @@ def march_rounds(rays, state, scene: Scene, *, cell_intersect: str, clip,
         res = tuple(x.index_select(0, perm) for x in res)
         perm_tot = perm if perm_tot is None else perm_tot.index_select(0, perm)
         state, res = run(rays, state, res,
-                         UNBUDGETED if r == rounds - 1 else round_budget, tail, live)
+                         UNBUDGETED if r == rounds - 1 else round_budget, tail)
     # back to launch order: lane k of the sorted planes is launch lane perm_tot[k]
     return tuple(torch.empty_like(x).index_copy_(0, perm_tot, x) for x in res)
 

@@ -1,8 +1,8 @@
 // A probe of the card, on no render path: what one step of the level-0
 // tail costs when nothing hides its load.
 //
-// One lane walks `steps` cells of one ray's level-0 DDA with the serial
-// tail's step (march_steps<COUNT, true> in march_common.cuh: the cell's
+// One lane walks `steps` cells of one ray's level-0 DDA with the level-0
+// step of the tail (march_common.cuh, the torch `l0_step`: the cell's
 // exit, its 16-byte corner record, the skip test and the exact test, the
 // advance), but with no prefetch, and the next cell waits on this cell's
 // test: a cell that hits is taken again, as the plain loop takes it
@@ -11,8 +11,9 @@
 // the longest ray of a tail launch, ceil(steps / G) of them is the least
 // time that G lanes a ray, one window of G cells after another, can take.
 //
-// The walk ends in the state the serial march reaches after the same
-// steps, so bench/latency.py holds it to the plain walk and to march_pass.
+// The walk ends in the state the lane groups' march (cell by cell, to the
+// floor) reaches after the same steps, so bench/latency.py holds it to the
+// plain walk and to march_pass.
 
 #include <cuda_runtime.h>
 

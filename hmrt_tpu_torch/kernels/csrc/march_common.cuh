@@ -5,10 +5,12 @@
 // One thread marches one ray: `march_steps` takes up to `budget` steps of
 // the max-mip march (the body of hmrt_tpu/traversal/march.py::march_maxmip
 // without the cone branch, and of the torch `maxmip_step`), updating the
-// ray's state and hit results in place. Its L0 instance is the
-// forced-level-0 tail (the torch `l0_step`, hmrt_tpu/kernels/march_body.py
-// ::wavefront_step_l0): every ray taken as a level-0 ray, no pyramid and no
-// ascent. `relaxed_steps` is the relaxed stride tail (`l0_step_relaxed`,
+// ray's state and hit results in place. `l0_min_steps` is the
+// forced-level-0 tail (the torch `l0_min_step`): the hits of the level-0
+// walk of hmrt_tpu/kernels/march_body.py::wavefront_step_l0 (the torch
+// `l0_step`), but a ray under the terrain passes whole blocks of the min
+// pyramid untested and ends under the map's lowest height (see below).
+// `relaxed_steps` is the relaxed stride tail (`l0_step_relaxed`,
 // march_body.py::wavefront_step_l0_relaxed). Every float expression is that of
 // the torch step, in the same order; the build's -fmad=false,
 // -prec-div=true and -prec-sqrt=true keep the bits, because a contracted
@@ -51,6 +53,24 @@
 // ballot then finds the first cell that ends the ray. Every float
 // expression is the serial step's, so the bits are the serial march's.
 //
+// The level-0 tail under the terrain (`l0_min_steps`). Most of a tail's
+// rays entered the map's wall below the surface and march beneath it to the
+// far edge without a hit: every cell a step and an exact test whose answer
+// is already known, since a ray that stays below a cell's lowest corner
+// over the test window cannot meet the triangles or the patch, which lie
+// between the corners. So the tail keeps the level-0 cell the walk stands
+// in and a level `lvl` of the block around it it takes in one step: at
+// level 0 the walk's own step, except that a cell the ray passes under by
+// the margin (below_margins) is not tested; at level k >= 1 a block the ray
+// passes under is left in one step, to the level-0 cell the walk enters
+// there (block_crossing), else the step descends a level. A ray that
+// passes under a cell or a block ascends by the crossed boundary's
+// alignment, as the max-mip march does after a skip; and a descending ray
+// under the map's lowest height, less the margin, ends. Exits are taken from
+// the origin at integer boundaries, and the running t is the max of the
+// exits, so every cell the tail still tests sees the walk's window, bit for
+// bit: the hits are the walk's. A ray that ends as a miss ends elsewhere.
+//
 // Everything here is `static`: each .cu file is its own translation unit
 // (no -rdc) and gets its own inlined copy.
 
@@ -69,6 +89,15 @@ static constexpr float ONE_PLUS_EPS = (float)(1.0 + 1.0e-6);
 static constexpr float ONE_MINUS_EPS = (float)(1.0 - 1.0e-6);
 // the step budget that resolves every ray (march_pass.py UNBUDGETED)
 static constexpr int UNBUDGETED = 1 << 22;
+// the margin of the tests under the terrain (traversal/march.py MARGIN_*),
+// each formed in double as the Python constants are, then rounded once
+static constexpr float MARGIN_TOL = (float)(1.0e-3 * (1.0 + 1.0 / 1024.0));
+static constexpr float MARGIN_Z = 1.0f / 524288.0f;  // 2^-19
+static constexpr float MARGIN_S = (float)8.0e-6;
+static constexpr float MARGIN_A = 1.0f / 524288.0f;
+static constexpr float MARGIN_SAFE = (float)4.0e-20;
+static constexpr float MARGIN_LIN = (float)2.0e-12;
+static constexpr float MARGIN_A2 = 1.0f / 524288.0f;
 // level-0 records kept in flight per ray (see above; measured)
 static constexpr int RING = 2;
 static constexpr unsigned FULL_WARP = 0xffffffffu;
@@ -310,11 +339,8 @@ static __device__ __forceinline__ float4 cell_record(const Terrain& g, int cx, i
 // Up to `budget` max-mip steps of one ray; a ray that is not alive is left
 // as it is. A hit ends the ray and sets `h`. `gmax` is the pyramid top.
 // Returns the steps taken. COUNT instances add them, and the exact cell
-// tests, to `w`. L0 instances take the ray as a level-0 ray whatever its
-// `lvl` (which they leave as it is): the level-0 DDA with the same skip test,
-// test window and intersector, never ascending, so their prefetch ring runs
-// to the ray's end.
-template <bool COUNT, bool L0 = false>
+// tests, to `w`.
+template <bool COUNT>
 static __device__ __forceinline__ int march_steps(const MarchRay& r, MarchState& s, MarchHit& h,
                                                   int budget, const Terrain& g, float gmax,
                                                   Work& w) {
@@ -336,11 +362,11 @@ static __device__ __forceinline__ int march_steps(const MarchRay& r, MarchState&
 #pragma unroll
     for (int j = 0; j < RING; ++j) {
       if (st >= budget || !alive) break;
-      const CellExit e = cell_exit(r, icx, icy, L0 ? 1.0f : (float)(1 << lvl));
+      const CellExit e = cell_exit(r, icx, icy, (float)(1 << lvl));
       float t_exit_c = fminf(e.t, t1);
       float zmin = oz + fminf(t * dz, t_exit_c * dz);
 
-      const bool at_fine = L0 || lvl == 0;
+      const bool at_fine = lvl == 0;
       float cmax;
       float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (at_fine) {
@@ -398,20 +424,19 @@ static __device__ __forceinline__ int march_steps(const MarchRay& r, MarchState&
         lvl = lvl - 1;
       } else {
         // advance, ascending on a skip by the crossed boundary's alignment
-        // (the level-0 tail never ascends)
         int asc = skip ? ascent_levels(e.bnd) : 0;
-        asc = L0 ? 0 : min(asc, (levels - 1) - lvl);
+        asc = min(asc, (levels - 1) - lvl);
         lvl = lvl + asc;
         icx = e.nx >> asc;  // arithmetic shift: nx may be -1
         icy = e.ny >> asc;
         t = fmaxf(t, t_exit_c);
-        int new_side = L0 ? m : m >> lvl;
+        int new_side = m >> lvl;
         bool escaped = (oz + t * dz > gmax) && (dz > 0.0f);
         bool out = (e.t >= t1 - EPS_EXIT) || icx < 0 || icx >= new_side || icy < 0 ||
                    icy >= new_side || escaped;
         if (out) {
           alive = 0;
-        } else if (L0 || lvl == 0) {
+        } else if (lvl == 0) {
           // still in the run: the next cell's record is in slot j + 1;
           // slot j takes the cell RING steps ahead
           const CellExit f = cell_exit(r, qx, qy, 1.0f);
@@ -465,16 +490,205 @@ static __device__ __forceinline__ void dda_cell(const MarchRay& r, int icx, int 
   cy = icy + (k - lo) * sy;
 }
 
+// The per-ray constants of the tail's tests under the terrain (the torch
+// below_margins, in its float order): a ray that over a test window stays
+// below a cell's (or a block's) lowest corner `lo` by m0 + (hi - lo) * m1
+// cannot be hit there; a descending ray under zfloor has only such cells
+// left. m0 covers the window's slack, the rounding at the heights'
+// magnitude and the intersectors' divisor floor (safe), m1 the containment
+// slack and the rounding at the ray's world magnitude, per unit of corner
+// span (PERF.md, "the margin").
+// "flat" hits any ray under its column: it takes none of them.
+struct Below {
+  float m0, m1, zfloor;
+};
+
+static __device__ __forceinline__ Below below_margins(const MarchRay& r, int kind, int m,
+                                                      float gmin, float gmax) {
+  const float at1 = fabsf(r.t1);
+  const float a = ((fabsf(r.ox) + fabsf(r.oy)) + at1 * (fabsf(r.dx) + fabsf(r.dy))) +
+                  (float)(2 * m + 2);
+  const float z = (fabsf(r.oz) + fmaxf(fabsf(gmin), fabsf(gmax))) + at1 * fabsf(r.dz);
+  Below b;
+  b.m0 = MARGIN_TOL * fabsf(r.dz) + MARGIN_Z * z + MARGIN_SAFE * at1;
+  b.m1 = MARGIN_S + MARGIN_A * a;
+  if (kind == BILINEAR) {
+    b.m0 = b.m0 + MARGIN_LIN * (at1 * at1);
+    b.m1 = b.m1 + MARGIN_A2 * (a * a);
+  }
+  b.zfloor = r.dz < 0.0f ? gmin - (b.m0 + (gmax - gmin) * b.m1) : -BIG_T;
+  return b;
+}
+
+// How many boundaries of one axis the level-0 DDA crosses before t_cross,
+// from boundary index b0 (step s): the smallest k in [0, top] whose exit
+// (axis_exit) is not before t_cross, "before" being < against an x crossing
+// (the y axis) and <= against a y crossing (a tie steps x first). The exits
+// never decrease along an axis, so a binary search finds it.
+static __device__ __forceinline__ int dda_steps(int b0, int s, float o, float inv, bool none,
+                                                float t_cross, bool strict, int top) {
+  int lo = 0, hi = top;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const float e = axis_exit(b0, mid, s, o, inv, none);
+    if (strict ? e < t_cross : e <= t_cross)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// The level-0 cell the DDA from level-0 cell (icx, icy) enters when it
+// leaves that cell's level-`lvl` block (bx, by) across exit `e`
+// (cell_exit of the block): on the crossed axis the first cell past the
+// block; on the other the cell where the steps the DDA takes inside the
+// block before the crossing put it (the torch block_crossing).
+static __device__ __forceinline__ void block_crossing(const MarchRay& r, const CellExit& e,
+                                                      int bx, int by, int lvl, int& icx,
+                                                      int& icy) {
+  const int side = 1 << lvl;
+  const bool pos_x = r.dx > 0.0f, pos_y = r.dy > 0.0f;
+  if (e.nx != bx) {
+    const int top = pos_y ? by * side + (side - 1) - icy : icy - by * side;
+    const int k = dda_steps(icy + (pos_y ? 1 : 0), pos_y ? 1 : -1, r.oy, r.inv_y,
+                            fabsf(r.dy) < TINY, e.t, true, top);
+    icx = e.nx * side + (pos_x ? 0 : side - 1);
+    icy = icy + (pos_y ? k : -k);
+  } else {
+    const int top = pos_x ? bx * side + (side - 1) - icx : icx - bx * side;
+    const int k = dda_steps(icx + (pos_x ? 1 : 0), pos_x ? 1 : -1, r.ox, r.inv_x,
+                            fabsf(r.dx) < TINY, e.t, false, top);
+    icx = icx + (pos_x ? k : -k);
+    icy = e.ny * side + (pos_y ? 0 : side - 1);
+  }
+}
+
+// Up to `budget` steps of the forced-level-0 tail of one ray, one lane a
+// ray, as the torch l0_min_step takes them (see above): s.icx, s.icy is the
+// level-0 cell of the walk, s.lvl the level of the block around it that
+// the next step takes. `pyr_min` is the flat min pyramid of levels >= 1,
+// `gmin` its top. A hit ends the ray and sets `h`. While the ray stays at
+// level 0 the records of the next RING cells are in flight, as in
+// march_steps. Returns the steps taken; COUNT adds them and the exact cell
+// tests to `w`.
+template <bool COUNT>
+static __device__ __forceinline__ int l0_min_steps(const MarchRay& r, MarchState& s,
+                                                   MarchHit& h, int budget, const Terrain& g,
+                                                   const float* __restrict__ pyr_min,
+                                                   float gmin, float gmax, Work& w) {
+  const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
+  const float t1 = r.t1;
+  const int m = g.m, levels = g.levels;
+  const long long mm = (long long)m * m;
+  const bool below_on = g.kind != FLAT;
+  const Below b = below_margins(r, g.kind, m, gmin, gmax);
+  int alive = s.alive;
+  float t = s.t;
+  int lvl = s.lvl, icx = s.icx, icy = s.icy;
+
+  float4 q[RING];      // records of the current level-0 cell and the next ones
+  int qx = 0, qy = 0;  // the cell of the last record issued
+  bool ring = false;   // q is live: this step's cell is at level 0 and its record is in q
+  int st = 0;
+  while (st < budget && alive) {
+#pragma unroll
+    for (int j = 0; j < RING; ++j) {
+      if (st >= budget || !alive) break;
+      const int bx = icx >> lvl, by = icy >> lvl;
+      const CellExit e = cell_exit(r, bx, by, (float)(1 << lvl));
+      const float t_exit_c = fminf(e.t, t1);
+      const float za = t * dz, zb = t_exit_c * dz;
+      const float zmin = oz + fminf(za, zb);
+
+      float lo, hi;  // the cell's or the block's lowest and highest corner
+      float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (lvl == 0) {
+        if (!ring) {  // entering a level-0 run: issue this cell and the next RING-1
+          qx = icx;
+          qy = icy;
+          q[j] = cell_record(g, qx, qy);
+#pragma unroll
+          for (int k = 1; k < RING; ++k) {
+            const CellExit f = cell_exit(r, qx, qy, 1.0f);
+            qx = f.nx;
+            qy = f.ny;
+            q[(j + k) % RING] = cell_record(g, qx, qy);
+          }
+          ring = true;
+        }
+        c = q[j];
+        hi = fmaxf(fmaxf(c.x, c.y), fmaxf(c.z, c.w));
+        lo = fminf(fminf(c.x, c.y), fminf(c.z, c.w));
+      } else {
+        const int side = m >> lvl;
+        const long long k = ((mm - (mm >> (2 * lvl))) * 4) / 3 +
+                            (long long)min(max(by, 0), side - 1) * side + min(max(bx, 0), side - 1);
+        hi = __ldg(g.pyr + k);
+        lo = __ldg(pyr_min + (k - mm));
+      }
+      const bool under = below_on && oz + fmaxf(za, zb) + (b.m0 + (hi - lo) * b.m1) < lo;
+      bool hit_now = false;
+      float t_c = BIG_T;
+      if (lvl == 0 && !under && !(zmin > hi)) {
+        if (COUNT) ++w.tests;
+        intersect_cell(g.kind, r, icx, icy, c, t - T_TOL, t_exit_c + T_TOL, hit_now, t_c);
+      }
+
+      if (hit_now) {
+        alive = 0;
+        h = MarchHit{1, t_c, icx, icy};
+      } else if (lvl > 0 && !under) {
+        lvl = lvl - 1;  // descend: the same level-0 cell, in the child block
+      } else {
+        t = fmaxf(t, t_exit_c);
+        if (lvl == 0) {
+          icx = e.nx;
+          icy = e.ny;
+        } else {
+          block_crossing(r, e, bx, by, lvl, icx, icy);
+        }
+        if (under) lvl = lvl + min(ascent_levels(e.bnd), (levels - 1) - lvl);
+        const float z_new = oz + t * dz;
+        const bool out = (e.t >= t1 - EPS_EXIT) || icx < 0 || icx >= m || icy < 0 ||
+                         icy >= m || ((z_new > gmax) && (dz > 0.0f)) ||
+                         (below_on && z_new < b.zfloor);
+        if (out) {
+          alive = 0;
+        } else if (lvl == 0) {
+          // still in the run: the next cell's record is in slot j + 1;
+          // slot j takes the cell RING steps ahead
+          const CellExit f = cell_exit(r, qx, qy, 1.0f);
+          qx = f.nx;
+          qy = f.ny;
+          q[j] = cell_record(g, qx, qy);
+        } else {
+          ring = false;
+        }
+      }
+      if (COUNT) ++w.steps;
+      ++st;
+    }
+  }
+  s.alive = alive;
+  s.t = t;
+  s.lvl = lvl;
+  s.icx = icx;
+  s.icy = icy;
+  return st;
+}
+
 // Up to `budget` steps of the forced-level-0 tail of one ray, marched by a
 // group of G lanes (G a power of two <= 32; `gmask` the group's lanes of the
 // warp, `k` this lane's rank in it), which all call it together with the
 // same ray and state and leave with the same `s`, `h` and `w`. Each window,
 // lane k takes the cell k steps on from the current one (dda_cell); its
-// own exit, record, skip, exact and out tests are march_steps' L0
+// own exit, record, skip, exact and out tests are l0_min_steps' level-0
 // expressions, with the t it enters at taken as the prefix max of the
 // earlier lanes' exits (the serial t, bit for bit). The first lane that
-// ends the ray (a hit, out of the map or up, or past the budget) gives the
-// ray its state, as the serial march leaves it after that cell; with none,
+// ends the ray (a hit, out of the map, up or under the floor, or past the
+// budget) gives the ray its state, as the serial march leaves it after
+// that cell (the torch l0_min_step with hierarchy=False); with none,
 // the ray moves on G cells. A window has G record loads in flight, and the
 // next window's are issued before this one is tested (its cells follow
 // from the geometry alone), so a window waits on no load of its own unless
@@ -483,11 +697,13 @@ static __device__ __forceinline__ void dda_cell(const MarchRay& r, int icx, int 
 template <bool COUNT, int G>
 static __device__ __forceinline__ int l0_group_steps(const MarchRay& r, MarchState& s,
                                                      MarchHit& h, int budget, const Terrain& g,
-                                                     float gmax, Work& w, int k,
+                                                     float gmin, float gmax, Work& w, int k,
                                                      unsigned gmask) {
   const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
   const float t1 = r.t1;
   const int m = g.m;
+  const bool below_on = g.kind != FLAT;
+  const float zfloor = below_margins(r, g.kind, m, gmin, gmax).zfloor;
   const int gbase = (int)(threadIdx.x & 31) & ~(G - 1);
   const unsigned gbits = G == 32 ? FULL_WARP : (1u << (G & 31)) - 1u;
   int alive = s.alive;
@@ -532,9 +748,10 @@ static __device__ __forceinline__ int l0_group_steps(const MarchRay& r, MarchSta
         intersect_flat(ox, oy, oz, dx, dy, dz, c.x, c.y, c.z, c.w, t_lo, t_hi, hit_now, t_c);
     }
     const float t_new = fmaxf(t, inc);
-    const bool escaped = (oz + t_new * dz > gmax) && (dz > 0.0f);
+    const float z_new = oz + t_new * dz;
     const bool out = (e.t >= t1 - EPS_EXIT) || e.nx < 0 || e.nx >= m || e.ny < 0 ||
-                     e.ny >= m || escaped;
+                     e.ny >= m || ((z_new > gmax) && (dz > 0.0f)) ||
+                     (below_on && z_new < zfloor);
     const unsigned ends = (__ballot_sync(gmask, !run || hit_now || out) >> gbase) & gbits;
     const unsigned tests = (__ballot_sync(gmask, test) >> gbase) & gbits;
     if (ends == 0) {  // no cell of the window ends the ray: on from the last one's exit

@@ -11,13 +11,12 @@
 // because the TPU has no texture unit and no dynamic vector gather; here
 // the pyramid and the level-0 corner records are read with plain loads.
 //
-// What bounds it on the H100: the steps themselves. A B3 frame takes 2.2
-// billion steps, 99% of them level-0 cell tests with two IEEE divisions
-// each; the kernel takes about 6x its operations bound, and the sorted rays
-// keep 98% of a warp's lanes busy even without refill (PERF.md,
-// chip_smoke.py phase 10). Of what was measured, more warps per SM (fewer
-// registers) helped; deeper prefetch and fewer instructions per step did
-// not. What this design does:
+// What bounds the max-mip march on the H100: the steps themselves, most of
+// them level-0 cell tests with two IEEE divisions each, at a few times
+// their operations bound; the sorted rays keep 98% of a warp's lanes busy
+// even without refill (PERF.md, chip_smoke.py phase 10). Of what was
+// measured, more warps per SM (fewer registers) helped; deeper prefetch
+// and fewer instructions per step did not. What this design does:
 //   - one 16-byte corner record per level-0 step, prefetched RING cells
 //     ahead along the ray (march_common.cuh);
 //   - persistent warps: one resident wave walks all p rays. A warp's idle
@@ -44,45 +43,46 @@
 //
 // The tail modes of the TPU kernel (its `l0_only` and `relax` arguments) are
 // template instances beside COUNT, so that the max-mip instance the passes
-// before the tail run keeps its registers: MODE_L0 marches the level-0 DDA
-// with the exact test (march_steps' L0 instance, with its prefetch ring),
-// MODE_RELAX the relaxed stride tail (relaxed_steps, one record load a step,
-// not tuned). With a tail flag (the compact path's "auto" tail, decided on
-// the device) a tail instance reads it once and, when it is 0, runs the
-// max-mip march instead: a uniform branch, no host wait.
+// before the tail run keeps its registers: MODE_L0 marches the level-0 tail
+// with the exact test (l0_min_steps or l0_group_steps), MODE_RELAX the
+// relaxed stride tail (relaxed_steps, one record load a step, not tuned).
+// With a tail flag (the compact path's "auto" tail, decided on the device)
+// a tail instance reads it once and, when it is 0, runs the max-mip march
+// instead: a uniform branch, no host wait.
 //
-// The level-0 tail has two regimes on the card, and the MODE_L0 instance
-// has a march for each. B3's tail (513k live rays under the terrain, every
-// step an exact cell test) fills the card, so it is bound by the
-// instructions of a cell test; B4's (16 such rays, the longest 8,654
-// cells) holds one warp of one SM, so it is bound by the serial chain of
-// one ray, a record load and a cell test a step. For the first, one lane a
-// ray (march_steps' L0 instance, with its ring). For the second, a group of
-// GROUP lanes a ray (l0_group_steps): each window tests 32 consecutive
-// cells of one ray at once, with the next window's 32 loads in flight, so a
-// chain of L cells takes L / 32 dependent windows, and the groups spread
-// the few rays over the SMs. A group marches its ray to the end; groups
-// take rays by a fixed stride (group g the rays g, g + groups, ...), which
-// turns the sorted tail's live rays, a prefix of the planes, into at most
-// one live ray a group, and needs no counter. Measured on the H100
-// (kernel_times.py, PERF.md): B4's tail launch 3.96 -> 0.32 ms; on samples
-// of B3's tail rays a group is 15x faster than one lane a ray at 1,024
-// live rays, 1.33x at 32,768, and 1.42x slower at 65,536 (2.06x slower on
-// all 513k); groups of 4 were never the faster one, so there is no such
-// instance. The group march needs more registers than the one-lane march;
-// L0_MIN_BLOCKS keeps the instance at 80 (8 bytes spilled) and so at 24
-// warps an SM, where 91 registers cost B3's tail 6%. Two things measured
-// and dropped: a triangle test that skipped the division where the window
-// already settled it (B3's tail 25% slower), and refilling a warp of the
-// one-lane march at 8 idle lanes (3% slower).
+// What the level-0 tail is on the card: rays that entered the map's wall
+// below the surface and march beneath it without a hit (B3: 513,374 of
+// them, 2,034,433,443 cells a frame, every one an exact test). Earlier
+// designs made each test cheaper or hid its load; what removed the time is
+// not testing the cells such a ray cannot reach. One lane a ray
+// (l0_min_steps, with the ring of march_steps while at level 0) passes
+// under whole blocks of the min pyramid and ends a descending ray under
+// the map's lowest height (march_common.cuh): B3's tail takes 3,442,487
+// steps and 2,076 cell tests, and its launch 0.236 ms instead of 14.4
+// (kernel_times.py, PERF.md). A group of GROUP lanes a ray
+// (l0_group_steps) tests 32 consecutive cells of one ray a window, with
+// the next window's 32 loads in flight, so a chain of L cells takes L / 32
+// dependent windows; it takes the floor exit but no block, so it walks an
+// under-terrain ray cell by cell down to the floor. A group marches its ray
+// to the end; groups take rays by a fixed stride (group g the rays g,
+// g + groups, ...), which turns the sorted tail's live rays, a prefix of
+// the planes, into at most one live ray a group, and needs no counter. The
+// group march needs more registers than the one-lane march; L0_MIN_BLOCKS
+// keeps the instance at 80 (16 bytes spilled) and so at 24 warps an SM.
+// Measured and dropped before the min skip: a triangle test that skipped
+// the division where the window already settled it (B3's tail 25%
+// slower), refilling a warp of the one-lane march at 8 idle lanes (3%
+// slower), groups of 4 (never the faster one).
 //
-// The group is chosen on the card, per launch, from the count of live rays
-// n (a device value the wrapper computes, so no host wait) and the lanes
-// of the launch (one resident wave, 101,376 on the H100): GROUP when
-// n * GROUP_SHARE <= lanes, else one lane a ray, and one lane a ray when n
-// is 0 (its sweep writes the dead rays back fastest). The wrapper may force
-// it (march_pass(group=)). The launch records which march it ran in a
-// tally on the card (march_pass.py `mode_launches`).
+// The tail marches one lane a ray unless the caller asks for the groups
+// (march_pass(group=32)). Before the min skip the groups were chosen when
+// few rays were live: B4's 16 tail rays walked ~4,000 cells each. With the
+// skip one lane a ray is the faster march on every main-path tail that was
+// measured (B4's 16 rays, B3's 513,374) and on B3 tail samples from 4,096
+// live rays; the groups win only where a few rays walk long level-0 chains
+// above the terrain, which the skip does not shorten (1,024 B3 tail
+// samples, PERF.md). The launch records which march it ran in a tally on
+// the card (march_pass.py `mode_launches`).
 
 #include <cuda_runtime.h>
 
@@ -97,10 +97,8 @@ constexpr int CHUNK = 256;
 // idle lanes of a warp that make it claim new rays (the level-0 tail's
 // march of one lane a ray as well: 8 was 3% slower there, PERF.md)
 constexpr int REFILL_MIN = 32;
-// the level-0 tail's lanes a ray in a group, and the share of a launch's
-// lanes the live rays may take for "auto" to march them by groups (see above)
+// the level-0 tail's lanes a ray in a group (see above)
 constexpr int GROUP = 32;
-constexpr int GROUP_SHARE = 2;
 // blocks an SM must hold at once: caps the registers a thread may use
 // (1: no cap; a cap that buys more warps made ptxas spill). The level-0
 // instance holds the group march beside the march of one lane a ray; 12
@@ -172,7 +170,7 @@ static __device__ __forceinline__ MarchRay load_ray(const Planes& a, long long i
 template <bool COUNT, int G>
 static __device__ __forceinline__ void group_tail(const Planes& a, const Terrain& g, int p,
                                                   int budget, float box_lo, float box_hi,
-                                                  float gmax) {
+                                                  float gmin, float gmax) {
   const int lane = threadIdx.x & 31;
   const int k = lane & (G - 1);
   const int gbase = lane & ~(G - 1);
@@ -191,7 +189,7 @@ static __device__ __forceinline__ void group_tail(const Planes& a, const Terrain
       const MarchRay r = load_ray(a, ri, box_lo, box_hi);
       MarchHit h{0, BIG_T, 0, 0};
       Work w{0, 0};
-      l0_group_steps<COUNT, G>(r, s, h, budget, g, gmax, w, k, gmask);
+      l0_group_steps<COUNT, G>(r, s, h, budget, g, gmin, gmax, w, k, gmask);
       if (k == 0) write_ray<COUNT>(a, ri, p, s, h, w);
     }
   }
@@ -202,25 +200,18 @@ static __device__ __forceinline__ void group_tail(const Planes& a, const Terrain
                        MarchHit{0, BIG_T, 0, 0}, Work{0, 0});
 }
 
-// The lanes a ray in the level-0 tail: `group` when the caller forces it,
-// else GROUP when the n live rays take at most 1 / GROUP_SHARE of the
-// launch's lanes, and 1 when they take more or there are none (then the
-// sweep of one lane a ray writes the dead ones back fastest).
-static __device__ __forceinline__ int tail_group(int group, const long long* n_alive) {
-  if (group > 0) return group;
-  const long long n = __ldg(n_alive);
-  return n > 0 && n * GROUP_SHARE <= (long long)gridDim.x * THREADS ? GROUP : 1;
-}
-
 template <bool COUNT, int MODE>
 __global__ void __launch_bounds__(THREADS, MODE == MODE_L0 ? L0_MIN_BLOCKS : MIN_BLOCKS)
-    march_pass_kernel(const Planes a, const Terrain g, int p, int budget, int stride,
-                      float box_lo, float box_hi, const int* tail_flag, int group,
-                      const long long* n_alive, int* tally, int* next) {
+    march_pass_kernel(const Planes a, const Terrain g, const float* __restrict__ pyr_min, int p,
+                      int budget, int stride, float box_lo, float box_hi, const int* tail_flag,
+                      int group, int* tally, int* next) {
   const float gmax = __ldg(g.pyr + pyramid_top(g.m));
   // the tail instances run their tail unless the flag says otherwise
   const bool tail = MODE != MODE_MAXMIP && (tail_flag == nullptr || __ldg(tail_flag) != 0);
-  const int gsize = MODE == MODE_L0 && tail ? tail_group(group, n_alive) : 1;
+  // the map's lowest height, the min pyramid's top (its one entry when m = 1)
+  const long long min_top = max(pyramid_top(g.m) - (long long)g.m * g.m, 0ll);
+  const float gmin = MODE == MODE_L0 && tail ? __ldg(pyr_min + min_top) : 0.0f;
+  const int gsize = MODE == MODE_L0 && tail ? group : 1;
   if (tally != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
     atomicAdd(tally + (!tail                ? RAN_MAXMIP
                        : MODE == MODE_RELAX ? RAN_RELAX
@@ -229,7 +220,7 @@ __global__ void __launch_bounds__(THREADS, MODE == MODE_L0 ? L0_MIN_BLOCKS : MIN
               1);
   if constexpr (MODE == MODE_L0) {
     if (gsize == GROUP) {
-      group_tail<COUNT, GROUP>(a, g, p, budget, box_lo, box_hi, gmax);
+      group_tail<COUNT, GROUP>(a, g, p, budget, box_lo, box_hi, gmin, gmax);
       return;
     }
   }
@@ -261,7 +252,7 @@ __global__ void __launch_bounds__(THREADS, MODE == MODE_L0 ? L0_MIN_BLOCKS : MIN
       if (MODE == MODE_RELAX && tail)
         used += relaxed_steps<COUNT>(r, s, h, steps, g, gmax, stride, w);
       else if (MODE == MODE_L0 && tail)
-        used += march_steps<COUNT, true>(r, s, h, steps, g, gmax, w);
+        used += l0_min_steps<COUNT>(r, s, h, steps, g, pyr_min, gmin, gmax, w);
       else
         used += march_steps<COUNT>(r, s, h, steps, g, gmax, w);
       if (!s.alive || used >= budget) {  // a hit ends the ray in its last chunk
@@ -274,22 +265,22 @@ __global__ void __launch_bounds__(THREADS, MODE == MODE_L0 ? L0_MIN_BLOCKS : MIN
 
 // The launch's arguments after the planes and the terrain.
 struct Pass {
+  const float* pyr_min;
   int p, budget, stride;
   float box_lo, box_hi;
   const int* tail_flag;
   int group;
-  const long long* n_alive;
   int* tally;
   int* next;
 };
 
 template <bool COUNT, int MODE>
 int launch(const Planes& a, const Terrain& g, const Pass& q, cudaStream_t stream) {
-  // the level-0 tail's groups may take GROUP lanes a ray
-  const long long lanes = (long long)q.p * (MODE != MODE_L0 ? 1 : q.group > 0 ? q.group : GROUP);
+  // the level-0 tail's groups take GROUP lanes a ray
+  const long long lanes = (long long)q.p * (MODE != MODE_L0 ? 1 : q.group);
   const int blocks = persistent_blocks(march_pass_kernel<COUNT, MODE>, THREADS, lanes);
   march_pass_kernel<COUNT, MODE><<<blocks, THREADS, 0, stream>>>(
-      a, g, q.p, q.budget, q.stride, q.box_lo, q.box_hi, q.tail_flag, q.group, q.n_alive,
+      a, g, q.pyr_min, q.p, q.budget, q.stride, q.box_lo, q.box_hi, q.tail_flag, q.group,
       q.tally, q.next);
   return (int)cudaGetLastError();
 }
@@ -304,17 +295,17 @@ int launch_mode(int mode, const Planes& a, const Terrain& g, const Pass& q,
 
 }  // namespace
 
-// `mode` is MODE_MAXMIP, MODE_L0 or MODE_RELAX (then `stride` > 0 cells and
+// `mode` is MODE_MAXMIP, MODE_L0 (then `pyr_min`, the flat min pyramid of
+// levels >= 1, is not null) or MODE_RELAX (then `stride` > 0 cells and
 // an unbudgeted pass); `tail_flag` is null (a tail mode always runs its tail)
-// or one int32 on the device. `group` (MODE_L0 only): the level-0 tail's
-// lanes a ray, 1 or GROUP, or 0 to choose on the card from
-// `n_alive`, one int64 on the device (the live rays), null otherwise.
-// `tally` is null or four int32 on the device, one of which each launch adds
-// 1 to (RAN_*). `next` is a zeroed int32 on the device (the ray counter);
-// `counts` is null or an int32 (2, p) plane that takes each ray's steps and
-// cell tests. An unknown mode or group, a group without MODE_L0, an auto
-// group without `n_alive`, or a relaxed pass with a budget or no stride,
-// returns cudaErrorInvalidValue and launches nothing.
+// or one int32 on the device. `group`: the level-0 tail's lanes a ray, 1
+// or GROUP (MODE_L0), 1 for the other modes. `tally` is null or four int32
+// on the device, one of which each launch adds 1 to (RAN_*). `next` is a
+// zeroed int32 on the device (the ray counter); `counts` is null or an
+// int32 (2, p) plane that takes each ray's steps and cell tests. An unknown
+// mode or group, a group without MODE_L0, MODE_L0 without `pyr_min`, or a
+// relaxed pass with a budget or no stride, returns cudaErrorInvalidValue
+// and launches nothing.
 extern "C" int hmrt_march_pass(const float* ox, const float* oy, const float* oz,
                                const float* dx, const float* dy, const float* dz,
                                const int* alive, const float* t, const int* lvl,
@@ -322,22 +313,23 @@ extern "C" int hmrt_march_pass(const float* ox, const float* oy, const float* oz
                                const float* t_hit, const int* hx, const int* hy,
                                int* alive_o, float* t_o, int* lvl_o, int* icx_o,
                                int* icy_o, int* hit_o, float* t_hit_o, int* hx_o,
-                               int* hy_o, const float* pyr_flat, const float* corners, int p,
-                               int m, int levels, int budget, int intersector, int mode,
+                               int* hy_o, const float* pyr_flat, const float* corners,
+                               const float* pyr_min, int p, int m, int levels, int budget,
+                               int intersector, int mode,
                                int stride, float box_lo, float box_hi, const int* tail_flag,
-                               int group, const long long* n_alive, int* tally, int* next,
+                               int group, int* tally, int* next,
                                int* counts, void* stream) {
   if (mode < MODE_MAXMIP || mode > MODE_RELAX ||
       (mode == MODE_RELAX && (stride <= 0 || budget != UNBUDGETED)) ||
-      (group != 0 && group != 1 && group != GROUP) ||
-      (group != 0 && mode != MODE_L0) || (mode == MODE_L0 && group == 0 && n_alive == nullptr))
+      (group != 1 && group != GROUP) || (group != 1 && mode != MODE_L0) ||
+      (mode == MODE_L0 && pyr_min == nullptr))
     return (int)cudaErrorInvalidValue;
   if (p <= 0) return (int)cudaSuccess;
   Planes a{ox,    oy,    oz,    dx,   dy,   dz,   alive,   t,     lvl,  icx,
            icy,   hit,   t_hit, hx,   hy,   alive_o, t_o,  lvl_o, icx_o, icy_o,
            hit_o, t_hit_o, hx_o, hy_o, counts};
   Terrain g{pyr_flat, reinterpret_cast<const float4*>(corners), m, levels, intersector};
-  const Pass q{p, budget, stride, box_lo, box_hi, tail_flag, group, n_alive, tally, next};
+  const Pass q{pyr_min, p, budget, stride, box_lo, box_hi, tail_flag, group, tally, next};
   cudaStream_t st = (cudaStream_t)stream;
   return counts != nullptr ? launch_mode<true>(mode, a, g, q, st)
                            : launch_mode<false>(mode, a, g, q, st);

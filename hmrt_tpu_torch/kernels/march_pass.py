@@ -16,36 +16,44 @@ kernel relies on it twice over: its persistent warps march each ray in
 chunks and take the rays in whatever order lanes come free.
 
 The kernel reads level 0 from the scene's corner records (`Scene.corners`)
-and the levels above from `pyr_flat`; the plain version reads `pyr_flat`
-and `heights`, the function the records are held against.
+and the levels above from `pyr_flat`, and the exact level-0 tail also the
+min pyramid (`Scene.pyr_min_flat`); the plain version reads `pyr_flat` and
+`heights`, the function the records are held against (and the min pyramid
+when it is given, else builds it from `heights`).
 
 Tail modes, as the TPU kernel's `l0_only` and `relax` arguments: with
 `l0_only` every ray is taken as a level-0 ray (the caller has forced it
 there, kernels/compact.py::force_level0) and marches the level-0 DDA with
-the exact test (`traversal/march.py::l0_step`); with `relax=k` as well, the
-relaxed stride tail (`l0_step_relaxed`), defined only unbudgeted, as in the
-JAX package. `l0_only` may also be a 0-dim tensor on the planes' device, a
-flag that the kernel reads on the card: when it is false the pass is the
-max-mip pass (the "auto" tail decides it on the device, with no host wait).
+the exact test, with `l0_step`'s hits (`traversal/march.py::l0_min_step`:
+a ray under a block's lowest corner passes the block untested, one under
+the map's lowest height ends); with `relax=k` as well, the relaxed stride
+tail (`l0_step_relaxed`), defined only unbudgeted, as in the JAX package.
+`l0_only` may also be a 0-dim tensor on the planes' device, a flag that
+the kernel reads on the card: when it is false the pass is the max-mip
+pass (the "auto" tail decides it on the device, with no host wait).
 
-The kernel marches the level-0 tail with one lane a ray or with a group of
-32 lanes a ray (testing 32 consecutive cells of the ray at once); "auto"
-chooses on the card from the count of live rays, with no host wait
-(march_pass.cu). Every choice gives the same planes; the
-plain version ignores it. `march_pass.mode_launches` counts, on the card,
-which march each launch ran.
+The kernel marches the level-0 tail with one lane a ray, passing under
+whole blocks ("auto", the default, and 1), or when asked (`group=32`) with
+a group of 32 lanes a ray, testing 32 consecutive cells of the ray at once
+and ending only under the floor (`l0_min_step(hierarchy=False)`; faster
+only where a few rays walk long level-0 chains above the terrain,
+march_pass.cu). Both give the same hits; a ray that ends as a miss ends in
+another state, after other counts, so the plain version takes the group
+too. `march_pass.mode_launches` counts, on the card, which march each
+launch ran.
 """
 
 from __future__ import annotations
 
 import torch
 
-from hmrt_tpu_torch.core.pyramid import flat_size
+from hmrt_tpu_torch.core.pyramid import build_min_pyramid_flat, flat_size, min_flat_size
 from hmrt_tpu_torch.kernels import _build
 from hmrt_tpu_torch.traversal.intersect import INTERSECTORS, INTERSECTOR_IDS, SURFACES
-from hmrt_tpu_torch.traversal.march import (WorkCounter, l0_step, l0_step_relaxed,
-                                            maxmip_step, ray_box_range, ray_inverses,
-                                            record_corners, relaxed_planes, run_masked)
+from hmrt_tpu_torch.traversal.march import (WorkCounter, below_margins, l0_min_step,
+                                            l0_step_relaxed, maxmip_step, ray_box_range,
+                                            ray_inverses, record_corners, relaxed_planes,
+                                            run_masked)
 
 UNBUDGETED = 1 << 22
 #: the kernel's mode argument: the max-mip march, the exact level-0 tail,
@@ -80,7 +88,7 @@ class LaunchTally:
     """Launches of the march kernel by the march each one ran (TALLY_KEYS),
     counted on the card by the kernel itself: an "auto" tail whose flag
     was false ran "maxmip", and an exact level-0 tail ran "l0" (one lane a
-    ray) or "l0_g32" (32 lanes a ray), as the kernel chose.
+    ray) or "l0_g32" (32 lanes a ray, when the caller asked for it).
     `read()` waits for the card."""
 
     def __init__(self):
@@ -108,12 +116,14 @@ def march_pass_reference(rays, state, results, pyr_flat, heights, *, n: int,
                          m: int, levels: int, budget: int,
                          cell_intersect: str = "triangle", clip=None,
                          counter: WorkCounter | None = None,
-                         l0_only=False, relax: int = 0):
+                         l0_only=False, relax: int = 0, group="auto", pyr_min=None):
     """The plain torch version: the masked step loop of
     `traversal/march.py`, at most `budget` steps: `maxmip_step`, or with
-    `l0_only` `l0_step`, or with `relax` as well `l0_step_relaxed`.
-    `counter` records the work done."""
-    check_tail(l0_only, relax, budget)
+    `l0_only` `l0_min_step` (as the kernel marches one lane a ray, for
+    `group` 1 or "auto"; its lane groups' walk for 32), or with `relax` as
+    well `l0_step_relaxed`. `pyr_min`: the min pyramid, or None to build
+    it from `heights`. `counter` records the work done."""
+    check_tail(l0_only, relax, budget, group)
     if isinstance(l0_only, torch.Tensor):
         l0_only = bool(l0_only)
     ox, oy, oz, dx, dy, dz = rays
@@ -133,10 +143,14 @@ def march_pass_reference(rays, state, results, pyr_flat, heights, *, n: int,
                                levels=levels, intersector=intersector, counter=counter)
     elif not relax:
         corners = record_corners(heights_flat, n, m)
+        if pyr_min is None:
+            pyr_min = build_min_pyramid_flat(heights)
+        below = below_margins(ray, pyr_min[-1], gmax, m=m, cell_intersect=cell_intersect)
 
         def step(s):
-            return l0_step(ray, s, corners, gmax, m=m, intersector=intersector,
-                           counter=counter)
+            return l0_min_step(ray, s, corners, pyr_flat, pyr_min, gmax, below, m=m,
+                               levels=levels, intersector=intersector, counter=counter,
+                               hierarchy=group != 32)
     else:
         corners = record_corners(heights_flat, n, m)
         st.update(relaxed_planes(t))
@@ -170,6 +184,16 @@ def check_counts(counts: torch.Tensor, shape: tuple, dev) -> None:
                          f"{counts.dtype} {tuple(counts.shape)} on {counts.device}")
 
 
+def check_min_pyramid(pyr_min: torch.Tensor, m: int) -> None:
+    """Raise unless `pyr_min` is the min pyramid the level-0 tail reads: a
+    contiguous f32 (min_flat_size(m),)."""
+    size = min_flat_size(m)
+    if pyr_min.shape != (size,) or pyr_min.dtype != torch.float32 \
+            or not pyr_min.is_contiguous():
+        raise ValueError(f"pyr_min: want contiguous f32 ({size},) for m={m}, got "
+                         f"{pyr_min.dtype} {tuple(pyr_min.shape)}")
+
+
 def _check_inputs(rays, state, results, pyr_flat, corners, n, m, levels, budget):
     p = rays[0].shape[0]
     dtypes = (torch.float32,) * 6 + STATE_DTYPES + RESULT_DTYPES
@@ -194,7 +218,7 @@ def _check_inputs(rays, state, results, pyr_flat, corners, n, m, levels, budget)
 def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: int,
                levels: int, budget: int, cell_intersect: str = "triangle",
                clip=None, counts: torch.Tensor | None = None, l0_only=False,
-               relax: int = 0, group="auto", n_alive: torch.Tensor | None = None):
+               relax: int = 0, group="auto", pyr_min: torch.Tensor | None = None):
     """One budgeted march pass. Returns (new_state, new_results).
 
     CPU tensors run `march_pass_reference`; CUDA tensors launch the kernel
@@ -205,53 +229,53 @@ def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: i
     modes (module docstring); a relaxed pass counts every step, and the
     exact walk's intersector calls as cell tests. `group`: the level-0
     tail's lanes a ray, "auto" or one of GROUPS (module docstring).
-    `n_alive`: the live rays of `state`, a one-element int64 on its device,
-    from which "auto" chooses; None counts them here."""
+    `pyr_min`: the
+    scene's min pyramid (`Scene.pyr_min_flat`), which the kernel's exact
+    level-0 tail reads: a pass that may run that tail on the card raises
+    without it."""
     check_tail(l0_only, relax, budget, group)
     p = rays[0].shape[0]
     flag = l0_only if isinstance(l0_only, torch.Tensor) else None
     dev = _build.device_of([*rays, *state, *results, pyr_flat, heights, corners]
-                           + ([] if flag is None else [flag]))
+                           + ([] if flag is None else [flag])
+                           + ([] if pyr_min is None else [pyr_min]))
     if flag is not None and flag.numel() != 1:
         raise ValueError(f"l0_only: want a bool or a 0-dim flag, got shape {tuple(flag.shape)}")
+    if pyr_min is not None:
+        check_min_pyramid(pyr_min, m)
     if counts is not None:
         check_counts(counts, (2, p), dev)
-    if n_alive is not None and (n_alive.numel() != 1 or n_alive.dtype != torch.int64
-                                or n_alive.device != dev):
-        raise ValueError(f"n_alive: want one int64 on {dev}, got {n_alive.dtype} "
-                         f"{tuple(n_alive.shape)} on {n_alive.device}")
     if dev.type == "cpu":
         work = None if counts is None else WorkCounter(pyr_flat.shape[0], n, dev, lanes=p)
         out = march_pass_reference(rays, state, results, pyr_flat, heights,
                                    n=n, m=m, levels=levels, budget=budget,
                                    cell_intersect=cell_intersect, clip=clip, counter=work,
-                                   l0_only=l0_only, relax=relax)
+                                   l0_only=l0_only, relax=relax, group=group,
+                                   pyr_min=pyr_min)
         if work is not None:
             counts.copy_(torch.stack([work.lane_steps, work.lane_tests]))
         return out
     if dev.type != "cuda":
         raise ValueError(f"march_pass runs on cpu or cuda, not {dev}")
     _check_inputs(rays, state, results, pyr_flat, corners, n, m, levels, budget)
+    mode = (MODE_MAXMIP if flag is None and not l0_only
+            else MODE_RELAX if relax else MODE_L0)
+    if mode == MODE_L0 and pyr_min is None:
+        raise ValueError("the exact level-0 tail on the card reads the min pyramid: "
+                         "pass pyr_min=scene.pyr_min_flat")
     lib = _build.library()
     outs = [torch.empty_like(x) for x in (*state, *results)]
     lo, hi = (0.0, float(n - 1)) if clip is None else clip
-    mode = (MODE_MAXMIP if flag is None and not l0_only
-            else MODE_RELAX if relax else MODE_L0)
     with torch.cuda.device(dev):
         next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
         flag_i = None if flag is None else flag.reshape(1).to(torch.int32)
-        # the live rays, from which the kernel chooses the tail's group
-        if mode != MODE_L0 or group != "auto":
-            n_alive = None
-        elif n_alive is None:
-            n_alive = torch.count_nonzero(state[0])
         err = lib.hmrt_march_pass(
             *[x.data_ptr() for x in (*rays, *state, *results, *outs)],
-            pyr_flat.data_ptr(), corners.data_ptr(), p, m, levels, budget,
+            pyr_flat.data_ptr(), corners.data_ptr(),
+            pyr_min.data_ptr() if mode == MODE_L0 else None, p, m, levels, budget,
             INTERSECTOR_IDS[cell_intersect], mode, relax, float(lo), float(hi),
             None if flag_i is None else flag_i.data_ptr(),
-            0 if group == "auto" else group,
-            None if n_alive is None else n_alive.data_ptr(),
+            1 if group == "auto" else group,
             march_pass.mode_launches.slots(dev).data_ptr(), next_ray.data_ptr(),
             None if counts is None else counts.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)

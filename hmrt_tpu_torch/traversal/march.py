@@ -9,7 +9,10 @@ and the CUDA kernel repeats it line for line. The level-0 tail of the
 compact path has two more steps, `l0_step` (exact, every cell) and
 `l0_step_relaxed` (stride sampling with an exact walk over each bracket),
 the counterparts of `hmrt_tpu/kernels/march_body.py::wavefront_step_l0`
-and `wavefront_step_l0_relaxed`.
+and `wavefront_step_l0_relaxed`. `l0_min_step` is the exact tail as the
+CUDA kernel marches it: `l0_step`'s walk and hits, but a ray that stays
+under a block's lowest corner passes the whole block untested, and one
+under the map's lowest height ends.
 
 Robustness rules, as in the JAX package: cell coordinates are INTEGER
 per-lane state, so every step makes integer progress and no epsilon is
@@ -27,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from hmrt_tpu_torch.core.pyramid import NEG_INF, flat_index
+from hmrt_tpu_torch.core.pyramid import NEG_INF, flat_index, min_flat_size
 from hmrt_tpu_torch.traversal.intersect import BIG_T, INTERSECTORS
 
 EPS_EXIT = 1.0e-6
@@ -335,6 +338,205 @@ def l0_step(ray, st, corners, gmax, *, m: int, intersector,
                 hy=torch.where(hit_now, icy, st["hy"]))
 
 
+#: The margin by which a ray must stay under a cell's (or a block's)
+#: lowest corner for the tail to skip its exact test (`below_margins`).
+#: u = 2^-24 is the f32 unit roundoff; every term carries at least twice
+#: the first-order error bound it stands for (PERF.md, "the margin").
+MARGIN_TOL = 1.0e-3 * (1.0 + 2.0 ** -10)  # the test window's slack T_TOL, a unit of |dz|
+MARGIN_Z = 2.0 ** -19     # 32 u: rounding at the magnitude Z of the heights along the ray
+MARGIN_S = 8.0e-6         # the intersectors' containment slack 1e-6, a unit of corner span
+MARGIN_A = 2.0 ** -19     # 32 u: rounding at the ray's world magnitude A, a unit of span
+MARGIN_SAFE = 4.0e-20     # the intersectors' divisor floor 1e-20 (`safe`), per unit of t
+MARGIN_LIN = 2.0e-12      # bilinear: the quadratic term its linear branch drops, per t^2
+MARGIN_A2 = 2.0 ** -19    # bilinear: cancellation in the patch's far-origin coefficients
+
+
+def below_margins(ray, gmin, gmax, *, m: int, cell_intersect: str):
+    """The per-ray constants of the level-0 tail's tests under the terrain,
+    (m0, m1, zfloor), f32[P] each, or None for "flat" (its column is hit by
+    any ray under it, so it keeps every test).
+
+    A ray that over a cell's test window [t, t_exit] stays below the cell's
+    lowest corner by m0 + span * m1 (span: the cell's corner max - min, or
+    a block's, which bounds every cell in it) cannot be hit by the exact
+    test there: the triangle's planes and the bilinear patch lie between
+    the corners, widened by the containment slack (1e-6 of a cell) and by
+    the f32 rounding of the test's own expressions. m0 covers the window's
+    T_TOL of t, the rounding at the heights' magnitude
+    Z = |oz| + max(|gmin|, |gmax|) + |t1| |dz|, and the divisor the
+    intersectors raise to 1e-20 when it is smaller (a ray with no slope
+    against a cell's plane "meets" it at t ~ its height gap / 1e-20, so
+    this term is |t1| 4e-20: it matters only for rays of a near-zero
+    direction, whose t1 is huge); m1 the slack and the
+    rounding at the ray's world magnitude
+    A = |ox| + |oy| + |t1| (|dx| + |dy|) + 2m + 2, times the cell's
+    gradients; the bilinear root solve adds A^2 (its coefficients are
+    taken about the cell's corner, far from the origin) and |t1|^2 (its
+    linear branch). A descending ray under zfloor, the map's lowest height
+    less the margin at the whole map's span, is under every cell it has
+    left to cross: it ends as a miss. The CUDA kernel computes each in
+    this float order (march_common.cuh below_margins)."""
+    if cell_intersect == "flat":
+        return None
+    ox, oy, oz, dx, dy, dz, _, _, t1 = ray
+    at1 = torch.abs(t1)
+    a = (torch.abs(ox) + torch.abs(oy)) + at1 * (torch.abs(dx) + torch.abs(dy)) + float(2 * m + 2)
+    z = (torch.abs(oz) + torch.maximum(torch.abs(gmin), torch.abs(gmax))) + at1 * torch.abs(dz)
+    m0 = MARGIN_TOL * torch.abs(dz) + MARGIN_Z * z + MARGIN_SAFE * at1
+    m1 = MARGIN_S + MARGIN_A * a
+    if cell_intersect == "bilinear":
+        m0 = m0 + MARGIN_LIN * (at1 * at1)
+        m1 = m1 + MARGIN_A2 * (a * a)
+    zfloor = torch.where(dz < 0.0, gmin - (m0 + (gmax - gmin) * m1), -BIG_T)
+    return m0, m1, zfloor
+
+
+def _dda_steps(b0, step, o, inv, none, t_cross, strict: bool, top, rounds: int):
+    """How many boundaries of one axis the level-0 DDA crosses before
+    t_cross, counting from boundary index b0 (step +-1): the smallest k in
+    [0, top] whose exit (`_axis_exit`) is not before t_cross, where
+    "before" is < for the y axis against an x crossing and <= for the x
+    axis against a y crossing (a tie steps x first, as `step_geometry`).
+    The exits never decrease along the axis, so a binary search of
+    `rounds` halvings finds it; any search gives the same k."""
+    lo = torch.zeros_like(top)
+    hi = top
+    for _ in range(rounds):
+        go = lo < hi
+        mid = (lo + hi) >> 1
+        e = _axis_exit(b0, mid, step, o, inv, none)
+        passed = e < t_cross if strict else e <= t_cross
+        lo = torch.where(go & passed, mid + 1, lo)
+        hi = torch.where(go & ~passed, mid, hi)
+    return lo
+
+
+def block_crossing(ray, icx, icy, lvl, t_exit, nx, ny, *, levels: int):
+    """The level-0 cell the DDA from level-0 cell (icx, icy) enters when it
+    leaves that cell's level-`lvl` block, whose exit is t_exit toward block
+    (nx, ny) (`step_geometry` at `lvl`): on the crossed axis the first cell
+    past the block; on the other the cell where the steps the DDA takes
+    inside the block before the crossing put it (`_dda_steps`). At level 0
+    it is (nx, ny). The bits of every later exit follow, because exits are
+    taken from the origin at integer boundaries."""
+    ox, oy, _, dx, dy, _, inv_x, inv_y, _ = ray
+    side = 1 << lvl
+    pos_x, pos_y = dx > 0.0, dy > 0.0
+    sx = torch.where(pos_x, 1, -1).to(torch.int32)
+    sy = torch.where(pos_y, 1, -1).to(torch.int32)
+    bx, by = icx >> lvl, icy >> lvl
+    axis_x = nx != bx
+    # on the crossed axis: the first cell past the block
+    cx_x = nx * side + torch.where(pos_x, 0, side - 1)
+    cy_y = ny * side + torch.where(pos_y, 0, side - 1)
+    # on the other: the cells left in the block ahead of the current one bound the steps
+    top_y = torch.where(pos_y, by * side + (side - 1) - icy, icy - by * side)
+    top_x = torch.where(pos_x, bx * side + (side - 1) - icx, icx - bx * side)
+    ky = _dda_steps(icy + pos_y.to(torch.int32), sy, oy, inv_y, torch.abs(dy) < 1e-20, t_exit,
+                    True, torch.where(axis_x, top_y, 0), levels)
+    kx = _dda_steps(icx + pos_x.to(torch.int32), sx, ox, inv_x, torch.abs(dx) < 1e-20, t_exit,
+                    False, torch.where(axis_x, 0, top_x), levels)
+    return (torch.where(axis_x, cx_x, icx + kx * sx),
+            torch.where(axis_x, icy + ky * sy, cy_y))
+
+
+def l0_min_step(ray, st, corners, pyr_flat, pyr_min, gmax, below, *, m: int, levels: int,
+                intersector, counter: WorkCounter | None = None, hierarchy: bool = True):
+    """One masked step of the forced-level-0 tail as the CUDA kernel
+    marches it (`march_common.cuh::l0_min_steps`): the walk of `l0_step`,
+    with the same hits (hit, t_hit, hx, hy, bit for bit), and two ways to
+    end a ray's work early under the terrain (`below_margins`).
+
+    icx, icy are always the level-0 cell `l0_step` would stand in; lvl is
+    the level of the block around it that this step takes (0: the cell).
+    At level 0 the step is `l0_step`'s: the cell's exit, the skip over a
+    cell whose max the ray clears, the exact test in the same window,
+    unless the ray stays under the cell's lowest corner by the margin. At a
+    level k >= 1 the block's min and max are read from the pyramids
+    (`pyr_min`, `pyr_flat`): a ray under the block by the margin leaves the
+    block in one step, to the level-0 cell the walk would enter there
+    (`block_crossing`, with the same t: the running max of exits is the
+    block's exit); otherwise the step descends a level, the cell staying
+    the same. A ray that passes under a cell or a block ascends by the
+    crossed boundary's alignment, as the max-mip march ascends after a skip
+    (no other step ascends). Escape above the map ends a ray as in
+    `l0_step`, and so does a descending ray under `below`'s zfloor. The
+    steps and tests, and the planes of a ray that ends as a miss, are this
+    walk's own.
+
+    `below` is `below_margins(...)` (None: no test under the terrain and no
+    floor). `hierarchy=False` is the walk of the kernel's lane groups
+    (`l0_group_march`): `l0_step` plus the floor exit, every lane taken at
+    level 0 and `lvl` left as it is. ray, st, corners and gmax as in
+    `l0_step`; `counter` records the step's work."""
+    ox, oy, oz, dx, dy, dz, inv_x, inv_y, t1 = ray
+    t, icx, icy, act = st["t"], st["icx"], st["icy"], st["alive"]
+    lvl = st["lvl"] if hierarchy else torch.zeros_like(st["lvl"])
+    fine = lvl == 0
+    bx, by = icx >> lvl, icy >> lvl
+    t_exit, nx, ny, bnd = step_geometry(ox, oy, dx, dy, bx, by, lvl, inv_x, inv_y)
+    t_exit_c = torch.minimum(t_exit, t1)
+    za, zb = t * dz, t_exit_c * dz
+    zmin = oz + torch.minimum(za, zb)
+
+    z00, z10, z01, z11 = corners(icx, icy)
+    cmax0 = torch.maximum(torch.maximum(z00, z10), torch.maximum(z01, z11))
+    idx = _cell_index0(m, icx, icy)
+    hi, lo = cmax0, torch.minimum(torch.minimum(z00, z10), torch.minimum(z01, z11))
+    if hierarchy:
+        side_m1 = (m >> lvl) - 1
+        bidx = flat_index(m, lvl, torch.minimum(torch.clamp_min(by, 0), side_m1),
+                          torch.minimum(torch.clamp_min(bx, 0), side_m1))
+        idx = torch.where(fine, idx, bidx)
+        hi = torch.where(fine, hi, pyr_flat.index_select(0, idx))
+        lo = torch.where(fine, lo, pyr_min.index_select(
+            0, torch.clamp(idx - m * m, 0, min_flat_size(m) - 1)))
+    under = torch.zeros_like(act)
+    if below is not None:
+        m0, m1, zfloor = below
+        if hierarchy:
+            under = oz + torch.maximum(za, zb) + (m0 + (hi - lo) * m1) < lo
+    above = fine & (zmin > hi)
+    test = act & fine & ~above & ~under
+    if counter is not None:
+        counter.observe(act, idx, test, icx, icy)
+    h, t_c = intersector(ox, oy, oz, dx, dy, dz, icx, icy, z00, z10, z01, z11,
+                         t - T_TOL, t_exit_c + T_TOL)
+    hit_now = h & test
+    descend = act & ~fine & ~under
+    advance = act & ~hit_now & ~descend
+
+    new_t = torch.maximum(t, t_exit_c)
+    new_icx, new_icy = nx, ny
+    cross = advance & ~fine
+    if bool(cross.any()):  # a block passed under: the level-0 cell past it
+        k = torch.nonzero(cross).squeeze(1)
+        sub = tuple(x.index_select(0, k) for x in ray)
+        cx, cy = block_crossing(sub, *(x.index_select(0, k) for x in (icx, icy, lvl, t_exit,
+                                                                        nx, ny)),
+                                levels=levels)
+        new_icx = nx.index_copy(0, k, cx)
+        new_icy = ny.index_copy(0, k, cy)
+    asc = torch.where(advance & under, ascent_levels(bnd), 0)
+    new_lvl = torch.where(descend, lvl - 1, lvl + torch.minimum(asc, (levels - 1) - lvl))
+    z_new = oz + new_t * dz
+    ends = ((t_exit >= t1 - EPS_EXIT) | (new_icx < 0) | (new_icx >= m) | (new_icy < 0)
+            | (new_icy >= m) | ((z_new > gmax) & (dz > 0.0)))
+    if below is not None:
+        ends = ends | (z_new < zfloor)
+    out = advance & ends
+    return dict(st,
+                t=torch.where(advance, new_t, t),
+                lvl=torch.where(act, new_lvl, lvl) if hierarchy else st["lvl"],
+                icx=torch.where(advance, new_icx, icx),
+                icy=torch.where(advance, new_icy, icy),
+                alive=act & ~hit_now & ~out,
+                hit=st["hit"] | hit_now,
+                t_hit=torch.where(hit_now, t_c, st["t_hit"]),
+                hx=torch.where(hit_now, icx, st["hx"]),
+                hy=torch.where(hit_now, icy, st["hy"]))
+
+
 def _axis_exit(b0, k, step, o, inv, none):
     """The boundary exit of the level-0 DDA k cells along one axis from
     boundary index b0 (`step_geometry`'s tx or ty of that cell, the same
@@ -343,12 +545,15 @@ def _axis_exit(b0, k, step, o, inv, none):
 
 
 def l0_group_march(ray, st, corners, gmax, *, m: int, intersector, group: int,
-                   budget: int, counter: WorkCounter | None = None):
+                   budget: int, counter: WorkCounter | None = None, zfloor=None):
     """The forced-level-0 tail as the CUDA kernel's lane groups march it
     (`march_common.cuh::l0_group_steps`), written on tensors: up to
     `budget` steps of every alive lane, `group` cells of a lane's level-0
-    DDA a window. Not on any render path: the tests hold it against `l0_step`
-    iterated and against JAX's step, bit for bit.
+    DDA a window. Not on any render path: the tests hold it against
+    `l0_min_step(hierarchy=False)` iterated in every plane, and in hits
+    against `l0_step` and JAX's step, bit for bit. `zfloor` (f32[P], from
+    `below_margins`, or None): a descending lane under it after a cell ends
+    there, as `l0_min_step` ends it.
 
     Each window, column k of a lane takes the cell k steps on from its
     current one: its x-steps among those k are the merge of the x and y
@@ -405,9 +610,11 @@ def l0_group_march(ray, st, corners, gmax, *, m: int, intersector, group: int,
         h, t_c = intersector(ox, oy, oz, dx, dy, dz, cx, cy, *z, t_k - T_TOL, t_exit_c + T_TOL)
         hit_now = h & test
         t_new = torch.maximum(t, inc)
-        escaped = (oz + t_new * dz > gmax) & (dz > 0.0)
+        z_new = oz + t_new * dz
         out = ((t_exit >= t1 - EPS_EXIT) | (nx < 0) | (nx >= m) | (ny < 0) | (ny >= m)
-               | escaped)
+               | ((z_new > gmax) & (dz > 0.0)))
+        if zfloor is not None:
+            out = out | (z_new < zfloor[:, None])
         ends = ~run | hit_now | out
         # the first column that ends the lane, G if none; the cells stepped
         f = torch.where(ends.any(1), torch.argmax(ends.to(torch.int32), 1), G)[:, None]

@@ -149,12 +149,16 @@ class Scene:
     corner_grads) that the fused kernel interpolates. corners holds each
     cell's four corner heights as one record (core/pyramid.py
     corner_records), the layout the CUDA march reads level 0 from.
+    pyr_min_flat is the min pyramid of the cells' lowest corners, levels
+    >= 1 (core/pyramid.py build_min_pyramid_flat), which the CUDA level-0
+    tail reads to pass under whole blocks.
     shade_rec and albedo_rec hold each cell's corner gradients and corner
     RGB as one record (api/scene.py shade_records), the layout the shade
     pass reads."""
 
     heights: torch.Tensor          # (N, N) f32 height samples
     pyr_flat: torch.Tensor         # (T,) f32 flat level-major max pyramid
+    pyr_min_flat: torch.Tensor     # (T - m*m,) f32 flat min pyramid, levels >= 1
     corners: torch.Tensor          # (m, m, 4) f32 per-cell corner records
     albedo: torch.Tensor | None    # (3, N*N) planar f32 texture, or None
     light: Light

@@ -13,19 +13,24 @@ the shade_pass kernel's device ms on the lanes of the B3 frame (untextured)
 and of B4's orbit frame 0 (textured), three times each by CUDA events over
 SHADE_REPS calls queued behind a spin kernel, with the 32-byte sectors its
 gathers touch in either layout (chip_smoke.py::shade_sectors), the B3
-frame's ms through each path (CUDA events, median of 5), each march_pass
+frame's ms through each path (CUDA events, median of 5), B5's eight bands
+of 270 rows on one card (CUDA events, median of 3, with the marches each
+band's launches ran and each launch's device ms), each march_pass
 launch of the B3 frame with its level-0 tail off, forced, "auto" and relaxed
 at strides 4, 8 and 16 (render_frame_compact's l0_tail and relax) with the
-march's bound on that frame (bench/floor.py, from the counting instance), the
+march's bound on that frame and the primary tail launch's steps and cell
+tests (bench/floor.py, from the counting instance), the
 level-0 tail launches of the B3 frame (primary and shadow) and of B4's
 orbit frame 0 (primary) replayed on their own inputs with each lane group
 the kernel takes (march_pass's `group`: 1, 32 and "auto"; in a checkout
 from before the groups, its one tail march), the tail launch on samples of
 B3's tail rays from 1,024 to 131,072 live rays by group (the measurements
-behind march_pass.cu's rule), the latency bound of B4's tail launch (the
-probe bench/latency.py on its longest ray: the ms of its walk, one
-dependent record load and cell test a step, and ceil(chain / G) steps at
-each lane group), and the registers and spill bytes ptxas gave
+behind march_pass.cu's choice of one lane a ray), the latency bound of
+B4's tail launch (the probe bench/latency.py on its longest ray, the
+cells 32 lanes a ray walk on it: the ms of its walk, one dependent record
+load and cell test a step; ceil(chain / 32) steps at 32 lanes a ray, the
+longest ray's steps at one lane, and the least of the two), and the registers
+and spill bytes ptxas gave
 each kernel (march_pass by mode), beside the card's name and power limit.
 
 --root DIR imports hmrt_tpu_torch from another checkout, e.g. an older
@@ -155,26 +160,33 @@ def tail_ms_by_group(launches, march_pass, kernel_ms, event_ms) -> list:
 
 
 def latency_probe(launch, scene, march_pass, kernel_ms) -> dict:
-    """The probe of bench/latency.py on the longest live ray of a captured
-    tail launch (its steps at one lane a ray, counted): the chain, the
-    probe's device ms over it, the time of one step and the latency bound
-    ceil(chain / G) steps at each lane group G."""
+    """The probe of bench/latency.py on the live rays of a captured tail
+    launch: the longest chain of cells 32 lanes a ray walk (the level-0
+    DDA to the floor), the probe's device ms over it and so the time of one
+    dependent step, and each march's latency bound, its longest chain of
+    dependent steps at that time: ceil(cells / 32) windows for 32 lanes a
+    ray, the longest ray's own steps for one lane a ray. The least of them
+    bounds the launch, whichever march runs it."""
     import torch
     from hmrt_tpu_torch.bench.latency import l0_walk
     args, kw = launch
     live = torch.nonzero(args[1][0] != 0).squeeze(1)
     sub = tuple(tuple(x.index_select(0, live).contiguous() for x in planes)
                 for planes in args[:3])
-    cnt = torch.empty((2, live.numel()), dtype=torch.int32, device=live.device)
-    march_pass(*sub, *args[3:], **{**kw, "counts": cnt, "group": 1, "n_alive": None})
-    k = int(torch.argmax(cnt[0]))
-    chain = int(cnt[0][k])
+    longest = {}
+    for g in (1, 32):
+        cnt = torch.empty((2, live.numel()), dtype=torch.int32, device=live.device)
+        march_pass(*sub, *args[3:], **{**kw, "counts": cnt, "group": g})
+        longest[g] = cnt[0]
+    k = int(torch.argmax(longest[32]))
+    chain = int(longest[32][k])
     one = [tuple(x[k:k + 1].contiguous() for x in planes) for planes in sub[:2]]
     ms = kernel_ms(lambda: l0_walk(*one, scene, steps=chain, cell_intersect=kw["cell_intersect"]),
                    "l0_probe_kernel", 5)
     us = 1e3 * ms / chain
-    return {"chain": chain, "probe_ms": ms, "us_per_step": us,
-            "bound_ms": {str(g): -(-chain // g) * us / 1e3 for g in (1, 32)}}
+    bound = {"1": int(longest[1].max()) * us / 1e3, "32": -(-chain // 32) * us / 1e3}
+    return {"chain": chain, "one_lane_steps": int(longest[1].max()), "probe_ms": ms,
+            "us_per_step": us, "bound_ms": bound, "least_bound_ms": min(bound.values())}
 
 
 def main() -> int:
@@ -246,7 +258,12 @@ def main() -> int:
                 tails[label] = [ms for _, ms in launches]
                 fc = count_frame(scene, cam, cfg_c, **kw)
                 tail_bounds[label] = {"steps": sum(fc.totals(0)), "tests": sum(fc.totals(1)),
-                                      "bound": fc.bound()}
+                                      "bound": fc.bound(),
+                                      "tail_steps": fc.totals(0)[fc.n_primary - 1],
+                                      "tail_tests": fc.totals(1)[fc.n_primary - 1]}
+                if hasattr(fc, "launch_bound"):  # a checkout that counts dead lanes apart
+                    tail_bounds[label].update(live=fc.live(),
+                                              tail_bound=fc.launch_bound(fc.n_primary - 1))
         # the level-0 tail launches, replayed by lane group (B3: primary and
         # shadow; B4 orbit frame 0: primary, its frame has no shadows)
         by_group, b4_latency = {}, {}
@@ -267,6 +284,8 @@ def main() -> int:
                 rays_t, state_t, res_t, _ = tail_survivors(scene, cam, cfg_c, count)
                 kw_t = dict(n=scene.n, m=scene.m, levels=scene.levels, budget=1 << 22,
                             l0_only=True)
+                if "pyr_min" in inspect.signature(march_pass).parameters:
+                    kw_t["pyr_min"] = scene.pyr_min_flat
                 by_live[count] = {
                     str(g): kernel_ms(lambda g=g: march_pass(
                         rays_t, state_t, res_t, scene.pyr_flat, scene.heights, scene.corners,
@@ -282,6 +301,21 @@ def main() -> int:
                           ("compact", cfg_c)):
             frames.setdefault(label, []).append(
                 median_ms(lambda: T.render_frame(scene, cam, cf), 5)[0])
+        # B5's 8 bands of 270 rows on one card (B3's map and camera), each
+        # with the marches its launches ran
+        b5 = BENCH_CONFIGS["B5"].render
+        band = dataclasses.replace(b5, height=b5.height // 8)
+        b5_bands = []
+        for r in range(8):
+            def run(r=r):
+                return render_frame_compact(scene, cam, band, row0=r * band.height,
+                                            full_height=b5.height)
+            march_pass.mode_launches.reset()
+            run()
+            ran = {k: v for k, v in march_pass.mode_launches.read().items() if v}
+            b5_bands.append({"ms": median_ms(run, 3)[0], "ran": ran,
+                             "march_ms": [ms for _, ms in launch_times(
+                                 run, ("march_pass_kernel",))]})
         print(json.dumps({
             "root": args.root, "variant": spec, "card": card,
             "march_pass_ms_per_launch": [ms for _, ms in per_launch],
@@ -294,6 +328,7 @@ def main() -> int:
             "tail_ms_by_live_rays": by_live,
             "shade_sectors": sectors,
             "frame_ms_compact": frames["compact"], "frame_ms_fused": frames["fused"],
+            "b5_bands": b5_bands,
             "registers": registers(log)}), flush=True)
     return 0
 

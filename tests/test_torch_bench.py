@@ -13,6 +13,7 @@ import torch
 from torch.multiprocessing import ProcessRaisedException
 
 import hmrt_tpu_torch as T
+import hmrt_tpu_torch.kernels.compact as compact
 from hmrt_tpu.bench.runner import run_bench as jax_run_bench
 from hmrt_tpu.io.heightmap import procedural_terrain
 from hmrt_tpu_torch.api.flythrough import frame_camera
@@ -23,7 +24,7 @@ from hmrt_tpu_torch.cli import bench as cli_bench
 from hmrt_tpu_torch.distrib import mesh as dm
 from hmrt_tpu_torch.kernels.compact import (empty_results, hit_points, init_state,
                                             primary_rays, shadow_start)
-from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass_reference
+from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass, march_pass_reference
 from hmrt_tpu_torch.kernels.shade_pass import shade_pass_reference
 from hmrt_tpu_torch.traversal.march import WorkCounter
 from hmrt_tpu_torch.utils.profiling import maybe_trace
@@ -186,17 +187,32 @@ def test_floor_metrics_of_an_animation_are_the_frame_means():
     assert per[0]["lane_steps_per_frame"] != per[1]["lane_steps_per_frame"]
 
 
-def test_frame_counts_and_bound():
+def test_frame_counts_and_bound(monkeypatch):
     scene, cam, cfg = _floor_scene()
+    live = []  # the lanes alive as each launch starts, read from its state
+
+    def recording(rays, state, *a, **kw):
+        live.append(int(torch.count_nonzero(state[0])))
+        return march_pass(rays, state, *a, **kw)
+
+    monkeypatch.setattr(compact, "march_pass", recording)
     fc = count_frame(scene, cam, cfg)
     assert fc.n_primary == 3 and len(fc.counts) == 5
     assert all(c.shape == (2, 128 * 32) and c.dtype == torch.int32 for c in fc.counts)
     ref = T.render_frame(scene, cam, cfg)
     assert torch.equal(fc.hit.reshape(32, 128), ref.hit)
-    # 5 launches move 24 planes of 4 bytes per ray; each step and test is 50 ops
-    want = bound(5 * 128 * 32 * 96, (sum(fc.totals(0)) + sum(fc.totals(1))) * 50)
+    # a launch moves 24 planes of 4 bytes per live lane and 18 per dead one
+    # (no ray planes); each step and test is 50 ops
+    assert fc.live() == live and live[0] > 0 and max(live) < 128 * 32
+    p = 128 * 32
+    want = bound(sum(k * 96 + (p - k) * 72 for k in live),
+                 (sum(fc.totals(0)) + sum(fc.totals(1))) * 50)
     ms, by = fc.bound()
     assert ms == pytest.approx(want[0]) and by == want[1]
+    for k, n in enumerate(live):
+        want = bound(n * 96 + (p - n) * 72, (fc.totals(0)[k] + fc.totals(1)[k]) * 50)
+        ms, by = fc.launch_bound(k)
+        assert ms == pytest.approx(want[0]) and by == want[1]
 
 
 def test_bound_takes_the_larger_time():

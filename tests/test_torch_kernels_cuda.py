@@ -22,7 +22,9 @@ from hmrt_tpu_torch.kernels.raycast import (fused_planes, fused_reference_planes
                                             render_frame_fused,
                                             render_frame_fused_reference)
 from hmrt_tpu_torch.kernels.shade_pass import shade_pass, shade_pass_reference
-from hmrt_tpu_torch.traversal.march import WorkCounter
+from hmrt_tpu_torch.traversal.intersect import INTERSECTORS
+from hmrt_tpu_torch.traversal.march import (WorkCounter, l0_step, ray_box_range, ray_inverses,
+                                            record_corners, run_masked)
 
 pytestmark = pytest.mark.cuda
 
@@ -49,6 +51,28 @@ def _empty_results(p, dev):
             torch.full((p,), 3.0e38, device=dev),
             torch.zeros(p, dtype=torch.int32, device=dev),
             torch.zeros(p, dtype=torch.int32, device=dev))
+
+
+def _ran_group():
+    """The lanes a ray of the level-0 tail the last launches ran (the tally):
+    the plain version of that walk takes the same group."""
+    ran = {k for k, v in march_pass.mode_launches.read().items() if v}
+    return 32 if "l0_g32" in ran else 1
+
+
+def _old_walk_hits(sc, rays, st, res, ci="triangle"):
+    """The old level-0 walk (`l0_step` over every cell, no min pyramid) to
+    the end: (hit, t_hit, hx, hy), which every form of the tail must give."""
+    ox, oy, oz, dx, dy, dz = rays
+    inv_x, inv_y = ray_inverses(dx, dy)
+    _, t1, _ = ray_box_range(ox, oy, dx, dy, float(sc.n - 1))
+    ray = (ox, oy, oz, dx, dy, dz, inv_x, inv_y, t1)
+    corners = record_corners(sc.heights.reshape(-1), sc.n, sc.m)
+    out = run_masked(lambda s: l0_step(ray, s, corners, sc.pyr_flat[-1], m=sc.m,
+                                       intersector=INTERSECTORS[ci]),
+                     dict(t=st[1], lvl=st[2], icx=st[3], icy=st[4], alive=st[0] != 0,
+                          hit=res[0] != 0, t_hit=res[1], hx=res[2], hy=res[3]), UNBUDGETED)
+    return out["hit"].to(torch.int32), out["t_hit"], out["hx"], out["hy"]
 
 
 @pytest.mark.parametrize("ci", ["triangle", "bilinear", "flat"])
@@ -93,10 +117,12 @@ def _grazing_rays(n, dev, p=4096, seed=0):
 def test_march_kernel_tail_modes_equal_plain(cuda, ci, mode):
     """K1's level-0 tail (l0_only; its group chosen on the card, or forced
     to one lane or 32 lanes a ray) and relaxed tail (relax=k), and both
-    under a device flag, equal their plain versions in all 9 planes and in
-    the counting instance's per-ray counts, from the state a budgeted
-    max-mip pass and force_level0 leave, on mixed and grazing rays; the
-    tally records the march each launch ran."""
+    under a device flag, equal their plain versions (the level-0 tail's of
+    the group the launch ran) in all 9 planes and in the counting
+    instance's per-ray counts, from the state a budgeted max-mip pass and
+    force_level0 leave, on mixed and grazing rays (many of them under the
+    terrain); the level-0 tail's hits are the old walk's; the tally
+    records the march each launch ran."""
     n = 1024
     sc = _scene(n, cuda)
     rays = tuple(torch.cat([a, b]) for a, b in zip(_rays(n, cuda), _grazing_rays(n, cuda)))
@@ -116,24 +142,28 @@ def test_march_kernel_tail_modes_equal_plain(cuda, ci, mode):
     march_pass.mode_launches.reset()
     sk, rk = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners,
                         budget=UNBUDGETED, counts=cnt, l0_only=l0_only, relax=relax, group=group,
-                        **kw)
+                        pyr_min=sc.pyr_min_flat, **kw)
     torch.cuda.synchronize()
     assert march_pass.launches == before + 1
     ran = {k: v for k, v in march_pass.mode_launches.read().items() if v}
     want = ({"relax"} if relax else {"maxmip"} if mode == "auto-maxmip"
-            else {"l0", "l0_g32"} if group == "auto"
+            else {"l0"} if group == "auto"
             else {{1: "l0", 32: "l0_g32"}[group]})
     assert len(ran) == 1 and set(ran) <= want and sum(ran.values()) == 1, ran
     work = WorkCounter(sc.pyr_flat.shape[0], sc.n, cuda, lanes=p)
     sr, rr = march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights, budget=UNBUDGETED,
-                                  counter=work, l0_only=l0_only, relax=relax, **kw)
+                                  counter=work, l0_only=l0_only, relax=relax,
+                                  group="auto" if relax else _ran_group(), **kw)
     for a, b in zip(sk + rk, sr + rr):
         assert torch.equal(a, b)
     assert torch.equal(cnt[0], work.lane_steps) and torch.equal(cnt[1], work.lane_tests)
     assert int(st[0].sum()) > 0 and not sk[0].any()
+    if not relax and mode != "auto-maxmip":
+        for a, b in zip(rk, _old_walk_hits(sc, rays, st, res, ci)):
+            assert torch.equal(a, b)
     with pytest.raises(ValueError, match="unbudgeted"):
         march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners, budget=64,
-                   l0_only=True, relax=4, **kw)
+                   l0_only=True, relax=4, pyr_min=sc.pyr_min_flat, **kw)
 
 
 @pytest.mark.parametrize("l0_tail", [True, "auto"])
@@ -160,17 +190,17 @@ def test_compact_tails_on_card(cuda, l0_tail):
     assert exact.hit.any()
 
 
-#: K1's marches: max-mip, and the level-0 tail with its group forced to
-#: one lane or 32 lanes a ray, or chosen on the card
+#: K1's marches: max-mip, and the level-0 tail at one lane or 32 lanes a
+#: ray, or "auto" (one lane a ray)
 MARCHES = ["maxmip", 1, 32, "auto"]
 
 
-def _march_kw(march, rays, st):
+def _march_kw(march, rays, st, sc):
     """(state, march_pass keywords) of a march of MARCHES: the level-0 tail
-    starts from force_level0 of the state."""
+    starts from force_level0 of the state and reads the min pyramid."""
     if march == "maxmip":
         return st, {}
-    return force_level0(rays, st), dict(l0_only=True, group=march)
+    return force_level0(rays, st), dict(l0_only=True, group=march, pyr_min=sc.pyr_min_flat)
 
 
 @pytest.mark.parametrize("march", MARCHES)
@@ -178,25 +208,39 @@ def _march_kw(march, rays, st):
 def test_march_kernel_equals_plain_at_ray_counts(cuda, p, march):
     """The persistent kernel on no ray, one ray, a warp and a lane, less
     than a warp, and more rays than one resident wave of the card holds
-    (132 SMs x 2,048 threads is 270,336), in every march: all 9 planes
-    equal, unbudgeted and at a budget that ends rays inside a chunk and a
-    window."""
+    (132 SMs x 2,048 threads is 270,336), in every march: all 9 planes and
+    the counting instance's per-ray counts equal the plain version's (the
+    level-0 tail's of the group the tally says the launch ran),
+    unbudgeted and at a budget that ends rays inside a chunk and a window;
+    the level-0 tail's hits are the old walk's."""
     sc = _scene(128, cuda)
     rays = _rays(128, cuda, p=max(p, 1), seed=5)
     rays = tuple(x[:p].contiguous() for x in rays)
     st = init_state(rays, None, sc.pyr_flat[-1], n=sc.n, m=sc.m, levels=sc.levels)
-    st, tail = _march_kw(march, rays, st)
+    st, tail = _march_kw(march, rays, st, sc)
     res = _empty_results(p, cuda)
     kw = dict(n=sc.n, m=sc.m, levels=sc.levels)
     for budget in (37, UNBUDGETED):
         before = march_pass.launches
+        cnt = torch.empty((2, p), dtype=torch.int32, device=cuda)
+        march_pass.mode_launches.reset()
         sk, rk = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners,
-                            budget=budget, **kw, **tail)
+                            budget=budget, counts=cnt, **kw, **tail)
         torch.cuda.synchronize()
         assert march_pass.launches == before + (1 if p else 0)
+        ran = {k for k, v in march_pass.mode_launches.read().items() if v}
+        want_ran = ({"maxmip"} if not tail else {"l0"} if march == "auto"
+                    else {{1: "l0", 32: "l0_g32"}[march]})
+        assert (ran <= want_ran and len(ran) == 1) if p else not ran, ran
+        work = WorkCounter(sc.pyr_flat.shape[0], sc.n, cuda, lanes=p)
         sr, rr = march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights,
-                                      budget=budget, **kw, l0_only=bool(tail))
+                                      budget=budget, counter=work, **kw, l0_only=bool(tail),
+                                      group=_ran_group() if tail else "auto")
         for a, b in zip(sk + rk, sr + rr):
+            assert torch.equal(a, b)
+        assert torch.equal(cnt[0], work.lane_steps) and torch.equal(cnt[1], work.lane_tests)
+    if tail:
+        for a, b in zip(rk, _old_walk_hits(sc, rays, st, res)):
             assert torch.equal(a, b)
 
 
@@ -209,7 +253,7 @@ def test_march_kernel_counts_equal_work_counter(cuda, budget, march):
     sc = _scene(1024, cuda)
     rays = _rays(1024, cuda, p=20_000, seed=6)
     st = init_state(rays, None, sc.pyr_flat[-1], n=sc.n, m=sc.m, levels=sc.levels)
-    st, tail = _march_kw(march, rays, st)
+    st, tail = _march_kw(march, rays, st, sc)
     res = _empty_results(20_000, cuda)
     kw = dict(n=sc.n, m=sc.m, levels=sc.levels, budget=budget)
     counts = torch.full((2, 20_000), -1, dtype=torch.int32, device=cuda)
@@ -219,23 +263,21 @@ def test_march_kernel_counts_equal_work_counter(cuda, budget, march):
     torch.cuda.synchronize()
     work = WorkCounter(sc.pyr_flat.shape[0], sc.n, cuda, lanes=20_000)
     march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights, counter=work, **kw,
-                         l0_only=bool(tail))
+                         l0_only=bool(tail), group=tail.get("group", "auto"))
     for a, b in zip(got[0] + got[1], timed[0] + timed[1]):
         assert torch.equal(a, b)
     assert torch.equal(counts[0], work.lane_steps) and torch.equal(counts[1], work.lane_tests)
     assert int(counts[0].sum()) == int(work.steps) and int(counts[1].sum()) == int(work.tests)
 
 
-@pytest.mark.parametrize("given", [False, True])
+@pytest.mark.parametrize("group", ["auto", 32])
 @pytest.mark.parametrize("live", [0, 16, 5000])
-def test_march_kernel_wide_tail_launch_equals_plain(cuda, live, given):
+def test_march_kernel_wide_tail_launch_equals_plain(cuda, live, group):
     """A tail launch shaped as the main path makes it: many lanes, few of
-    them live (B4's is 921,600 lanes with 16 live), its group chosen on the
-    card from the live-ray count, counted by the wrapper or handed in as
-    march_rounds hands it. All 9 planes and the per-ray counts equal the
-    plain version on the live lanes, the dead lanes come out as they came
-    with 0 steps, and the launch takes 32 lanes a ray while the live rays
-    are few and one lane a ray when none is live."""
+    them live (B4's is 921,600 lanes with 16 live), marched one lane a ray
+    ("auto") or 32 lanes a ray. All 9 planes and the per-ray counts equal
+    the plain version of that march on the live lanes, the dead lanes come
+    out as they came with 0 steps, and the tally names the march."""
     sc = _scene(1024, cuda)
     p = 300_000
     rays = _rays(1024, cuda, p=p, seed=9)
@@ -247,18 +289,41 @@ def test_march_kernel_wide_tail_launch_equals_plain(cuda, live, given):
     st = force_level0(rays, (torch.where(keep, st[0], 0),) + st[1:])
     assert int(st[0].sum()) == live
     kw = dict(n=sc.n, m=sc.m, levels=sc.levels, budget=UNBUDGETED, l0_only=True,
-              n_alive=(st[0] != 0).sum() if given else None)
+              group=group, pyr_min=sc.pyr_min_flat)
     cnt = torch.empty((2, p), dtype=torch.int32, device=cuda)
     march_pass.mode_launches.reset()
     sk, rk = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners, counts=cnt, **kw)
     ran = {k for k, v in march_pass.mode_launches.read().items() if v}
-    assert ran == ({"l0_g32"} if live else {"l0"}), ran
+    assert ran == ({"l0_g32"} if group == 32 else {"l0"}), ran
     work = WorkCounter(sc.pyr_flat.shape[0], sc.n, cuda, lanes=p)
-    sr, rr = march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights, counter=work,
-                                  **{k: v for k, v in kw.items() if k != "n_alive"})
+    sr, rr = march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights, counter=work, **kw)
     for a, b in zip(sk + rk, sr + rr):
         assert torch.equal(a, b)
     assert torch.equal(cnt[0], work.lane_steps) and torch.equal(cnt[1], work.lane_tests)
+
+
+def test_march_kernel_tail_needs_min_pyramid(cuda):
+    """On the card the exact level-0 tail reads the scene's min pyramid: a
+    pass that may run it (l0_only, or the "auto" flag) raises without one,
+    or with one of another shape, before anything launches; the max-mip
+    pass and the relaxed tail need none."""
+    sc = _scene(128, cuda)
+    rays = _rays(128, cuda, p=64, seed=2)
+    st = force_level0(rays, init_state(rays, None, sc.pyr_flat[-1], n=sc.n, m=sc.m,
+                                       levels=sc.levels))
+    res = _empty_results(64, cuda)
+    kw = dict(n=sc.n, m=sc.m, levels=sc.levels, budget=UNBUDGETED)
+    args = (rays, st, res, sc.pyr_flat, sc.heights, sc.corners)
+    before = march_pass.launches
+    for flag in (True, torch.tensor(False, device=cuda)):
+        with pytest.raises(ValueError, match="min pyramid"):
+            march_pass(*args, l0_only=flag, **kw)
+        with pytest.raises(ValueError, match="pyr_min"):
+            march_pass(*args, l0_only=flag, pyr_min=sc.pyr_min_flat[1:], **kw)
+    assert march_pass.launches == before
+    march_pass(*args, **kw)
+    march_pass(*args, l0_only=True, relax=4, **kw)
+    assert march_pass.launches == before + 2
 
 
 @pytest.mark.parametrize("ci", ["triangle", "bilinear", "flat"])

@@ -1,9 +1,10 @@
 """The level-0 tail by lane groups, on the CPU: `traversal/march.py::
 l0_group_march`, the tensor form of the CUDA kernel's group march
 (`march_common.cuh::l0_group_steps`), held bit for bit against the serial
-level-0 step (`l0_step`, iterated) and against JAX's
-(`march_body.py::wavefront_step_l0`) evaluated op by op; and march_pass's
-`group` on the CPU.
+walk it takes (`l0_min_step(hierarchy=False)`: the level-0 step `l0_step`
+plus the floor exit under the map's lowest height, iterated) and in hits
+against JAX's (`march_body.py::wavefront_step_l0`) evaluated op by op; and
+march_pass's `group` on the CPU.
 
 The window form rests on three facts these tests check: the cells of a
 ray's level-0 DDA are the merge of its x and y boundary exit sequences,
@@ -29,9 +30,9 @@ from hmrt_tpu.traversal.march import corner_heights as jax_corner_heights
 from hmrt_tpu_torch.kernels.compact import empty_results, force_level0, init_state
 from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass, march_pass_reference
 from hmrt_tpu_torch.traversal.intersect import BIG_T, INTERSECTORS
-from hmrt_tpu_torch.traversal.march import (WorkCounter, entry_cell, l0_group_march, l0_step,
-                                            ray_box_range, ray_inverses, record_corners,
-                                            run_masked)
+from hmrt_tpu_torch.traversal.march import (WorkCounter, below_margins, entry_cell,
+                                            l0_group_march, l0_min_step, ray_box_range,
+                                            ray_inverses, record_corners, run_masked)
 
 torch.set_num_threads(2)  # the suite runs several workers at once
 
@@ -97,17 +98,25 @@ def _state(st, res):
                 hx=hx, hy=hy)
 
 
+def _below(sc, ray, ci):
+    return below_margins(ray, sc.pyr_min_flat[-1], sc.pyr_flat[-1], m=sc.m, cell_intersect=ci)
+
+
 def _both(sc, ray, st, ci, group, budget):
-    """The serial level-0 march and the group march from `st`, each with its
-    WorkCounter."""
+    """The serial walk of the lane groups (`l0_min_step` without the
+    hierarchy: the level-0 step and the floor exit) and the group march
+    from `st`, each with its WorkCounter."""
     corners = record_corners(sc.heights.reshape(-1), sc.n, sc.m)
     gmax = sc.pyr_flat[-1]
+    below = _below(sc, ray, ci)
     kw = dict(m=sc.m, intersector=INTERSECTORS[ci])
     p = ray[0].shape[0]
     ws, wg = (WorkCounter(sc.pyr_flat.shape[0], sc.n, "cpu", lanes=p) for _ in range(2))
-    serial = run_masked(lambda s: l0_step(ray, s, corners, gmax, counter=ws, **kw), st, budget)
+    serial = run_masked(lambda s: l0_min_step(ray, s, corners, sc.pyr_flat, sc.pyr_min_flat,
+                                              gmax, below, levels=sc.levels, counter=ws,
+                                              hierarchy=False, **kw), st, budget)
     grouped = l0_group_march(ray, st, corners, gmax, group=group, budget=budget, counter=wg,
-                             **kw)
+                             zfloor=None if below is None else below[2], **kw)
     return (serial, ws), (grouped, wg)
 
 
@@ -125,8 +134,9 @@ def _assert_same(a, b, wa, wb):
 @pytest.mark.parametrize("ci", CIS)
 def test_group_march_equals_serial(scene, tail_start, ci, group, budget):
     """From the tail's start state, the group march equals the serial
-    level-0 march in all 9 planes, per-ray steps and cell tests, and the
-    terrain read, at budgets that end rays inside a window and unbudgeted."""
+    walk it takes (the level-0 step and the floor exit) in all 9 planes,
+    per-ray steps and cell tests, and the terrain read, at budgets that end
+    rays inside a window and unbudgeted."""
     rays, st, res = tail_start
     (a, wa), (b, wb) = _both(scene, _ray(scene, rays), _state(st, res), ci, group, budget)
     _assert_same(a, b, wa, wb)
@@ -184,16 +194,25 @@ def jax_tail():
 @pytest.mark.parametrize("ci", CIS)
 def test_group_march_matches_jax_op_by_op(jax_tail, ci, group, budget):
     """The group march from the grazing rays' entry cells equals JAX's
-    level-0 step iterated op by op, at each budget: every plane bit for bit
-    (t_hit of the bilinear model to T_RTOL, the intersectors' own bar) and
-    each ray's steps."""
+    level-0 step iterated op by op, at each budget: the hits bit for bit
+    (t_hit of the bilinear model to T_RTOL, the intersectors' own bar), and
+    every other plane and each ray's steps on the rays the floor exit did
+    not end (JAX has none): those the floor ended stand under it, and JAX's
+    walk never hits them."""
     sc, ray, start, jax_out = jax_tail
     want, want_steps = jax_out[ci][budget]
+    never = jax_out[ci][UNBUDGETED][0]["hit"] == 0
     corners = record_corners(sc.heights.reshape(-1), sc.n, sc.m)
     work = WorkCounter(sc.pyr_flat.shape[0], sc.n, "cpu", lanes=ray[0].shape[0])
+    below = _below(sc, ray, ci)
     got = l0_group_march(ray, start, corners, sc.pyr_flat[-1], m=sc.m,
                          intersector=INTERSECTORS[ci], group=group, budget=budget,
-                         counter=work)
+                         counter=work, zfloor=None if below is None else below[2])
+    floored = np.zeros(never.shape, bool)
+    if below is not None:
+        z_end = ray[2] + got["t"] * ray[5]
+        floored = (~got["alive"] & ~got["hit"] & (z_end < below[2])).numpy()
+        assert never[floored].all()
     hit = want["hit"] != 0
     for k in PLANES:
         g = got[k].numpy()
@@ -201,9 +220,11 @@ def test_group_march_matches_jax_op_by_op(jax_tail, ci, group, budget):
         if k == "t_hit":
             np.testing.assert_allclose(g[hit], w[hit], rtol=T_RTOL[ci], atol=0)
             np.testing.assert_array_equal(g[~hit], w[~hit])
-        else:
+        elif k in ("hit", "hx", "hy"):
             np.testing.assert_array_equal(g, w, err_msg=k)
-    np.testing.assert_array_equal(work.lane_steps.numpy(), want_steps)
+        else:
+            np.testing.assert_array_equal(g[~floored], w[~floored], err_msg=k)
+    np.testing.assert_array_equal(work.lane_steps.numpy()[~floored], want_steps[~floored])
     if budget == UNBUDGETED:
         assert hit.any() and not hit.all()
 
@@ -236,7 +257,7 @@ def test_group_march_special_rays(scene, data):
     directions, exact tx == ty ties (equal |dx| and |dy| from a cell's
     centre), starts on the grid's edges and lines, rays that leave at once,
     and rays that start inside the terrain; from their entry cell, the group
-    march equals the serial level-0 march in all planes and counts, with
+    march equals the serial walk it takes in all planes and counts, with
     each model, G and budget."""
     p = 8
     origins, dirs = [], []
@@ -275,15 +296,18 @@ def test_group_march_special_rays(scene, data):
 @pytest.mark.parametrize("group", ["auto", 1, 32])
 def test_march_pass_group_on_the_cpu(scene, tail_start, group):
     """march_pass takes the tail's `group` on a CPU scene and gives the plain
-    version's planes whatever it is (the group only decides how the kernel
-    marches); a group it does not define, or one outside the exact level-0
-    tail, raises before anything runs."""
+    version of that group's walk (one lane a ray for 1 and "auto"), whose
+    hits are the same whatever it is; a group it does not define, or one
+    outside the exact level-0 tail, raises before anything runs."""
     rays, st, res = tail_start
     kw = dict(n=scene.n, m=scene.m, levels=scene.levels, budget=UNBUDGETED)
     args = (rays, st, res, scene.pyr_flat, scene.heights)
     got = march_pass(*args, scene.corners, l0_only=True, group=group, **kw)
-    want = march_pass_reference(*args, l0_only=True, **kw)
+    want = march_pass_reference(*args, l0_only=True, group=group, **kw)
     for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(a, b)
+    one = march_pass_reference(*args, l0_only=True, group=1, **kw)
+    for a, b in zip(got[1], one[1]):
         assert torch.equal(a, b)
     for bad in (dict(l0_only=True, group=4), dict(l0_only=False, group=32),
                 dict(l0_only=True, relax=4, group=32), dict(l0_only=True, group="32")):
@@ -292,19 +316,3 @@ def test_march_pass_group_on_the_cpu(scene, tail_start, group):
     if group != "auto":
         with pytest.raises(ValueError, match="group"):
             march_pass(*args, scene.corners, group=group, **kw)
-
-
-def test_march_pass_takes_a_live_count(scene, tail_start):
-    """march_pass takes the live-ray count that march_rounds hands it (one
-    int64 on the planes' device) and gives the same planes with it; any
-    other count raises before anything runs."""
-    rays, st, res = tail_start
-    kw = dict(n=scene.n, m=scene.m, levels=scene.levels, budget=UNBUDGETED, l0_only=True)
-    args = (rays, st, res, scene.pyr_flat, scene.heights)
-    got = march_pass(*args, scene.corners, n_alive=(st[0] != 0).sum(), **kw)
-    want = march_pass_reference(*args, **kw)
-    for a, b in zip(got[0] + got[1], want[0] + want[1]):
-        assert torch.equal(a, b)
-    for bad in ((st[0] != 0).sum(dtype=torch.int32), torch.zeros(2, dtype=torch.int64)):
-        with pytest.raises(ValueError, match="n_alive"):
-            march_pass(*args, scene.corners, n_alive=bad, **kw)

@@ -1,8 +1,8 @@
 """The latency probe's walk on the CPU (`bench/latency.py::l0_walk`): the
 level-0 tail's step on one ray that never stops, which ends, after the
-steps the march took on that ray, in the state the march ends in. The
-probe's kernel is held to the same plain walk on the card in
-tests/test_torch_kernels_cuda.py.
+steps the lane groups' march (group 32, a cell a step) took on that ray,
+in the state that march ends in. The probe's kernel is held to the same
+plain walk on the card in tests/test_torch_kernels_cuda.py.
 """
 
 import numpy as np
@@ -29,7 +29,8 @@ def scene():
 
 def _tail(sc, ci):
     """Random and grazing rays after 6 max-mip steps, forced to level 0, and
-    their unbudgeted level-0 tail with its per-ray counts."""
+    their unbudgeted level-0 tail as the lane groups march it, with its
+    per-ray counts."""
     rng = np.random.default_rng(2)
     o, d = random_rays(192, N, seed=4)
     hmax = float(sc.heights.max())
@@ -48,7 +49,7 @@ def _tail(sc, ci):
     st = force_level0(rays, st)
     work = WorkCounter(sc.pyr_flat.shape[0], sc.n, "cpu", lanes=p)
     out = march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights, budget=UNBUDGETED,
-                               counter=work, l0_only=True, **kw)
+                               counter=work, l0_only=True, group=32, **kw)
     return rays, st, out, work
 
 
