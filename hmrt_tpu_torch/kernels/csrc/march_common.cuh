@@ -10,8 +10,10 @@
 // walk of hmrt_tpu/kernels/march_body.py::wavefront_step_l0 (the torch
 // `l0_step`), but a ray under the terrain passes whole blocks of the min
 // pyramid untested and ends under the map's lowest height (see below).
-// `relaxed_steps` is the relaxed stride tail (`l0_step_relaxed`,
-// march_body.py::wavefront_step_l0_relaxed). Every float expression is that of
+// `relaxed_steps` is the relaxed stride tail (the torch `l0_min_step_relaxed`):
+// the samples, brackets and hits of march_body.py::wavefront_step_l0_relaxed
+// (the torch `l0_step_relaxed`), with the same passes under blocks and the
+// same floor exit under the terrain. Every float expression is that of
 // the torch step, in the same order; the build's -fmad=false,
 // -prec-div=true and -prec-sqrt=true keep the bits, because a contracted
 // multiply-add or an approximate division moves a grazing hit by an ulp and
@@ -70,6 +72,9 @@
 // the origin at integer boundaries, and the running t is the max of the
 // exits, so every cell the tail still tests sees the walk's window, bit for
 // bit: the hits are the walk's. A ray that ends as a miss ends elsewhere.
+// The relaxed tail takes the same passes in its walk; its samples fall
+// where the old relaxed walk's fall because a block is passed only when
+// its exit is the next sample the old walk would take (relaxed_steps).
 //
 // Everything here is `static`: each .cu file is its own translation unit
 // (no -rdc) and gets its own inlined copy.
@@ -799,22 +804,60 @@ static __device__ __forceinline__ int l0_group_steps(const MarchRay& r, MarchSta
   return st;
 }
 
+// The running t at which the level-0 DDA from cell (icx, icy), entered at
+// t, enters the last cell before cell (cx, cy), which it reaches by a step
+// along x (`axis_x`) or y: the max of t and the exits of the last x and y
+// boundaries crossed before that cell (the torch last_entry).
+static __device__ __forceinline__ float last_entry(const MarchRay& r, float t, int icx, int icy,
+                                                   int cx, int cy, bool axis_x) {
+  const bool pos_x = r.dx > 0.0f, pos_y = r.dy > 0.0f;
+  const int kx = abs(cx - icx) - (axis_x ? 1 : 0);
+  const int ky = abs(cy - icy) - (axis_x ? 0 : 1);
+  float e = t;
+  if (kx > 0)
+    e = fmaxf(e, axis_exit(icx + (pos_x ? 1 : 0), kx - 1, pos_x ? 1 : -1, r.ox, r.inv_x,
+                           fabsf(r.dx) < TINY));
+  if (ky > 0)
+    e = fmaxf(e, axis_exit(icy + (pos_y ? 1 : 0), ky - 1, pos_y ? 1 : -1, r.oy, r.inv_y,
+                           fabsf(r.dy) < TINY));
+  return e;
+}
+
 // Up to `budget` steps of the relaxed level-0 tail of one ray (the torch
-// `l0_step_relaxed`, line for line); `stride` is in cells. A sample below
-// the cell surface sends the ray back to the last sample above, to walk the
-// bracket cell by cell with the exact test; past the bracket without a hit
-// it samples again. The mode and the bracket ride in `s` (rmode, tprev,
-// wend). COUNT instances count every step, and the walk's exact tests. A
-// simple loop with one record load a step: no prefetch.
+// `l0_min_step_relaxed`, line for line); `stride` is in cells. A sample
+// below the cell surface sends the ray back to the last sample above, to
+// walk the bracket with the exact test; past the bracket without a hit it
+// samples again. The mode and the bracket ride in `s` (rmode, tprev, wend),
+// and so does `s.lvl`, the level of the block around the level-0 cell
+// (s.icx, s.icy) that the walk takes, as in l0_min_steps: a cell the ray is
+// under by the margin is passed untested, and a block it is under is passed
+// in one step to the cell the DDA enters past it (block_crossing) when the
+// entry t_L of its last cell lies within the bracket (the old walk then walks
+// the whole block) or the block's exit lies more than T_TOL past t_L (the
+// old walk's samples inside it, each the first exit past the last one plus
+// T_TOL, then end at the block's exit), so that the samples fall where they
+// fell (torch docstring); else the step descends. A descending ray
+// under the floor ends where no bracket lies behind it: after a walk step,
+// or at a sample below with an empty bracket. "flat" takes neither. COUNT
+// instances count every step, and the exact cell tests. One record or
+// pyramid load a step: issuing the record of the cell a walk step moves to
+// one step ahead (as the ring of l0_min_steps does) was measured no faster
+// on B3's tail rays, whose next cell after a block is known only after the
+// block's loads (PERF.md).
 template <bool COUNT>
 static __device__ __forceinline__ int relaxed_steps(const MarchRay& r, MarchState& s,
                                                     MarchHit& h, int budget, const Terrain& g,
-                                                    float gmax, int stride, Work& w) {
+                                                    const float* __restrict__ pyr_min,
+                                                    float gmin, float gmax, int stride,
+                                                    Work& w) {
   const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
   const float t1 = r.t1;
-  const int m = g.m;
+  const int m = g.m, levels = g.levels;
+  const long long mm = (long long)m * m;
+  const bool below_on = g.kind != FLAT;
+  const Below b = below_margins(r, g.kind, m, gmin, gmax);
   const float stride_t = (float)stride * fminf(fabsf(r.inv_x), fabsf(r.inv_y));
-  int alive = s.alive, icx = s.icx, icy = s.icy, rmode = s.rmode;
+  int alive = s.alive, lvl = s.lvl, icx = s.icx, icy = s.icy, rmode = s.rmode;
   float t = s.t, tprev = s.tprev, wend = s.wend;
   int st = 0;
   for (; st < budget && alive; ++st) {
@@ -822,37 +865,73 @@ static __device__ __forceinline__ int relaxed_steps(const MarchRay& r, MarchStat
       rmode = 0;
       tprev = t;
     }
-    const float4 c = cell_record(g, icx, icy);
-    if (rmode != 0) {  // the exact walk
-      const CellExit e = cell_exit(r, icx, icy, 1.0f);
+    if (rmode != 0) {  // the walk: the level-0 cell, or the block around it
+      const int bx = icx >> lvl, by = icy >> lvl;
+      const CellExit e = cell_exit(r, bx, by, (float)(1 << lvl));
       const float t_exit_c = fminf(e.t, t1);
-      bool hit_now;
-      float t_c;
-      if (COUNT) ++w.tests;
-      intersect_cell(g.kind, r, icx, icy, c, t - T_TOL, t_exit_c + T_TOL, hit_now, t_c);
+      const float za = t * dz, zb = t_exit_c * dz;
+      float lo, hi;  // the cell's or the block's lowest and highest corner
+      float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (lvl == 0) {
+        c = cell_record(g, icx, icy);
+        hi = fmaxf(fmaxf(c.x, c.y), fmaxf(c.z, c.w));
+        lo = fminf(fminf(c.x, c.y), fminf(c.z, c.w));
+      } else {
+        const int side = m >> lvl;
+        const long long k = ((mm - (mm >> (2 * lvl))) * 4) / 3 +
+                            (long long)min(max(by, 0), side - 1) * side + min(max(bx, 0), side - 1);
+        hi = __ldg(g.pyr + k);
+        lo = __ldg(pyr_min + (k - mm));
+      }
+      const bool under = below_on && oz + fmaxf(za, zb) + (b.m0 + (hi - lo) * b.m1) < lo;
+      const float wt = fmaxf(t, t_exit_c);
+      bool hit_now = false;
+      float t_c = BIG_T;
+      if (lvl == 0 && !under) {
+        if (COUNT) ++w.tests;
+        intersect_cell(g.kind, r, icx, icy, c, t - T_TOL, t_exit_c + T_TOL, hit_now, t_c);
+      }
       if (hit_now) {
         alive = 0;
         h = MarchHit{1, t_c, icx, icy};
       } else {
-        t = fmaxf(t, t_exit_c);
-        icx = e.nx;
-        icy = e.ny;
-        bool escaped = (oz + t * dz > gmax) && (dz > 0.0f);
-        if ((e.t >= t1 - EPS_EXIT) || icx < 0 || icx >= m || icy < 0 || icy >= m || escaped)
-          alive = 0;
+        int nx = e.nx, ny = e.ny;  // the cell the step moves to
+        bool pass = lvl == 0;
+        if (lvl > 0 && under) {  // past the block, where the old walk samples next
+          nx = icx;
+          ny = icy;
+          block_crossing(r, e, bx, by, lvl, nx, ny);
+          const float t_l = last_entry(r, t, icx, icy, nx, ny, e.nx != bx);
+          pass = t_l <= wend + T_TOL || wt > t_l + T_TOL;
+        }
+        if (!pass) {
+          lvl = lvl - 1;  // descend: the same level-0 cell, in the child block
+        } else {
+          t = wt;
+          icx = nx;
+          icy = ny;
+          if (under) lvl = lvl + min(ascent_levels(e.bnd), (levels - 1) - lvl);
+          const float z_new = oz + t * dz;
+          if ((e.t >= t1 - EPS_EXIT) || icx < 0 || icx >= m || icy < 0 || icy >= m ||
+              ((z_new > gmax) && (dz > 0.0f)) || (below_on && z_new < b.zfloor))
+            alive = 0;
+        }
       }
     } else {  // a sample at the current position
-      float zs = surface_cell(g.kind, ox + t * dx - (float)icx, oy + t * dy - (float)icy, c);
+      const float4 c = cell_record(g, icx, icy);
+      const float zs = surface_cell(g.kind, ox + t * dx - (float)icx, oy + t * dy - (float)icy, c);
       if (oz + t * dz <= zs) {  // below: walk from the last sample above
+        const bool empty = tprev == t;  // nothing behind the sample to walk
+        if (empty && below_on && oz + t * dz < b.zfloor) alive = 0;
         wend = t;
         t = tprev;
         icx = floor_cell(ox + tprev * dx, m);
         icy = floor_cell(oy + tprev * dy, m);
         rmode = 1;
       } else {
-        float ts_new = fmaxf(t, fminf(t + stride_t, t1 - EPS_EXIT));
-        bool sout = t >= t1 - 2.0f * EPS_EXIT;
-        bool sesc = (oz + ts_new * dz > gmax) && (dz > 0.0f);
+        const float ts_new = fmaxf(t, fminf(t + stride_t, t1 - EPS_EXIT));
+        const bool sout = t >= t1 - 2.0f * EPS_EXIT;
+        const bool sesc = (oz + ts_new * dz > gmax) && (dz > 0.0f);
         if (sout || sesc) {
           alive = 0;
         } else {
@@ -867,6 +946,7 @@ static __device__ __forceinline__ int relaxed_steps(const MarchRay& r, MarchStat
   }
   s.alive = alive;
   s.t = t;
+  s.lvl = lvl;
   s.icx = icx;
   s.icy = icy;
   s.rmode = rmode;

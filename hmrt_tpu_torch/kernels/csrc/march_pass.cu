@@ -45,7 +45,8 @@
 // template instances beside COUNT, so that the max-mip instance the passes
 // before the tail run keeps its registers: MODE_L0 marches the level-0 tail
 // with the exact test (l0_min_steps or l0_group_steps), MODE_RELAX the
-// relaxed stride tail (relaxed_steps, one record load a step, not tuned).
+// relaxed stride tail (relaxed_steps, which passes under the terrain by the
+// same blocks and ends under the same floor as l0_min_steps).
 // With a tail flag (the compact path's "auto" tail, decided on the device)
 // a tail instance reads it once and, when it is 0, runs the max-mip march
 // instead: a uniform branch, no host wait.
@@ -210,7 +211,7 @@ __global__ void __launch_bounds__(THREADS, MODE == MODE_L0 ? L0_MIN_BLOCKS : MIN
   const bool tail = MODE != MODE_MAXMIP && (tail_flag == nullptr || __ldg(tail_flag) != 0);
   // the map's lowest height, the min pyramid's top (its one entry when m = 1)
   const long long min_top = max(pyramid_top(g.m) - (long long)g.m * g.m, 0ll);
-  const float gmin = MODE == MODE_L0 && tail ? __ldg(pyr_min + min_top) : 0.0f;
+  const float gmin = MODE != MODE_MAXMIP && tail ? __ldg(pyr_min + min_top) : 0.0f;
   const int gsize = MODE == MODE_L0 && tail ? group : 1;
   if (tally != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
     atomicAdd(tally + (!tail                ? RAN_MAXMIP
@@ -250,7 +251,7 @@ __global__ void __launch_bounds__(THREADS, MODE == MODE_L0 ? L0_MIN_BLOCKS : MIN
       MarchHit h{0, BIG_T, 0, 0};
       const int steps = min(CHUNK, budget - used);
       if (MODE == MODE_RELAX && tail)
-        used += relaxed_steps<COUNT>(r, s, h, steps, g, gmax, stride, w);
+        used += relaxed_steps<COUNT>(r, s, h, steps, g, pyr_min, gmin, gmax, stride, w);
       else if (MODE == MODE_L0 && tail)
         used += l0_min_steps<COUNT>(r, s, h, steps, g, pyr_min, gmin, gmax, w);
       else
@@ -295,16 +296,16 @@ int launch_mode(int mode, const Planes& a, const Terrain& g, const Pass& q,
 
 }  // namespace
 
-// `mode` is MODE_MAXMIP, MODE_L0 (then `pyr_min`, the flat min pyramid of
-// levels >= 1, is not null) or MODE_RELAX (then `stride` > 0 cells and
-// an unbudgeted pass); `tail_flag` is null (a tail mode always runs its tail)
-// or one int32 on the device. `group`: the level-0 tail's lanes a ray, 1
+// `mode` is MODE_MAXMIP, MODE_L0 or MODE_RELAX (then `stride` > 0 cells and
+// an unbudgeted pass); a tail mode reads `pyr_min`, the flat min pyramid of
+// levels >= 1, which is not null. `tail_flag` is null (a tail mode always
+// runs its tail) or one int32 on the device. `group`: the level-0 tail's lanes a ray, 1
 // or GROUP (MODE_L0), 1 for the other modes. `tally` is null or four int32
 // on the device, one of which each launch adds 1 to (RAN_*). `next` is a
 // zeroed int32 on the device (the ray counter); `counts` is null or an
 // int32 (2, p) plane that takes each ray's steps and cell tests. An unknown
-// mode or group, a group without MODE_L0, MODE_L0 without `pyr_min`, or a
-// relaxed pass with a budget or no stride, returns cudaErrorInvalidValue
+// mode or group, a group without MODE_L0, a tail mode without `pyr_min`, or
+// a relaxed pass with a budget or no stride, returns cudaErrorInvalidValue
 // and launches nothing.
 extern "C" int hmrt_march_pass(const float* ox, const float* oy, const float* oz,
                                const float* dx, const float* dy, const float* dz,
@@ -322,7 +323,7 @@ extern "C" int hmrt_march_pass(const float* ox, const float* oy, const float* oz
   if (mode < MODE_MAXMIP || mode > MODE_RELAX ||
       (mode == MODE_RELAX && (stride <= 0 || budget != UNBUDGETED)) ||
       (group != 1 && group != GROUP) || (group != 1 && mode != MODE_L0) ||
-      (mode == MODE_L0 && pyr_min == nullptr))
+      (mode != MODE_MAXMIP && pyr_min == nullptr))
     return (int)cudaErrorInvalidValue;
   if (p <= 0) return (int)cudaSuccess;
   Planes a{ox,    oy,    oz,    dx,   dy,   dz,   alive,   t,     lvl,  icx,

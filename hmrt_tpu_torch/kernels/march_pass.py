@@ -16,10 +16,10 @@ kernel relies on it twice over: its persistent warps march each ray in
 chunks and take the rays in whatever order lanes come free.
 
 The kernel reads level 0 from the scene's corner records (`Scene.corners`)
-and the levels above from `pyr_flat`, and the exact level-0 tail also the
-min pyramid (`Scene.pyr_min_flat`); the plain version reads `pyr_flat` and
-`heights`, the function the records are held against (and the min pyramid
-when it is given, else builds it from `heights`).
+and the levels above from `pyr_flat`, and the level-0 tails, exact and
+relaxed, also the min pyramid (`Scene.pyr_min_flat`); the plain version
+reads `pyr_flat` and `heights`, the function the records are held against
+(and the min pyramid when it is given, else builds it from `heights`).
 
 Tail modes, as the TPU kernel's `l0_only` and `relax` arguments: with
 `l0_only` every ray is taken as a level-0 ray (the caller has forced it
@@ -27,7 +27,9 @@ there, kernels/compact.py::force_level0) and marches the level-0 DDA with
 the exact test, with `l0_step`'s hits (`traversal/march.py::l0_min_step`:
 a ray under a block's lowest corner passes the block untested, one under
 the map's lowest height ends); with `relax=k` as well, the relaxed stride
-tail (`l0_step_relaxed`), defined only unbudgeted, as in the JAX package.
+tail, defined only unbudgeted, as in the JAX package, with the hits of
+`l0_step_relaxed` (`traversal/march.py::l0_min_step_relaxed`: its samples
+and brackets, the same passes under blocks and the same floor exit).
 `l0_only` may also be a 0-dim tensor on the planes' device, a flag that
 the kernel reads on the card: when it is false the pass is the max-mip
 pass (the "auto" tail decides it on the device, with no host wait).
@@ -51,7 +53,7 @@ from hmrt_tpu_torch.core.pyramid import build_min_pyramid_flat, flat_size, min_f
 from hmrt_tpu_torch.kernels import _build
 from hmrt_tpu_torch.traversal.intersect import INTERSECTORS, INTERSECTOR_IDS, SURFACES
 from hmrt_tpu_torch.traversal.march import (WorkCounter, below_margins, l0_min_step,
-                                            l0_step_relaxed, maxmip_step, ray_box_range,
+                                            l0_min_step_relaxed, maxmip_step, ray_box_range,
                                             ray_inverses, record_corners, relaxed_planes,
                                             run_masked)
 
@@ -121,8 +123,8 @@ def march_pass_reference(rays, state, results, pyr_flat, heights, *, n: int,
     `traversal/march.py`, at most `budget` steps: `maxmip_step`, or with
     `l0_only` `l0_min_step` (as the kernel marches one lane a ray, for
     `group` 1 or "auto"; its lane groups' walk for 32), or with `relax` as
-    well `l0_step_relaxed`. `pyr_min`: the min pyramid, or None to build
-    it from `heights`. `counter` records the work done."""
+    well `l0_min_step_relaxed`. `pyr_min`: the min pyramid, or None to
+    build it from `heights`. `counter` records the work done."""
     check_tail(l0_only, relax, budget, group)
     if isinstance(l0_only, torch.Tensor):
         l0_only = bool(l0_only)
@@ -141,24 +143,22 @@ def march_pass_reference(rays, state, results, pyr_flat, heights, *, n: int,
         def step(s):
             return maxmip_step(ray, s, pyr_flat, heights_flat, gmax, n=n, m=m,
                                levels=levels, intersector=intersector, counter=counter)
-    elif not relax:
+    else:
         corners = record_corners(heights_flat, n, m)
         if pyr_min is None:
             pyr_min = build_min_pyramid_flat(heights)
         below = below_margins(ray, pyr_min[-1], gmax, m=m, cell_intersect=cell_intersect)
+        kw = dict(m=m, levels=levels, intersector=intersector, counter=counter)
+        if not relax:
+            def step(s):
+                return l0_min_step(ray, s, corners, pyr_flat, pyr_min, gmax, below,
+                                   hierarchy=group != 32, **kw)
+        else:
+            st.update(relaxed_planes(t))
 
-        def step(s):
-            return l0_min_step(ray, s, corners, pyr_flat, pyr_min, gmax, below, m=m,
-                               levels=levels, intersector=intersector, counter=counter,
-                               hierarchy=group != 32)
-    else:
-        corners = record_corners(heights_flat, n, m)
-        st.update(relaxed_planes(t))
-
-        def step(s):
-            return l0_step_relaxed(ray, s, corners, gmax, m=m, intersector=intersector,
-                                   surface=SURFACES[cell_intersect], stride=relax,
-                                   counter=counter)
+            def step(s):
+                return l0_min_step_relaxed(ray, s, corners, pyr_flat, pyr_min, gmax, below,
+                                           surface=SURFACES[cell_intersect], stride=relax, **kw)
     st = run_masked(step, st, budget)
     return ((st["alive"].to(torch.int32), st["t"], st["lvl"], st["icx"], st["icy"]),
             (st["hit"].to(torch.int32), st["t_hit"], st["hx"], st["hy"]))
@@ -230,9 +230,9 @@ def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: i
     exact walk's intersector calls as cell tests. `group`: the level-0
     tail's lanes a ray, "auto" or one of GROUPS (module docstring).
     `pyr_min`: the
-    scene's min pyramid (`Scene.pyr_min_flat`), which the kernel's exact
-    level-0 tail reads: a pass that may run that tail on the card raises
-    without it."""
+    scene's min pyramid (`Scene.pyr_min_flat`), which the kernel's level-0
+    tails, exact and relaxed, read: a pass that may run a tail on the card
+    raises without it."""
     check_tail(l0_only, relax, budget, group)
     p = rays[0].shape[0]
     flag = l0_only if isinstance(l0_only, torch.Tensor) else None
@@ -260,9 +260,9 @@ def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: i
     _check_inputs(rays, state, results, pyr_flat, corners, n, m, levels, budget)
     mode = (MODE_MAXMIP if flag is None and not l0_only
             else MODE_RELAX if relax else MODE_L0)
-    if mode == MODE_L0 and pyr_min is None:
-        raise ValueError("the exact level-0 tail on the card reads the min pyramid: "
-                         "pass pyr_min=scene.pyr_min_flat")
+    if mode != MODE_MAXMIP and pyr_min is None:
+        raise ValueError("the level-0 tail on the card, exact or relaxed, reads the min "
+                         "pyramid: pass pyr_min=scene.pyr_min_flat")
     lib = _build.library()
     outs = [torch.empty_like(x) for x in (*state, *results)]
     lo, hi = (0.0, float(n - 1)) if clip is None else clip
@@ -272,7 +272,7 @@ def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: i
         err = lib.hmrt_march_pass(
             *[x.data_ptr() for x in (*rays, *state, *results, *outs)],
             pyr_flat.data_ptr(), corners.data_ptr(),
-            pyr_min.data_ptr() if mode == MODE_L0 else None, p, m, levels, budget,
+            None if mode == MODE_MAXMIP else pyr_min.data_ptr(), p, m, levels, budget,
             INTERSECTOR_IDS[cell_intersect], mode, relax, float(lo), float(hi),
             None if flag_i is None else flag_i.data_ptr(),
             1 if group == "auto" else group,

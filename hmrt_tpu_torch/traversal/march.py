@@ -12,7 +12,9 @@ the counterparts of `hmrt_tpu/kernels/march_body.py::wavefront_step_l0`
 and `wavefront_step_l0_relaxed`. `l0_min_step` is the exact tail as the
 CUDA kernel marches it: `l0_step`'s walk and hits, but a ray that stays
 under a block's lowest corner passes the whole block untested, and one
-under the map's lowest height ends.
+under the map's lowest height ends. `l0_min_step_relaxed` is the relaxed
+tail as the kernel marches it: `l0_step_relaxed`'s samples, brackets and
+hits, with the same two shortcuts under the terrain.
 
 Robustness rules, as in the JAX package: cell coordinates are INTEGER
 per-lane state, so every step makes integer progress and no epsilon is
@@ -733,6 +735,162 @@ def l0_step_relaxed(ray, st, corners, gmax, *, m: int, intersector, surface,
                 rmode=torch.where(below, 1, rmode),
                 tprev=torch.where(sadv, t, tprev),
                 wend=torch.where(below, t, wend),
+                alive=act & ~dead,
+                hit=st["hit"] | hit_now,
+                t_hit=torch.where(hit_now, t_c, st["t_hit"]),
+                hx=torch.where(hit_now, icx, st["hx"]),
+                hy=torch.where(hit_now, icy, st["hy"]))
+
+
+def last_entry(ray, t, icx, icy, cx, cy, axis_x):
+    """The running t at which the level-0 DDA from cell (icx, icy), entered
+    at t, enters the last cell before cell (cx, cy), which it reaches by a
+    step along x (`axis_x`) or y: the max of t and the exits of the last x
+    and y boundaries crossed before that cell, each the exit `step_geometry`
+    takes for it (the kernel's `last_entry`)."""
+    ox, oy, _, dx, dy, _, inv_x, inv_y, _ = ray
+    pos_x, pos_y = dx > 0.0, dy > 0.0
+    sx = torch.where(pos_x, 1, -1).to(torch.int32)
+    sy = torch.where(pos_y, 1, -1).to(torch.int32)
+    kx = torch.abs(cx - icx) - axis_x.to(torch.int32)
+    ky = torch.abs(cy - icy) - (~axis_x).to(torch.int32)
+    ex = _axis_exit(icx + pos_x.to(torch.int32), kx - 1, sx, ox, inv_x, torch.abs(dx) < 1e-20)
+    ey = _axis_exit(icy + pos_y.to(torch.int32), ky - 1, sy, oy, inv_y, torch.abs(dy) < 1e-20)
+    return torch.maximum(t, torch.maximum(torch.where(kx > 0, ex, t), torch.where(ky > 0, ey, t)))
+
+
+def l0_min_step_relaxed(ray, st, corners, pyr_flat, pyr_min, gmax, below, *, m: int,
+                        levels: int, intersector, surface, stride,
+                        counter: WorkCounter | None = None):
+    """One masked step of the relaxed level-0 tail as the CUDA kernel
+    marches it (`march_common.cuh::relaxed_steps`): the samples and the
+    walk of `l0_step_relaxed`, with the same hits (hit, t_hit, hx, hy, bit
+    for bit), and the ways of `l0_min_step` to end a ray's work early under
+    the terrain (`below_margins`).
+
+    A sample step is `l0_step_relaxed`'s; a sample below the surface with
+    nothing behind it to walk (tprev == t) also ends a descending ray under
+    zfloor. A walk step takes the level-0 cell or the level-`lvl` block
+    around it, as `l0_min_step`: a cell under by the margin is passed
+    untested, any other cell tested (no skip above the cell: the relaxed
+    walk tests every cell); at a level k >= 1 a block the ray is under is
+    passed in one step to the cell the DDA enters past it
+    (`block_crossing`), when its last cell's entry t_L (`last_entry`) is
+    within the bracket (t_L <= wend + T_TOL) or the block's exit t_B lies
+    beyond it by more than T_TOL (t_B > t_L + T_TOL); otherwise the step
+    descends. A walk step that passes under a cell or a block ascends by
+    the crossed boundary's alignment, and one that leaves a descending ray
+    under zfloor ends it: in the walk nothing lies behind the ray.
+
+    Why the samples stay where the old walk takes them: inside the block the
+    old walk tests cells it cannot hit, and the running t it checks against
+    wend + T_TOL before each cell is at most t_L. With t_L <= wend + T_TOL
+    it walks the whole block and stands at t_B in the cell past it with its
+    wend unchanged, as this walk does. Otherwise it samples below the
+    surface inside the block, each sample at the first exit past the last
+    one plus T_TOL, all at or before t_L; t_B > t_L + T_TOL then makes t_B
+    the first exit past the last one, where the old walk samples exactly
+    when t_B > wend + T_TOL for the wend this walk keeps. So it samples
+    (or walks on) where the old walk does.
+
+    `below` is `below_margins(...)`; None ("flat") takes neither the skip
+    nor the floor, and is `l0_step_relaxed`'s walk. st holds the planes of
+    `l0_step_relaxed` and `lvl`; `stride` an int or an int32 tensor of one
+    stride per lane. A ray that ends as a miss ends in another state, after
+    other counts. `counter` counts every step, and the exact cell tests."""
+    ox, oy, oz, dx, dy, dz, inv_x, inv_y, t1 = ray
+    t, lvl, icx, icy, act = st["t"], st["lvl"], st["icx"], st["icy"], st["alive"]
+    rmode, tprev, wend = st["rmode"], st["tprev"], st["wend"]
+
+    # bracket passed without a hit -> sample again from where the walk stands
+    exhaust = act & (rmode != 0) & (t > wend + T_TOL)
+    rmode = torch.where(exhaust, 0, rmode)
+    tprev = torch.where(exhaust, t, tprev)
+    walk = act & (rmode != 0)
+    samp = act & (rmode == 0)
+
+    z00, z10, z01, z11 = corners(icx, icy)
+
+    # the walk: the level-0 cell, or the level-lvl block around it
+    fine = lvl == 0
+    bx, by = icx >> lvl, icy >> lvl
+    t_exit, nx, ny, bnd = step_geometry(ox, oy, dx, dy, bx, by, lvl, inv_x, inv_y)
+    t_exit_c = torch.minimum(t_exit, t1)
+    za, zb = t * dz, t_exit_c * dz
+    side_m1 = (m >> lvl) - 1
+    bidx = flat_index(m, lvl, torch.minimum(torch.clamp_min(by, 0), side_m1),
+                      torch.minimum(torch.clamp_min(bx, 0), side_m1))
+    idx = torch.where(walk & ~fine, bidx, _cell_index0(m, icx, icy))
+    hi = torch.where(fine, torch.maximum(torch.maximum(z00, z10), torch.maximum(z01, z11)),
+                     pyr_flat.index_select(0, bidx))
+    lo = torch.where(fine, torch.minimum(torch.minimum(z00, z10), torch.minimum(z01, z11)),
+                     pyr_min.index_select(0, torch.clamp(bidx - m * m, 0,
+                                                         min_flat_size(m) - 1)))
+    under = torch.zeros_like(act)
+    zfloor = None
+    if below is not None:
+        m0, m1, zfloor = below
+        under = oz + torch.maximum(za, zb) + (m0 + (hi - lo) * m1) < lo
+    wt = torch.maximum(t, t_exit_c)
+    new_icx, new_icy = nx, ny
+    clear = torch.ones_like(act)
+    cross = walk & ~fine & under
+    if bool(cross.any()):  # a block passed under: the cell past it, and its last cell's entry
+        k = torch.nonzero(cross).squeeze(1)
+        sub = tuple(x.index_select(0, k) for x in ray)
+        c_icx, c_icy, c_nx = (x.index_select(0, k) for x in (icx, icy, nx))
+        cx, cy = block_crossing(sub, c_icx, c_icy,
+                                *(x.index_select(0, k) for x in (lvl, t_exit, nx, ny)),
+                                levels=levels)
+        t_l = last_entry(sub, t.index_select(0, k), c_icx, c_icy, cx, cy,
+                         c_nx != (c_icx >> lvl.index_select(0, k)))
+        new_icx = nx.index_copy(0, k, cx)
+        new_icy = ny.index_copy(0, k, cy)
+        clear = clear.index_copy(0, k, (t_l <= wend.index_select(0, k) + T_TOL)
+                                 | (wt.index_select(0, k) > t_l + T_TOL))
+    test = walk & fine & ~under
+    if counter is not None:
+        counter.observe(act, idx, test, icx, icy)
+    h, t_c = intersector(ox, oy, oz, dx, dy, dz, icx, icy, z00, z10, z01, z11,
+                         t - T_TOL, t_exit_c + T_TOL)
+    hit_now = h & test
+    descend = walk & ~fine & ~(under & clear)
+    wadv = walk & ~hit_now & ~descend
+    asc = torch.where(wadv & under, ascent_levels(bnd), 0)
+    new_lvl = torch.where(descend, lvl - 1, lvl + torch.minimum(asc, (levels - 1) - lvl))
+    z_new = oz + wt * dz
+    ends = ((t_exit >= t1 - EPS_EXIT) | (new_icx < 0) | (new_icx >= m) | (new_icy < 0)
+            | (new_icy >= m) | ((z_new > gmax) & (dz > 0.0)))
+    if zfloor is not None:
+        ends = ends | (z_new < zfloor)
+    wout = wadv & ends
+
+    # a sample at the current position
+    zs = surface(ox + t * dx - icx.to(torch.float32), oy + t * dy - icy.to(torch.float32),
+                 z00, z10, z01, z11)
+    low = samp & (oz + t * dz <= zs)
+    above = samp & ~low
+    stride_t = stride * torch.minimum(torch.abs(inv_x), torch.abs(inv_y))
+    ts_new = torch.maximum(t, torch.minimum(t + stride_t, t1 - EPS_EXIT))
+    sout = above & (t >= t1 - 2.0 * EPS_EXIT)
+    sesc = above & (oz + ts_new * dz > gmax) & (dz > 0.0)
+    sadv = above & ~sout & ~sesc
+    sfloor = torch.zeros_like(act)
+    if zfloor is not None:  # below, with an empty bracket: nothing behind, all ahead under
+        sfloor = low & (tprev == t) & (oz + t * dz < zfloor)
+
+    new_t = torch.where(low, tprev, torch.where(sadv, ts_new, torch.where(wadv, wt, t)))
+    new_icx = torch.where(low, floor_cell(ox + tprev * dx, m),
+                          torch.where(sadv, floor_cell(ox + ts_new * dx, m),
+                                      torch.where(wadv, new_icx, icx)))
+    new_icy = torch.where(low, floor_cell(oy + tprev * dy, m),
+                          torch.where(sadv, floor_cell(oy + ts_new * dy, m),
+                                      torch.where(wadv, new_icy, icy)))
+    dead = hit_now | wout | sout | sesc | sfloor
+    return dict(st, t=new_t, lvl=torch.where(walk, new_lvl, lvl), icx=new_icx, icy=new_icy,
+                rmode=torch.where(low, 1, rmode),
+                tprev=torch.where(sadv, t, tprev),
+                wend=torch.where(low, t, wend),
                 alive=act & ~dead,
                 hit=st["hit"] | hit_now,
                 t_hit=torch.where(hit_now, t_c, st["t_hit"]),

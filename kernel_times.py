@@ -25,7 +25,9 @@ orbit frame 0 (primary) replayed on their own inputs with each lane group
 the kernel takes (march_pass's `group`: 1, 32 and "auto"; in a checkout
 from before the groups, its one tail march), the tail launch on samples of
 B3's tail rays from 1,024 to 131,072 live rays by group (the measurements
-behind march_pass.cu's choice of one lane a ray), the latency bound of
+behind march_pass.cu's choice of one lane a ray), the relaxed tail launch
+on B3's 8,192 tail rays at each stride (device ms, and the counting
+instance's steps, cell tests, longest ray and bound), the latency bound of
 B4's tail launch (the probe bench/latency.py on its longest ray, the
 cells 32 lanes a ray walk on it: the ms of its walk, one dependent record
 load and cell test a step; ceil(chain / 32) steps at 32 lanes a ray, the
@@ -189,6 +191,34 @@ def latency_probe(launch, scene, march_pass, kernel_ms) -> dict:
             "us_per_step": us, "bound_ms": bound, "least_bound_ms": min(bound.values())}
 
 
+def relaxed_tail_rays(scene, cam, cfg, march_pass, kernel_ms, tail_survivors) -> dict:
+    """The relaxed instance on B3's tail rays (chip_smoke.py's 8,192 tail
+    survivors) at each stride: the kernel's device ms, and from the
+    counting instance its steps, cell tests and longest ray, and its bound
+    (bench/floor.py: the lanes' planes against the steps' and tests'
+    operations)."""
+    import torch
+    from hmrt_tpu_torch.bench.floor import OPS_PER_STEP, OPS_PER_TEST, bound, march_bytes
+    rays, state, res, _ = tail_survivors(scene, cam, cfg)
+    p = rays[0].shape[0]
+    kw = dict(n=scene.n, m=scene.m, levels=scene.levels, budget=1 << 22, l0_only=True)
+    if "pyr_min" in inspect.signature(march_pass).parameters:
+        kw["pyr_min"] = scene.pyr_min_flat
+    args = (rays, state, res, scene.pyr_flat, scene.heights, scene.corners)
+    out = {"rays": p}
+    for k in (4, 8, 16):
+        cnt = torch.empty((2, p), dtype=torch.int32, device=rays[0].device)
+        march_pass(*args, counts=cnt, relax=k, **kw)
+        steps, tests = int(cnt[0].sum(dtype=torch.int64)), int(cnt[1].sum(dtype=torch.int64))
+        b = bound(march_bytes(p, int(torch.count_nonzero(cnt[0]))),
+                  steps * OPS_PER_STEP + tests * OPS_PER_TEST)
+        out[str(k)] = {"ms": kernel_ms(lambda k=k: march_pass(*args, relax=k, **kw),
+                                       "march_pass_kernel", 5),
+                       "steps": steps, "tests": tests, "longest": int(cnt[0].max()),
+                       "bound_ms": b[0], "bound_by": b[1]}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE), help="checkout to import hmrt_tpu_torch from")
@@ -296,6 +326,7 @@ def main() -> int:
                            scene.corners, **kw_t)
                 by_live[count]["auto_ran"] = [k for k, v in
                                               march_pass.mode_launches.read().items() if v]
+        relaxed = relaxed_tail_rays(scene, cam, cfg_c, march_pass, kernel_ms, tail_survivors)
         frames = {}
         for label, cf in (("compact", cfg_c), ("fused", cfg_f), ("fused", cfg_f),
                           ("compact", cfg_c)):
@@ -326,6 +357,7 @@ def main() -> int:
             "tail_launch_ms_by_group": by_group,
             "b4_tail_latency": b4_latency,
             "tail_ms_by_live_rays": by_live,
+            "relaxed_tail_rays": relaxed,
             "shade_sectors": sectors,
             "frame_ms_compact": frames["compact"], "frame_ms_fused": frames["fused"],
             "b5_bands": b5_bands,

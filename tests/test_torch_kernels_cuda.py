@@ -22,9 +22,10 @@ from hmrt_tpu_torch.kernels.raycast import (fused_planes, fused_reference_planes
                                             render_frame_fused,
                                             render_frame_fused_reference)
 from hmrt_tpu_torch.kernels.shade_pass import shade_pass, shade_pass_reference
-from hmrt_tpu_torch.traversal.intersect import INTERSECTORS
-from hmrt_tpu_torch.traversal.march import (WorkCounter, l0_step, ray_box_range, ray_inverses,
-                                            record_corners, run_masked)
+from hmrt_tpu_torch.traversal.intersect import INTERSECTORS, SURFACES
+from hmrt_tpu_torch.traversal.march import (WorkCounter, l0_step, l0_step_relaxed,
+                                            ray_box_range, ray_inverses, record_corners,
+                                            relaxed_planes, run_masked)
 
 pytestmark = pytest.mark.cuda
 
@@ -60,18 +61,26 @@ def _ran_group():
     return 32 if "l0_g32" in ran else 1
 
 
-def _old_walk_hits(sc, rays, st, res, ci="triangle"):
-    """The old level-0 walk (`l0_step` over every cell, no min pyramid) to
-    the end: (hit, t_hit, hx, hy), which every form of the tail must give."""
+def _old_walk_hits(sc, rays, st, res, ci="triangle", relax=0):
+    """The old level-0 walk (`l0_step` over every cell, no min pyramid), or
+    with `relax` the old relaxed walk (`l0_step_relaxed`), to the end:
+    (hit, t_hit, hx, hy), which every form of that tail must give."""
     ox, oy, oz, dx, dy, dz = rays
     inv_x, inv_y = ray_inverses(dx, dy)
     _, t1, _ = ray_box_range(ox, oy, dx, dy, float(sc.n - 1))
     ray = (ox, oy, oz, dx, dy, dz, inv_x, inv_y, t1)
     corners = record_corners(sc.heights.reshape(-1), sc.n, sc.m)
-    out = run_masked(lambda s: l0_step(ray, s, corners, sc.pyr_flat[-1], m=sc.m,
-                                       intersector=INTERSECTORS[ci]),
-                     dict(t=st[1], lvl=st[2], icx=st[3], icy=st[4], alive=st[0] != 0,
-                          hit=res[0] != 0, t_hit=res[1], hx=res[2], hy=res[3]), UNBUDGETED)
+    kw = dict(m=sc.m, intersector=INTERSECTORS[ci])
+    st = dict(t=st[1], lvl=st[2], icx=st[3], icy=st[4], alive=st[0] != 0, hit=res[0] != 0,
+              t_hit=res[1], hx=res[2], hy=res[3])
+    if relax:
+        st.update(relaxed_planes(st["t"]))
+        out = run_masked(lambda s: l0_step_relaxed(ray, s, corners, sc.pyr_flat[-1],
+                                                   surface=SURFACES[ci], stride=relax, **kw),
+                         st, UNBUDGETED)
+    else:
+        out = run_masked(lambda s: l0_step(ray, s, corners, sc.pyr_flat[-1], **kw), st,
+                         UNBUDGETED)
     return out["hit"].to(torch.int32), out["t_hit"], out["hx"], out["hy"]
 
 
@@ -121,8 +130,9 @@ def test_march_kernel_tail_modes_equal_plain(cuda, ci, mode):
     the group the launch ran) in all 9 planes and in the counting
     instance's per-ray counts, from the state a budgeted max-mip pass and
     force_level0 leave, on mixed and grazing rays (many of them under the
-    terrain); the level-0 tail's hits are the old walk's; the tally
-    records the march each launch ran."""
+    terrain); each tail's hits are its old walk's (`l0_step`, or
+    `l0_step_relaxed` at the stride); the tally records the march each
+    launch ran."""
     n = 1024
     sc = _scene(n, cuda)
     rays = tuple(torch.cat([a, b]) for a, b in zip(_rays(n, cuda), _grazing_rays(n, cuda)))
@@ -158,8 +168,8 @@ def test_march_kernel_tail_modes_equal_plain(cuda, ci, mode):
         assert torch.equal(a, b)
     assert torch.equal(cnt[0], work.lane_steps) and torch.equal(cnt[1], work.lane_tests)
     assert int(st[0].sum()) > 0 and not sk[0].any()
-    if not relax and mode != "auto-maxmip":
-        for a, b in zip(rk, _old_walk_hits(sc, rays, st, res, ci)):
+    if mode != "auto-maxmip":
+        for a, b in zip(rk, _old_walk_hits(sc, rays, st, res, ci, relax)):
             assert torch.equal(a, b)
     with pytest.raises(ValueError, match="unbudgeted"):
         march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners, budget=64,
@@ -244,6 +254,41 @@ def test_march_kernel_equals_plain_at_ray_counts(cuda, p, march):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("stride", [4, 8, 16])
+@pytest.mark.parametrize("p", [0, 1, 16, 31, 33, 4097, 300_000])
+def test_relaxed_kernel_equals_plain_at_ray_counts(cuda, p, stride):
+    """The relaxed instance at the ray counts the other marches are held at:
+    all 9 planes and the counting instance's per-ray counts equal its plain
+    version's (`l0_min_step_relaxed`), unbudgeted (the one budget a relaxed
+    pass has), and its hits the old relaxed walk's (`l0_step_relaxed`);
+    the tally records the relaxed march."""
+    sc = _scene(128, cuda)
+    rays = tuple(torch.cat([a, b])[:p].contiguous() for a, b in
+                 zip(_rays(128, cuda, p=max(p, 1), seed=5), _grazing_rays(128, cuda, p=1)))
+    st = force_level0(rays, init_state(rays, None, sc.pyr_flat[-1], n=sc.n, m=sc.m,
+                                       levels=sc.levels))
+    res = _empty_results(p, cuda)
+    kw = dict(n=sc.n, m=sc.m, levels=sc.levels, budget=UNBUDGETED, l0_only=True, relax=stride,
+              pyr_min=sc.pyr_min_flat)
+    before = march_pass.launches
+    cnt = torch.empty((2, p), dtype=torch.int32, device=cuda)
+    march_pass.mode_launches.reset()
+    sk, rk = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners, counts=cnt, **kw)
+    timed = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners, **kw)
+    torch.cuda.synchronize()
+    assert march_pass.launches == before + (2 if p else 0)
+    ran = {k: v for k, v in march_pass.mode_launches.read().items() if v}
+    assert ran == ({"relax": 2} if p else {}), ran
+    work = WorkCounter(sc.pyr_flat.shape[0], sc.n, cuda, lanes=p)
+    sr, rr = march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights, counter=work, **kw)
+    for got in ((sk, rk), timed):
+        for a, b in zip(got[0] + got[1], sr + rr):
+            assert torch.equal(a, b)
+    assert torch.equal(cnt[0], work.lane_steps) and torch.equal(cnt[1], work.lane_tests)
+    for a, b in zip(rk, _old_walk_hits(sc, rays, st, res, relax=stride)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("march", MARCHES[:-1])
 @pytest.mark.parametrize("budget", [37, UNBUDGETED])
 def test_march_kernel_counts_equal_work_counter(cuda, budget, march):
@@ -303,10 +348,10 @@ def test_march_kernel_wide_tail_launch_equals_plain(cuda, live, group):
 
 
 def test_march_kernel_tail_needs_min_pyramid(cuda):
-    """On the card the exact level-0 tail reads the scene's min pyramid: a
-    pass that may run it (l0_only, or the "auto" flag) raises without one,
-    or with one of another shape, before anything launches; the max-mip
-    pass and the relaxed tail need none."""
+    """On the card the level-0 tails, exact and relaxed, read the scene's
+    min pyramid: a pass that may run one (l0_only, or the "auto" flag, with
+    or without relax) raises without one, or with one of another shape,
+    before anything launches; the max-mip pass needs none."""
     sc = _scene(128, cuda)
     rays = _rays(128, cuda, p=64, seed=2)
     st = force_level0(rays, init_state(rays, None, sc.pyr_flat[-1], n=sc.n, m=sc.m,
@@ -316,13 +361,14 @@ def test_march_kernel_tail_needs_min_pyramid(cuda):
     args = (rays, st, res, sc.pyr_flat, sc.heights, sc.corners)
     before = march_pass.launches
     for flag in (True, torch.tensor(False, device=cuda)):
-        with pytest.raises(ValueError, match="min pyramid"):
-            march_pass(*args, l0_only=flag, **kw)
-        with pytest.raises(ValueError, match="pyr_min"):
-            march_pass(*args, l0_only=flag, pyr_min=sc.pyr_min_flat[1:], **kw)
+        for relax in (0, 4):
+            with pytest.raises(ValueError, match="min pyramid"):
+                march_pass(*args, l0_only=flag, relax=relax, **kw)
+            with pytest.raises(ValueError, match="pyr_min"):
+                march_pass(*args, l0_only=flag, relax=relax, pyr_min=sc.pyr_min_flat[1:], **kw)
     assert march_pass.launches == before
     march_pass(*args, **kw)
-    march_pass(*args, l0_only=True, relax=4, **kw)
+    march_pass(*args, l0_only=True, relax=4, pyr_min=sc.pyr_min_flat, **kw)
     assert march_pass.launches == before + 2
 
 

@@ -221,18 +221,20 @@ def test_below_margins(scene):
 # ---- the margin at B3's scale -----------------------------------------------
 
 B3_M = 4096  # B3's map: 4096² samples, heights in [0, 0.12 (n - 1)]
+B4_M = 8192  # B4's map: 8192² samples, the same relief per sample
 
 
-def _window_test(o, d, cx, cy, z, ci, relief):
+def _window_test(o, d, cx, cy, z, ci, relief, m=B3_M):
     """The f32 test of cell (cx, cy), corners z (z00, z10, z01, z11), as
-    the tail's step makes it on a B3-sized map of heights in [0, relief]:
+    the tail's step makes it on an m² map (B3's by default) of heights in
+    [0, relief]:
     over the window from the ray's entry into the cell to its exit,
     widened by T_TOL. Returns the hit, the ray's highest point over the
     window as the step computes it (zw), the corners' min (lo) and span,
     the margins (m0, m1) and the world magnitude A of `below_margins`."""
     ox, oy, oz, dx, dy, dz = _planes((*o.T, *d.T))
     inv_x, inv_y = ray_inverses(dx, dy)
-    _, t1, _ = ray_box_range(ox, oy, dx, dy, float(B3_M - 1))
+    _, t1, _ = ray_box_range(ox, oy, dx, dy, float(m - 1))
     ray = (ox, oy, oz, dx, dy, dz, inv_x, inv_y, t1)
     cx, cy = torch.from_numpy(cx.astype(np.int32)), torch.from_numpy(cy.astype(np.int32))
     ex = (cx + (dx < 0).to(torch.int32)).to(torch.float32)
@@ -245,11 +247,11 @@ def _window_test(o, d, cx, cy, z, ci, relief):
                               t_exit + T_TOL)
     lo = torch.minimum(torch.minimum(z00, z10), torch.minimum(z01, z11))
     span = torch.maximum(torch.maximum(z00, z10), torch.maximum(z01, z11)) - lo
-    m0, m1, _ = below_margins(ray, torch.tensor(0.0), torch.tensor(relief), m=B3_M,
+    m0, m1, _ = below_margins(ray, torch.tensor(0.0), torch.tensor(relief), m=m,
                               cell_intersect=ci)
     zw = oz + torch.maximum(t * dz, t_exit * dz)
     a = (torch.abs(ox) + torch.abs(oy)) + torch.abs(t1) * (torch.abs(dx) + torch.abs(dy))
-    return hit, zw, lo, span, m0, m1, a + float(2 * B3_M + 2)
+    return hit, zw, lo, span, m0, m1, a + float(2 * m + 2)
 
 
 def _skipped(zw, lo, span, m0, m1):
@@ -319,6 +321,59 @@ def test_margin_at_b3_scale(ci, family):
         assert int((hit & bare).sum()) > 10
     elif ci == "triangle":
         assert int((hit & _skipped(zw, lo, span, 0.5 * m0, 0.5 * m1)).sum()) > 100
+
+
+def _aimed_from_orbit(p, seed):
+    """Rays from the eyes of B4's eight orbit frames (`orbit_flythrough`
+    over the 8192² map, its relief 0.12 (n - 1)) aimed just under the
+    lowest corner of sloped cells anywhere on the map, by 1e-7 to 1e-2:
+    the world magnitudes of B4's tails, A ~ 2e4 to 4e4."""
+    from hmrt_tpu_torch.api.flythrough import orbit_flythrough
+    rng = np.random.default_rng(seed)
+    relief = 0.12 * (B4_M - 1)
+    eyes = orbit_flythrough(B4_M, relief, 8, device="cpu").eye.numpy().astype(np.float64)
+    eye = eyes[rng.integers(0, 8, p)]
+    cx, cy = rng.integers(200, B4_M - 200, p), rng.integers(200, B4_M - 200, p)
+    span = rng.choice([0.0, 0.05, 0.5, 2.0, 8.0], p)
+    z = (rng.uniform(0, 1, (p, 4)) * span[:, None]
+         + rng.uniform(0, relief - 10, p)[:, None]).astype(np.float32)
+    k = np.argmin(z, 1)
+    under = rng.uniform(0, 1, p) * 10.0 ** rng.uniform(-7, -2, p)
+    target = np.stack([cx + (k % 2) + rng.uniform(-1e-3, 1e-3, p),
+                       cy + (k // 2) + rng.uniform(-1e-3, 1e-3, p),
+                       z.min(1).astype(np.float64) - under], -1)
+    d = target - eye
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return eye, d, cx, cy, z, relief
+
+
+def margin_at_b4_scale(ci, p=40_000, seed=9):
+    """The margin at B4's world magnitudes (`_aimed_from_orbit`): the hits,
+    the hits below the corner, the hits skipped under the margin (none may
+    be) and without the rounding terms, the least A, and the largest share
+    of the margin a hit comes within of the corner, (lo - zw) / margin."""
+    o, d, cx, cy, z, relief = _aimed_from_orbit(p, seed)
+    hit, zw, lo, span, m0, m1, a = _window_test(o, d, cx, cy, z, ci, relief, m=B4_M)
+    bare = _skipped(zw, lo, span, MARGIN_TOL * torch.abs(torch.from_numpy(d[:, 2]).float()),
+                    torch.full_like(m1, MARGIN_S))
+    reach = ((lo - zw) / (m0 + span * m1))[hit]
+    return {"hits": int(hit.sum()), "below_corner": int((hit & (zw < lo)).sum()),
+            "skipped": int((hit & _skipped(zw, lo, span, m0, m1)).sum()),
+            "skipped_bare": int((hit & bare).sum()), "a_min": float(a.min()),
+            "reach": float(reach.max())}
+
+
+@pytest.mark.parametrize("ci", CIS)
+def test_margin_at_b4_scale(ci):
+    """The f32 intersectors on rays from B4's orbit cameras over its 8192²
+    map (A ~ 2e4 to 4e4) that pass just under cells' lowest corners: no hit
+    lies under the margin, hits land below the corner, and without the
+    rounding terms the step would lose some (`margin_at_b4_scale`)."""
+    r = margin_at_b4_scale(ci)
+    assert r["a_min"] > 1.6e4
+    assert r["hits"] > 1000 and r["below_corner"] > 100
+    assert r["skipped"] == 0 and r["reach"] < 1.0
+    assert r["skipped_bare"] > 10
 
 
 # ---- the new tail's hits against the old walk and JAX ----------------------
