@@ -21,8 +21,15 @@ entry points:
     the fused kernel, against the torch oracle; B3 through backend
     "pallas", timed and held against the compact frame; the fused kernel
     against its plain version on the B1 frame and on a 16-row band of B3
-    at the horizon; B1's counter planes through render_frame with
-    debug_counters; B2 under both backends;
+    at the horizon (the slowest by device time); B1's counter planes
+    through render_frame with debug_counters, against the plain version's
+    counts; B2 under both backends. K3 marches under the terrain by the
+    min pyramid: its colour, depth, normals, hit and hit cells are held
+    bit for bit to the witness kernel (`fused_witness_planes`, the old
+    max-mip march alone) on the B1 frame (Lambert, and with every
+    feature), the B3 "pallas" frame, the B3 band, the hostile cameras,
+    B1's 8 fused bands (phase 14) and a 129^2 map rendered in 64-cell tiles
+    through K3 under clip windows (phase 13);
   - raygen's tan(fov/2) bits for 55 and 60 degrees, and B3's ray
     directions, equal on the card and the CPU, the pixels of B3 and B4
     that raygen's correctly rounded norm moves against torch's f32 sqrt
@@ -100,6 +107,7 @@ results (time, plain time, launches, error and the bound of each), and last
 without a CUDA device it exits 1 before doing anything.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -276,6 +284,29 @@ def warp_efficiency(steps, groups) -> float:
         total += int(st.sum(dtype=torch.int64))
         lanes += 32 * int(groups(st).amax(dim=1).sum(dtype=torch.int64))
     return total / lanes
+
+
+def fused_work(sc, cm, cf, row0=None, fh=None) -> dict:
+    """The fused kernel's counting instance on a frame or band: the steps
+    and cell tests of each march (primary, shadow), the longest ray's steps
+    and the kernel's bound on that work (bench/floor.py: the params, each
+    pixel's outputs and the hit cells' distinct gradient samples read once,
+    against the steps', tests' and pixels' operations)."""
+    import torch
+    from hmrt_tpu_torch.bench.floor import OPS_PER_PIXEL, OPS_PER_STEP, OPS_PER_TEST, bound
+    from hmrt_tpu_torch.kernels.raycast import fused_planes
+    cnt = torch.empty((4, cf.height, cf.width), dtype=torch.int32, device=sc.device)
+    _, _, _, hit, cell = fused_planes(sc, cm, cf, row0, fh, cells=True, counts=cnt)
+    tot = [int(cnt[k].sum(dtype=torch.int64)) for k in range(4)]
+    p = cf.width * cf.height
+    grads = corner_samples(hit.reshape(-1), cell[..., 0].reshape(-1), cell[..., 1].reshape(-1),
+                           sc.n) * (8 + (12 if cf.texture else 0))
+    b = bound(4 * 32 + p * (16 + (16 if cf.aux_buffers else 0)) + grads,
+              (tot[0] + tot[2]) * OPS_PER_STEP + (tot[1] + tot[3]) * OPS_PER_TEST
+              + p * OPS_PER_PIXEL)
+    return {"steps": tot[0], "tests": tot[1], "shadow_steps": tot[2], "shadow_tests": tot[3],
+            "longest": int(cnt[0::2].max()), "bound_ms": b[0], "bound_by": b[1],
+            "counts": cnt, "hit": hit}
 
 
 def median_ms(fn, reps: int) -> tuple[float, list]:
@@ -596,6 +627,69 @@ def compare_exact(label, pairs, close=(), bar=1e-6):
     return err
 
 
+def hold_to_witness(label, got, witness) -> None:
+    """K3's planes (`fused_planes(..., cells=True)`) against the witness
+    kernel's (`fused_witness_planes`: the max-mip march alone, the march K3
+    had before its min walk): colour, depth, normals, hit and hit cells bit
+    for bit."""
+    names = ("colour", "depth", "normal", "hit", "hit cell")
+    compare_exact(f"{label} against the old march",
+                  [(k, a, b) for k, a, b in zip(names, got, witness) if a is not None])
+    log(f"  {label}: colour, hit, hit cells"
+        f"{', depth, normals' if got[1] is not None else ''} equal to the old march's (the "
+        f"witness kernel) bit for bit")
+
+
+@contextlib.contextmanager
+def witness_march():
+    """Every launch of render_frame_fused in the block by the witness kernel
+    (the old march), for a path that reaches K3 through render_frame."""
+    import hmrt_tpu_torch.kernels.raycast as rc
+    real = rc.fused_planes
+
+    def witness(scene, camera, config, row0=None, full_height=None, cells=False, counts=None):
+        if counts is not None:
+            raise AssertionError("the witness kernel has no counting instance")
+        return rc.fused_witness_planes(scene, camera, config, row0, full_height)
+
+    rc.fused_planes = witness
+    try:
+        yield
+    finally:
+        rc.fused_planes = real
+
+
+def fused_tiled_witness(run_path, dev) -> None:
+    """A 129^2 map in 64-cell tiles with Phong, shadows, fog and texture
+    through render_frame_tiled under "pallas", which renders each tile's
+    sub-scene (m = 64) under its clip window through K3 (the shadow sweep
+    through march_pass): the frame equals the one the witness kernel gives
+    in its place, every plane bit for bit."""
+    import numpy as np
+    import torch
+    import hmrt_tpu_torch as T
+    terr = T.procedural_terrain(129, seed=7)
+    albedo = np.random.default_rng(1).uniform(0.2, 0.9, (129, 129, 3)).astype(np.float32)
+    cam = T.Camera.create(eye=(64.5, -38.7, float(terr.max()) + 19.35),
+                          target=(64.5, 64.5, float(terr.mean())), device=dev)
+    cfg = T.RenderConfig(width=192, height=128, shading="phong", fog=True, texture=True,
+                         shadows=True, aux_buffers=True, backend="pallas")
+    stats = {}
+    tl = run_path("tiled 129^2 in 64-cell tiles (pallas: render_tile under clip windows)",
+                  lambda: T.render_frame_tiled(terr, cam, cfg, tile=64, albedo=albedo,
+                                               _stats=stats, device=dev), ("render_tile",))
+    with witness_march():
+        old = T.render_frame_tiled(terr, cam, cfg, tile=64, albedo=albedo, device=dev)
+    compare_exact("tiled through K3 against the old march",
+                  [(k, getattr(tl, k), getattr(old, k)) for k in ("color", "depth", "normal",
+                                                                  "hit")])
+    frac = float(tl.hit.float().mean())
+    if not 0.05 < frac < 0.95:
+        raise AssertionError(f"tiled through K3: hit fraction {frac}")
+    log(f"  tiled through K3 ({stats}): colour, depth, normals and hit equal to the old "
+        f"march's (the witness kernel in K3's place) bit for bit; hit fraction {frac:.4f}")
+
+
 def across_cards(card, scene, cam, terr_path, want5):
     """B5 band-sharded over every card of the machine (NCCL), against the
     one-card frame `want5` (sha256 of colour and hit), and the runner's B5
@@ -651,7 +745,7 @@ def sharding_phase(run_path, card, scene, cam, terr3, scene1, cam1, cfg1, scene4
     from hmrt_tpu_torch.kernels.compact import (FIRST_BUDGET, ROUND_BUDGET, ROUNDS, init_state,
                                                 march_rounds, primary_rays,
                                                 render_frame_compact)
-    from hmrt_tpu_torch.kernels.raycast import fused_planes
+    from hmrt_tpu_torch.kernels.raycast import fused_planes, fused_witness_planes
     dev = scene.device
     b5, b4 = BENCH_CONFIGS["B5"], BENCH_CONFIGS["B4"]
     cfg5 = b5.render
@@ -713,6 +807,10 @@ def sharding_phase(run_path, card, scene, cam, terr3, scene1, cam1, cfg1, scene4
                           lambda: fused_planes(sc, cm, dataclasses.replace(cfa, height=hb),
                                                r * hb, cf.height, cells=True),
                           ("render_tile",), ("march_pass", "shade_pass")) for r in range(k)]
+        if label == "B1":  # each band against the old march's band
+            for r, part in enumerate(parts):
+                hold_to_witness(f"B1 fused band {r}", part, fused_witness_planes(
+                    sc, cm, dataclasses.replace(cfa, height=hb), r * hb, cf.height))
         got = [torch.cat([p[i] for p in parts]) for i in range(5)]
         e = compare_exact(f"{label} fused bands", [("hit", got[3], want[3]),
                                                    ("depth", got[1], want[1]),
@@ -994,7 +1092,8 @@ def hostile_cameras(dev, run_path=None) -> float:
     import torch
     import hmrt_tpu_torch as T
     from hmrt_tpu_torch.core.renderer import render_frame_oracle
-    from hmrt_tpu_torch.kernels.raycast import fused_planes, fused_reference_planes
+    from hmrt_tpu_torch.kernels.raycast import (fused_planes, fused_reference_planes,
+                                                fused_witness_planes)
     scene = T.make_scene(T.procedural_terrain(64, seed=3), device=dev)
     base = T.RenderConfig(width=16, height=16, shading="phong", shadows=True,
                           aux_buffers=True)
@@ -1010,6 +1109,8 @@ def hostile_cameras(dev, run_path=None) -> float:
             ("march_pass", "shade_pass"), ("render_tile",))
         ff = run(f"hostile camera {name!r} (pallas)", lambda: fused_planes(
             scene, cam, base, cells=True), ("render_tile",), ("march_pass", "shade_pass"))
+        hold_to_witness(f"hostile camera {name!r}, pallas", ff,
+                        fused_witness_planes(scene, cam, base))
         oracle_hit = render_frame_oracle(scene, cam, base).hit
         for path, (c, d, nrm, h) in (("compact", (fc.color, fc.depth, fc.normal, fc.hit)),
                                      ("pallas", ff[:4])):
@@ -1924,7 +2025,7 @@ def main(argv=None) -> int:
     from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, march_pass,
                                                    march_pass_reference)
     from hmrt_tpu_torch.kernels.raycast import (fused_planes, fused_reference_planes,
-                                                render_frame_fused,
+                                                fused_witness_planes, render_frame_fused,
                                                 render_frame_fused_reference)
     from hmrt_tpu_torch.kernels.shade_pass import shade_pass, shade_pass_reference
     from hmrt_tpu_torch.traversal.march import WorkCounter
@@ -2212,6 +2313,9 @@ def main(argv=None) -> int:
         raise AssertionError(f"B3 fused vs compact: colour {dcol}, normal {dnrm}")
     log(f"B3 fused vs compact (aux): hit and depth equal, max colour diff {dcol:.3g}, "
         f"normal {dnrm:.3g} (bar 1e-6)")
+    cfg_fa = dataclasses.replace(cfg_f, aux_buffers=True)
+    hold_to_witness("B3 pallas frame", fused_planes(scene, cam, cfg_fa, cells=True),
+                    fused_witness_planes(scene, cam, cfg_fa))
 
     # ---- 7. the fused kernel vs its plain version ------------------------
     phase("7. render_tile vs its plain version")
@@ -2276,6 +2380,12 @@ def main(argv=None) -> int:
                                    fog=True, texture=True)
     err_b1all, _, _ = compare_fused("B1 frame, phong+shadows+aux+fog+texture", scene1t,
                                     cam1, cfg1_all)
+    cfg1a = dataclasses.replace(cfg1, aux_buffers=True)
+    hold_to_witness("B1 frame", fused_planes(scene1, cam1, cfg1a, cells=True),
+                    fused_witness_planes(scene1, cam1, cfg1a))
+    hold_to_witness("B1 frame, phong+shadows+aux+fog+texture",
+                    fused_planes(scene1t, cam1, cfg1_all, cells=True),
+                    fused_witness_planes(scene1t, cam1, cfg1_all))
     fused_ms = kernel_ms(lambda: render_frame_fused(scene1, cam1, cfg1), "render_tile_kernel",
                          20)
     fused_call_ms = event_ms(lambda: render_frame_fused(scene1, cam1, cfg1), 20)
@@ -2286,12 +2396,13 @@ def main(argv=None) -> int:
         f"{fused_plain_ms:.3f} ms; bound {k3_bound[0]:.4f} ms ({k3_bound[1]})  [{card}]")
 
     # a 16-row band of B3 at the horizon, where the marches are longest: of
-    # the 16-row bands from the first row with a hit down, the slowest one
+    # the 16-row bands from the first row with a hit down, the slowest one by
+    # the kernel's device time (a band's call by events is the host's time)
     first = int(torch.nonzero(fr.hit.any(dim=1)).squeeze(1)[0])
     cfg_band = dataclasses.replace(cfg, height=16)
     cands = range(first, min(first + 16 * 12, cfg.height - 15), 16)
-    band_times = {r0: event_ms(lambda: render_frame_fused(scene, cam, cfg_band, r0, cfg.height),
-                               3) for r0 in cands}
+    band_times = {r0: kernel_ms(lambda: render_frame_fused(scene, cam, cfg_band, r0, cfg.height),
+                                "render_tile_kernel", 3) for r0 in cands}
     row0 = max(band_times, key=band_times.get)
     log("  B3 16-row bands, kernel ms by first row: "
         + ", ".join(f"{r0}: {t:.3f}" for r0, t in band_times.items()))
@@ -2305,6 +2416,10 @@ def main(argv=None) -> int:
     band_bound = fused_bound(scene, cfg_band, work_band, want_band)
     log(f"render_tile, B3 band {cfg.width}x16 at row {row0}: kernel {band_ms:.4f} ms, plain "
         f"{band_plain_ms:.3f} ms; bound {band_bound[0]:.4f} ms ({band_bound[1]})  [{card}]")
+    cfg_band_a = dataclasses.replace(cfg_band, aux_buffers=True)
+    hold_to_witness(f"B3 band rows {row0}-{row0 + 15}",
+                    fused_planes(scene, cam, cfg_band_a, row0, cfg.height, cells=True),
+                    fused_witness_planes(scene, cam, cfg_band_a, row0, cfg.height))
 
     # the counter planes through render_frame: B1 under "auto" takes the
     # fused kernel, which returns (frame, counts) with debug_counters
@@ -2314,19 +2429,26 @@ def main(argv=None) -> int:
                              ("march_pass", "shade_pass"))
     cnt1 = torch.empty((4, cfg1.height, cfg1.width), dtype=torch.int32, device=dev)
     fused_planes(scene1, cam1, cfg1, counts=cnt1)
-    fc1 = count_frame(scene1, cam1, cfg1, l0_tail=False)  # the fused march has no tail
+    # the plain version's counts of the same frame (phase 7's B1 compare,
+    # primary and shadow march), and beside them the old march's, the
+    # compact frame's without the tail (bench/floor.py)
+    plain1 = [int(x.sum(dtype=torch.int64)) for w in work_b1
+              for x in (w.lane_steps, w.lane_tests)]
+    fc1 = count_frame(scene1, cam1, cfg1, l0_tail=False)
     k = fc1.n_primary
     steps1, tests1 = fc1.totals(0), fc1.totals(1)
-    floor1 = [sum(steps1[:k]), sum(tests1[:k]), sum(steps1[k:]), sum(tests1[k:])]
+    old1 = [sum(steps1[:k]), sum(tests1[:k]), sum(steps1[k:]), sum(tests1[k:])]
     sums1 = [int(x.sum(dtype=torch.int64)) for x in planes1]
     compare_exact("B1 with debug_counters", [("colour", fr1c.color, fr1.color),
                                              ("hit", fr1c.hit, fr1.hit)]
                   + [(f"counts plane {i}", x, cnt1[i]) for i, x in enumerate(planes1)])
-    if sums1 != floor1:
-        raise AssertionError(f"B1 counter planes sum to {sums1}, bench/floor.py counts {floor1}")
+    if sums1 != plain1:
+        raise AssertionError(f"B1 counter planes sum to {sums1}, the plain version counts "
+                             f"{plain1}")
     log(f"B1 with debug_counters: frame equal to the frame without, four int32 planes equal "
         f"to fused_planes(counts=), their sums {sums1} (primary steps, tests, shadow steps, "
-        f"tests) equal to bench/floor.py's count of the compact frame without the tail")
+        f"tests) equal to the plain version's counts; the old march (bench/floor.py, the "
+        f"compact frame without the tail) took {old1}")
 
     # ---- 7b. the hostile cameras, and memcheck over their launches -------
     phase("7b. the hostile cameras of tests/test_sanitizers.py")
@@ -2450,22 +2572,17 @@ def main(argv=None) -> int:
         f"one thread per ray, 32 lanes in launch order, would keep {100 * k1_eff:.1f}% of "
         f"its lanes busy  [{card}]")
 
-    # K3: the B3 frame under "pallas", by the counting instance
-    c4 = torch.empty((4, cfg.height, cfg.width), dtype=torch.int32, device=dev)
-    _, _, _, hit3, cell3 = fused_planes(scene, cam, cfg_f, cells=True, counts=c4)
+    # K3: the B3 frame under "pallas", by the counting instance; beside it
+    # the old march's primary counts, which are those of the compact march
+    # without the level-0 tail (the primary rays of both paths are the same
+    # bits)
+    w3 = fused_work(scene, cam, cfg_f)
+    c4, hit3 = w3["counts"], w3["hit"]
     if not torch.equal(hit3, fr.hit):
         raise AssertionError("the counted fused frame does not give the frame's hits")
-    t3 = [int(c4[k].sum(dtype=torch.int64)) for k in range(4)]
-    # the primary rays of both paths are the same bits, so they take the same
-    # steps as the compact march without the level-0 tail
+    t3 = [w3[k] for k in ("steps", "tests", "shadow_steps", "shadow_tests")]
     k1_prim = [sum(tot_mm[0][:n_primary]), sum(tot_mm[1][:n_primary])]
-    if t3[:2] != k1_prim:
-        raise AssertionError(f"fused frame's primary counts {t3[:2]} differ from the "
-                             f"compact frame's {k1_prim}")
-    grads3 = corner_samples(hit3.reshape(-1), cell3[..., 0].reshape(-1),
-                            cell3[..., 1].reshape(-1), scene.n) * 8
-    k3_frame_bound = bound(4 * 32 + p * 16 + grads3, (t3[0] + t3[2]) * OPS_PER_STEP
-                           + (t3[1] + t3[3]) * OPS_PER_TEST + p * OPS_PER_PIXEL)
+    k3_frame_bound = (w3["bound_ms"], w3["bound_by"])
 
     def patches_of(st):  # (2, H, W) primary and shadow steps -> (warps, 32, 2)
         h_, w_ = st.shape[1:]
@@ -2474,7 +2591,8 @@ def main(argv=None) -> int:
                 .permute(1, 3, 2, 4, 0).reshape(-1, 32, 2))
 
     k3_eff = warp_efficiency([c4[0::2]], patches_of)
-    log(f"render_tile, the full B3 frame: primary {t3[0]} steps, {t3[1]} cell tests; shadow "
+    log(f"render_tile, the full B3 frame: primary {t3[0]} steps, {t3[1]} cell tests (the old "
+        f"march: {k1_prim[0]}, {k1_prim[1]}), the longest ray {w3['longest']} steps; shadow "
         f"{t3[2]} steps, {t3[3]} cell tests (compact without the tail: "
         f"{sum(tot_mm[0][n_primary:])}, {sum(tot_mm[1][n_primary:])}); bound "
         f"{k3_frame_bound[0]:.4f} ms ({k3_frame_bound[1]}) against {k_all:.4f} ms; one thread "
@@ -2642,6 +2760,7 @@ def main(argv=None) -> int:
     del cache4, best, sub, lr, st
     check_tiled("B3 tiled with shadows (2048-cell tiles)", scene, cam, cfg, terr3, 10, run_path,
                 paths, card)
+    fused_tiled_witness(run_path, dev)
 
     t14 = time.perf_counter()
     phase("14. sharding on the card")
@@ -2699,7 +2818,11 @@ def main(argv=None) -> int:
          "max_abs_err": max(err_b1, err_b1all, err_band, err_hostile),
          "ms": fused_ms, "plain_ms": fused_plain_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
-         "bands_max_abs_err": band_errs["fused_band_err"]},
+         "bands_max_abs_err": band_errs["fused_band_err"],
+         "b3_frame_ms": k_all, "b3_frame_steps": t3[0] + t3[2],
+         "b3_frame_bound_ms": k3_frame_bound[0], "b3_frame_bound_by": k3_frame_bound[1],
+         "b3_band_row0": row0, "b3_band_ms": band_ms, "b3_band_plain_ms": band_plain_ms,
+         "b3_band_bound_ms": band_bound[0], "b3_band_bound_by": band_bound[1]},
     ]
     log(json.dumps({"host_library": {"build_s": native_s, **host_times,
                                      "b4_scene_build_s": b4_build_s},

@@ -38,11 +38,11 @@ SIGNATURES = {
     "hmrt_march_pass": [_P] * 27 + [_I] * 7 + [_F] * 2 + [_P] + [_I] + [_P] * 4,
     # hit hx hy fx fy shade_rec albedo_rec, 6 outputs; p c (cells a side); stream
     "hmrt_shade_pass": [_P] * 13 + [_I] * 2 + [_P],
-    # params pyr corners gx gy albedo, color hit depth normal cell;
-    # H W full_h n m levels intersector phong shadows fog;
+    # params pyr corners pyr_min-or-null gx gy albedo, color hit depth normal
+    # cell; H W full_h n m levels intersector phong shadows fog;
     # ambient specular shininess fog_density box_lo box_hi;
     # pixel counter, counts or null, stream
-    "hmrt_render_tile": [_P] * 11 + [_I] * 10 + [_F] * 6 + [_P] * 3,
+    "hmrt_render_tile": [_P] * 12 + [_I] * 10 + [_F] * 6 + [_P] * 3,
     # ray, t, cell, corners; m intersector steps; box_lo box_hi; t_o i_o stream
     "hmrt_l0_probe": [_P] * 4 + [_I] * 3 + [_F] * 2 + [_P] * 3,
 }

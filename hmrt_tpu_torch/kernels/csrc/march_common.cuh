@@ -119,15 +119,16 @@ struct MarchRay {
 // Per-ray march state (the state planes of march_pass.py). The relaxed tail
 // adds its own three per ray (traversal/march.py relaxed_planes): the mode
 // (0 stride sampling, 1 the exact walk over a bracket), the t of the last
-// sample above the surface and the bracket's end. They live here so that
-// they survive the persistent kernel's chunks of steps; the other marches
-// never read them.
+// sample above the surface and the bracket's end; the fused march
+// (fused_steps) its mode. They live here so that they survive the
+// persistent kernel's chunks of steps; the other marches never read them.
 struct MarchState {
   int alive;
   float t;
   int lvl, icx, icy;
   int rmode = 0;
   float tprev = 0.0f, wend = BIG_T;
+  int under = 0;  // fused_steps: 1 while the ray takes the min walk under the terrain
 };
 
 // A hit (the result planes of march_pass.py), set by the step that finds
@@ -525,6 +526,14 @@ static __device__ __forceinline__ Below below_margins(const MarchRay& r, int kin
   return b;
 }
 
+// The test under the terrain (the torch passes_under): over the window from
+// t (za = t dz) to its exit (zb) the ray stays below `lo`, the lowest corner
+// of a cell or a block whose highest is `hi`, by the margin of `b`.
+static __device__ __forceinline__ bool passes_under(float oz, float za, float zb, float lo,
+                                                    float hi, const Below& b) {
+  return oz + fmaxf(za, zb) + (b.m0 + (hi - lo) * b.m1) < lo;
+}
+
 // How many boundaries of one axis the level-0 DDA crosses before t_cross,
 // from boundary index b0 (step s): the smallest k in [0, top] whose exit
 // (axis_exit) is not before t_cross, "before" being < against an x crossing
@@ -632,7 +641,7 @@ static __device__ __forceinline__ int l0_min_steps(const MarchRay& r, MarchState
         hi = __ldg(g.pyr + k);
         lo = __ldg(pyr_min + (k - mm));
       }
-      const bool under = below_on && oz + fmaxf(za, zb) + (b.m0 + (hi - lo) * b.m1) < lo;
+      const bool under = below_on && passes_under(oz, za, zb, lo, hi, b);
       bool hit_now = false;
       float t_c = BIG_T;
       if (lvl == 0 && !under && !(zmin > hi)) {
@@ -680,6 +689,156 @@ static __device__ __forceinline__ int l0_min_steps(const MarchRay& r, MarchState
   s.lvl = lvl;
   s.icx = icx;
   s.icy = icy;
+  return st;
+}
+
+// Up to `budget` steps of the fused render's march of one ray (the torch
+// `fused_step`): each step is a step of the max-mip march (march_steps) or
+// of the min walk under the terrain (l0_min_steps), by the ray's mode
+// `s.under`, in one loop, so that a warp whose lanes differ in mode issues
+// one step body. In the max-mip mode (s.icx, s.icy) is the cell at level
+// s.lvl; in the min walk it is the level-0 cell of the walk, and s.lvl the
+// level of the block around it that the step takes. At level 0 the two are
+// the same cell at the same t, and the mode is decided there, cell by cell:
+// a cell the ray passes under by the margin is the min walk's (passed
+// untested, ascending the min pyramid), any other the max-mip march's
+// (skipped when the ray clears it, ascending the max pyramid, else tested).
+// So a ray that meets the terrain from above walks under it from the first
+// level-0 cell that lies above it by the margin, and a ray of the min walk
+// returns to the max-mip march at the first level-0 cell it clears. From a
+// level-0 state both marches find the hits of the level-0 walk, so the
+// hits are march_steps' alone, bit for bit. The floor ends a descending
+// ray after a pass under, as in l0_min_steps. `pyr_min` null (or "flat")
+// passes under nothing: every step is march_steps', step for step (the
+// witness march of raycast.py). While the ray stays at level 0 the records
+// of the next RING cells are in flight, as in march_steps. Returns the steps
+// taken; COUNT adds them and the exact cell tests to `w`.
+template <bool COUNT>
+static __device__ __forceinline__ int fused_steps(const MarchRay& r, MarchState& s, MarchHit& h,
+                                                  int budget, const Terrain& g,
+                                                  const float* __restrict__ pyr_min,
+                                                  float gmin, float gmax, Work& w) {
+  const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
+  const float t1 = r.t1;
+  const int m = g.m, levels = g.levels;
+  const long long mm = (long long)m * m;
+  const bool below_on = g.kind != FLAT && pyr_min != nullptr;
+  const Below b = below_margins(r, g.kind, m, gmin, gmax);
+  int alive = s.alive;
+  float t = s.t;
+  int lvl = s.lvl, icx = s.icx, icy = s.icy, under_mode = s.under;
+
+  float4 q[RING];      // records of the current level-0 cell and the next ones
+  int qx = 0, qy = 0;  // the cell of the last record issued
+  bool ring = false;   // q is live: this step's cell is at level 0 and its record is in q
+  int st = 0;
+  while (st < budget && alive) {
+#pragma unroll
+    for (int j = 0; j < RING; ++j) {
+      if (st >= budget || !alive) break;
+      const bool fine = lvl == 0;
+      const bool walk = !fine && under_mode;  // a min-walk step at a level >= 1
+      const int bx = walk ? icx >> lvl : icx, by = walk ? icy >> lvl : icy;
+      const CellExit e = cell_exit(r, bx, by, (float)(1 << lvl));
+      const float t_exit_c = fminf(e.t, t1);
+      const float za = t * dz, zb = t_exit_c * dz;
+      const float zmin = oz + fminf(za, zb);
+
+      float lo = 0.0f, hi;  // the cell's or the block's lowest and highest corner
+      float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (fine) {
+        if (!ring) {  // entering a level-0 run: issue this cell and the next RING-1
+          qx = icx;
+          qy = icy;
+          q[j] = cell_record(g, qx, qy);
+#pragma unroll
+          for (int k = 1; k < RING; ++k) {
+            const CellExit f = cell_exit(r, qx, qy, 1.0f);
+            qx = f.nx;
+            qy = f.ny;
+            q[(j + k) % RING] = cell_record(g, qx, qy);
+          }
+          ring = true;
+        }
+        c = q[j];
+        hi = fmaxf(fmaxf(c.x, c.y), fmaxf(c.z, c.w));
+        lo = fminf(fminf(c.x, c.y), fminf(c.z, c.w));
+      } else {
+        const int side = m >> lvl;
+        const long long k = ((mm - (mm >> (2 * lvl))) * 4) / 3 +
+                            (long long)min(max(by, 0), side - 1) * side + min(max(bx, 0), side - 1);
+        hi = __ldg(g.pyr + k);
+        if (walk) lo = __ldg(pyr_min + (k - mm));
+      }
+      const bool under = below_on && (fine || walk) && passes_under(oz, za, zb, lo, hi, b);
+      const bool skip = !walk && zmin > hi;  // the max-mip march's skip
+      bool hit_now = false;
+      float t_c = BIG_T;
+      if (fine && !under && !skip) {
+        if (COUNT) ++w.tests;
+        intersect_cell(g.kind, r, icx, icy, c, t - T_TOL, t_exit_c + T_TOL, hit_now, t_c);
+      }
+      if (fine) under_mode = under;
+
+      if (hit_now) {
+        alive = 0;
+        h = MarchHit{1, t_c, icx, icy};
+      } else if (!fine && !under && !skip) {
+        if (!walk) {
+          // descend_cell: the child containing the position at t
+          const float s_child = (float)(1 << (lvl - 1));
+          const float px = ox + t * dx;
+          const float py = oy + t * dy;
+          const int cx2 = 2 * icx, cy2 = 2 * icy;
+          icx = cx2 + (px >= (float)(cx2 + 1) * s_child ? 1 : 0);
+          icy = cy2 + (py >= (float)(cy2 + 1) * s_child ? 1 : 0);
+        }  // the min walk descends in place: the same level-0 cell
+        lvl = lvl - 1;
+      } else {
+        // advance: past a cell or block passed under or skipped, ascending
+        // by the crossed boundary's alignment, or past a tested cell
+        const int asc =
+            under || skip ? min(ascent_levels(e.bnd), (levels - 1) - lvl) : 0;
+        int lim = m;  // the cells of the level the ray stands at next
+        if (!under) {
+          icx = e.nx >> asc;  // arithmetic shift: nx may be -1
+          icy = e.ny >> asc;
+          lim = m >> (lvl + asc);
+        } else if (fine) {
+          icx = e.nx;
+          icy = e.ny;
+        } else {
+          block_crossing(r, e, bx, by, lvl, icx, icy);
+        }
+        lvl = lvl + asc;
+        t = fmaxf(t, t_exit_c);
+        const float z_new = oz + t * dz;
+        const bool out = (e.t >= t1 - EPS_EXIT) || icx < 0 || icx >= lim || icy < 0 ||
+                         icy >= lim || ((z_new > gmax) && (dz > 0.0f)) ||
+                         (under && z_new < b.zfloor);
+        if (out) {
+          alive = 0;
+        } else if (lvl == 0) {
+          // still in the run: the next cell's record is in slot j + 1;
+          // slot j takes the cell RING steps ahead
+          const CellExit f = cell_exit(r, qx, qy, 1.0f);
+          qx = f.nx;
+          qy = f.ny;
+          q[j] = cell_record(g, qx, qy);
+        } else {
+          ring = false;
+        }
+      }
+      if (COUNT) ++w.steps;
+      ++st;
+    }
+  }
+  s.alive = alive;
+  s.t = t;
+  s.lvl = lvl;
+  s.icx = icx;
+  s.icy = icy;
+  s.under = under_mode;
   return st;
 }
 
@@ -883,7 +1042,7 @@ static __device__ __forceinline__ int relaxed_steps(const MarchRay& r, MarchStat
         hi = __ldg(g.pyr + k);
         lo = __ldg(pyr_min + (k - mm));
       }
-      const bool under = below_on && oz + fmaxf(za, zb) + (b.m0 + (hi - lo) * b.m1) < lo;
+      const bool under = below_on && passes_under(oz, za, zb, lo, hi, b);
       const float wt = fmaxf(t, t_exit_c);
       bool hit_now = false;
       float t_c = BIG_T;

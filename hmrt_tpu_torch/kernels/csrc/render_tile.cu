@@ -3,10 +3,12 @@
 // Replaces the TPU kernel hmrt_tpu/kernels/raycast.py::_render_kernel
 // (launched by raycast.py::_render_pallas_jit). Per pixel: the primary ray
 // from the camera params vector, clipped to the terrain box (or the clip
-// window), the sky early-out, the unbudgeted max-mip march from the pyramid
-// top, the normal and albedo at the hit, a shadow ray toward the sun that
-// starts at level 0 in the hit cell, Lambert or Phong, fog, sky, and the
-// clip to [0, 1]. It writes the colour into the Frame's (H, W, 3) layout,
+// window), the sky early-out, the unbudgeted march from the pyramid top (the
+// max-mip march above the terrain, the min walk under it:
+// march_common.cuh fused_steps), the normal and albedo at the hit, a shadow
+// ray toward the sun that starts at level 0 in the hit cell, marched the
+// same way, Lambert or Phong, fog, sky, and the clip to [0, 1]. It writes
+// the colour into the Frame's (H, W, 3) layout,
 // the hit flag into (H, W), and on request the depth, the normals and the
 // hit cells. `row0` and `full_h` place the render as a band of rows of a
 // taller screen (rendering under sharding).
@@ -41,7 +43,19 @@
 //     then refilled;
 //   - few registers: the pixel's primary result waits in shared memory
 //     during its shadow march, and the direction and shade data are
-//     computed again when the pixel is written.
+//     computed again when the pixel is written;
+//   - no cell-by-cell walk under the terrain. A ray that enters the map's
+//     wall below the surface met no hit in the max-mip march until it left
+//     the map, and walked it cell by cell with an exact test each (B3:
+//     2,219,896,681 primary steps). fused_steps passes it under whole
+//     blocks of the min pyramid and ends it under the map's lowest height,
+//     as the level-0 tail of the march pass does (B3: 33,870,132 steps,
+//     24.0-24.5 ms -> 0.854-0.861; B1 0.378-0.381 -> 0.096-0.097). One step
+//     body serves both modes, so a warp whose lanes differ in mode issues
+//     one loop; a loop for each mode (march_steps and l0_min_steps, each
+//     stopping where the other mode takes the next step) was 2% faster on
+//     B3 and 42% slower on B1 (PERF.md, kernel_times.py). The step body
+//     takes 95 registers (80 before), no spill.
 // The constants are those of the march pass, measured on the B3 frame
 // (kernel_times.py, PERF.md): refilling before the whole warp is idle was
 // slower here too.
@@ -205,11 +219,15 @@ __device__ __forceinline__ void write_pixel(const TileArgs& a, const float* P, c
 
 template <bool COUNT>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-    render_tile_kernel(const TileArgs a, const Terrain g, int* next) {
+    render_tile_kernel(const TileArgs a, const Terrain g, const float* __restrict__ pyr_min,
+                       int* next) {
   __shared__ Pixel lane_pixel[THREADS];
   Pixel& px = lane_pixel[threadIdx.x];
   const float* P = a.params;
   const float gmax = P[P_GMAX];
+  // the map's lowest height, the min pyramid's top (its one entry when m = 1)
+  const long long min_top = max(pyramid_top(g.m) - (long long)g.m * g.m, 0ll);
+  const float gmin = pyr_min != nullptr ? __ldg(pyr_min + min_top) : 0.0f;
   const int patches_x = (a.W + PATCH_X - 1) / PATCH_X;
   const int total = patches_x * ((a.H + PATCH_Y - 1) / PATCH_Y) * 32;
   const long long plane = (long long)a.H * a.W;
@@ -251,8 +269,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 
     // a hit ends its ray, so it is used in the chunk that finds it
     MarchHit h{0, BIG_T, 0, 0};
-    if (phase != IDLE) used += march_steps<COUNT>(r, s, h, min(CHUNK, UNBUDGETED - used), g,
-                                                  gmax, w);
+    if (phase != IDLE)
+      used += fused_steps<COUNT>(r, s, h, min(CHUNK, UNBUDGETED - used), g, pyr_min, gmin,
+                                 gmax, w);
     const bool ended = phase != IDLE && (!s.alive || used >= UNBUDGETED);
 
     if (ended && phase == SHADOW) {
@@ -302,22 +321,27 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 }
 
 template <bool COUNT>
-int launch(const TileArgs& a, const Terrain& g, int* next, cudaStream_t stream) {
+int launch(const TileArgs& a, const Terrain& g, const float* pyr_min, int* next,
+           cudaStream_t stream) {
   const long long items = (long long)((a.W + PATCH_X - 1) / PATCH_X) *
                           ((a.H + PATCH_Y - 1) / PATCH_Y) * 32;
   const int blocks = persistent_blocks(render_tile_kernel<COUNT>, THREADS, items);
-  render_tile_kernel<COUNT><<<blocks, THREADS, 0, stream>>>(a, g, next);
+  render_tile_kernel<COUNT><<<blocks, THREADS, 0, stream>>>(a, g, pyr_min, next);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// `next` is a zeroed int32 on the device (the pixel counter); `counts` is
-// null or an int32 (4, H, W) plane that takes each pixel's primary steps,
-// primary cell tests, shadow steps and shadow cell tests.
+// `pyr_min` is the flat min pyramid of levels >= 1, or null for the witness
+// march (the max-mip march alone, which passes under nothing: raycast.py
+// fused_witness_planes); `next` is a zeroed int32 on the device (the pixel
+// counter); `counts` is null or an int32 (4, H, W) plane that takes each
+// pixel's primary steps, primary cell tests, shadow steps and shadow cell
+// tests.
 extern "C" int hmrt_render_tile(const float* params, const float* pyr, const float* corners,
-                                const float* gx, const float* gy, const float* albedo,
-                                float* color, int* hit, float* depth, float* normal, int* cell,
+                                const float* pyr_min, const float* gx, const float* gy,
+                                const float* albedo, float* color, int* hit, float* depth,
+                                float* normal, int* cell,
                                 int H, int W, int full_h, int n, int m, int levels,
                                 int intersector, int phong, int shadows, int fog, float ambient,
                                 float specular, float shininess, float fog_density,
@@ -329,5 +353,6 @@ extern "C" int hmrt_render_tile(const float* params, const float* pyr, const flo
              fog,     ambient, specular, shininess, fog_density, box_lo, box_hi};
   Terrain g{pyr, reinterpret_cast<const float4*>(corners), m, levels, intersector};
   cudaStream_t st = (cudaStream_t)stream;
-  return counts != nullptr ? launch<true>(a, g, next, st) : launch<false>(a, g, next, st);
+  return counts != nullptr ? launch<true>(a, g, pyr_min, next, st)
+                           : launch<false>(a, g, pyr_min, next, st);
 }

@@ -52,10 +52,10 @@ import torch
 from hmrt_tpu_torch.core.pyramid import build_min_pyramid_flat, flat_size, min_flat_size
 from hmrt_tpu_torch.kernels import _build
 from hmrt_tpu_torch.traversal.intersect import INTERSECTORS, INTERSECTOR_IDS, SURFACES
-from hmrt_tpu_torch.traversal.march import (WorkCounter, below_margins, l0_min_step,
-                                            l0_min_step_relaxed, maxmip_step, ray_box_range,
-                                            ray_inverses, record_corners, relaxed_planes,
-                                            run_masked)
+from hmrt_tpu_torch.traversal.march import (WorkCounter, below_margins, fused_step,
+                                            l0_min_step, l0_min_step_relaxed, maxmip_step,
+                                            ray_box_range, ray_inverses, record_corners,
+                                            relaxed_planes, run_masked)
 
 UNBUDGETED = 1 << 22
 #: the kernel's mode argument: the max-mip march, the exact level-0 tail,
@@ -160,6 +160,38 @@ def march_pass_reference(rays, state, results, pyr_flat, heights, *, n: int,
                 return l0_min_step_relaxed(ray, s, corners, pyr_flat, pyr_min, gmax, below,
                                            surface=SURFACES[cell_intersect], stride=relax, **kw)
     st = run_masked(step, st, budget)
+    return ((st["alive"].to(torch.int32), st["t"], st["lvl"], st["icx"], st["icy"]),
+            (st["hit"].to(torch.int32), st["t_hit"], st["hx"], st["hy"]))
+
+
+def fused_march_reference(rays, state, results, pyr_flat, heights, pyr_min, *, n: int,
+                          m: int, levels: int, cell_intersect: str = "triangle", clip=None,
+                          counter: WorkCounter | None = None):
+    """The plain version of the fused kernel's march (render_tile.cu), on the
+    planes of `march_pass_reference`: every ray marched to its end by
+    `traversal/march.py::fused_step`, the max-mip march above the terrain
+    and the min walk under it, from the max-mip mode. `pyr_min`: the
+    scene's min pyramid. The hits (hit, t_hit, hx, hy) are those of
+    `march_pass_reference(..., budget=UNBUDGETED)`, the max-mip march alone,
+    bit for bit; a ray that ends as a miss ends elsewhere, after other
+    counts. `counter` records the work done. Returns (state, results) as
+    `march_pass_reference` does."""
+    ox, oy, oz, dx, dy, dz = rays
+    alive, t, lvl, icx, icy = state
+    hit, t_hit, hx, hy = results
+    inv_x, inv_y = ray_inverses(dx, dy)
+    _, t1, _ = ray_box_range(ox, oy, dx, dy, float(n - 1), clip)
+    ray = (ox, oy, oz, dx, dy, dz, inv_x, inv_y, t1)
+    gmax = pyr_flat[-1]
+    heights_flat = heights.reshape(-1)
+    below = below_margins(ray, pyr_min[-1], gmax, m=m, cell_intersect=cell_intersect)
+    kw = dict(n=n, m=m, levels=levels, intersector=INTERSECTORS[cell_intersect],
+              counter=counter)
+    corners = record_corners(heights_flat, n, m)
+    st = dict(t=t, lvl=lvl, icx=icx, icy=icy, alive=alive != 0, hit=hit != 0, t_hit=t_hit,
+              hx=hx, hy=hy, under=torch.zeros_like(alive, dtype=torch.bool))
+    st = run_masked(lambda s: fused_step(ray, s, corners, pyr_flat, heights_flat, pyr_min,
+                                         gmax, below, **kw), st, UNBUDGETED)
     return ((st["alive"].to(torch.int32), st["t"], st["lvl"], st["icx"], st["icy"]),
             (st["hit"].to(torch.int32), st["t_hit"], st["hx"], st["hy"]))
 

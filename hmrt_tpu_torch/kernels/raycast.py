@@ -4,10 +4,18 @@
 CUDA scene and runs its plain torch version, `render_frame_fused_reference`,
 for a CPU scene. It replaces the TPU kernel
 `hmrt_tpu/kernels/raycast.py::_render_kernel` (entry `render_frame_pallas`):
-raygen from a packed params vector, the unbudgeted max-mip march from the
-pyramid top with the sky early-out, normal and albedo at the hit, a shadow
-march from the hit cell, Lambert or Phong, fog and sky. `row0` and
+raygen from a packed params vector, the unbudgeted march from the pyramid
+top with the sky early-out, normal and albedo at the hit, a shadow march
+from the hit cell, Lambert or Phong, fog and sky. `row0` and
 `full_height` place the render as a band of rows of a taller screen.
+
+Both marches are the max-mip march above the terrain and K1's min walk
+under it (`traversal/march.py::fused_step`): a ray that enters the map's
+wall below the surface passes whole blocks of the min pyramid
+(`Scene.pyr_min_flat`) and ends under the map's lowest height, where the
+max-mip march alone (the TPU kernel's march) walks it cell by cell. The
+hits are the max-mip march's, bit for bit; `fused_witness_planes` renders
+by that march alone, to hold them to it.
 
 The TPU kernel's Mosaic schedule (coarse VMEM buffer, column-cascade demand
 loop, DMA semaphores, n_col, the ascent cap, tile_h and the HMRT_*
@@ -22,7 +30,8 @@ from hmrt_tpu_torch.config import RenderConfig
 from hmrt_tpu_torch.kernels import _build
 from hmrt_tpu_torch.kernels.compact import (empty_results, init_state, shade_frame,
                                             to_frame)
-from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, check_counts, check_records,
+from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, check_counts, check_min_pyramid,
+                                               check_records, fused_march_reference,
                                                march_pass_reference)
 from hmrt_tpu_torch.kernels.shade_pass import shade_pass_reference
 from hmrt_tpu_torch.traversal.intersect import INTERSECTOR_IDS
@@ -88,23 +97,28 @@ def params_rays(params: torch.Tensor, height: int, width: int, full_height: int)
 
 def fused_reference_planes(scene: Scene, camera: Camera, config: RenderConfig,
                            row0=None, full_height: int | None = None, counter=None,
-                           shadow_counter=None):
+                           shadow_counter=None, witness: bool = False):
     """The plain version of the kernel: flat (color[P,3], depth[P],
-    normal[P,3], hit[P] bool, cell[P,2]) of the frame or band. `counter`
-    (a traversal.march.WorkCounter) records the work of both marches, or
-    of the primary march alone when `shadow_counter` takes the shadow
-    march's."""
+    normal[P,3], hit[P] bool, cell[P,2]) of the frame or band, both marches
+    by `fused_march_reference`. `counter` (a traversal.march.WorkCounter)
+    records the work of both marches, or of the primary march alone when
+    `shadow_counter` takes the shadow march's. `witness`: march by the
+    max-mip march alone (`march_pass_reference`, unbudgeted), the plain
+    version of `fused_witness_planes`."""
     H, W = config.height, config.width
     fh = full_height or H
     params = make_params(scene, camera, config, row0, fh)
     rays = params_rays(params, H, W, fh)
-    kw = dict(n=scene.n, m=scene.m, levels=scene.levels, budget=UNBUDGETED,
+    kw = dict(n=scene.n, m=scene.m, levels=scene.levels,
               cell_intersect=config.cell_intersect, clip=config.clip_box)
 
     def march(rays_, state, work):
         res = empty_results(rays_[0].shape[0], rays_[0].device)
-        return march_pass_reference(rays_, state, res, scene.pyr_flat, scene.heights,
-                                    counter=work, **kw)[1]
+        if witness:
+            return march_pass_reference(rays_, state, res, scene.pyr_flat, scene.heights,
+                                        budget=UNBUDGETED, counter=work, **kw)[1]
+        return fused_march_reference(rays_, state, res, scene.pyr_flat, scene.heights,
+                                     scene.pyr_min_flat, counter=work, **kw)[1]
 
     state0 = init_state(rays, None, params[_P_GMAX], n=scene.n, m=scene.m,
                         levels=scene.levels, clip=config.clip_box)
@@ -166,22 +180,58 @@ def fused_planes(scene: Scene, camera: Camera, config: RenderConfig, row0=None,
 
     A CPU scene runs the plain version; a CUDA scene launches the kernel
     (building it on first use) or raises. The kernel reads the scene's
-    corner records and pyramid, the plain version its pyramid and heights."""
+    corner records and both pyramids (a scene without its min pyramid
+    raises), the plain version its pyramids and heights."""
     H, W = config.height, config.width
-    fh = full_height or H
     dev = scene.device
-    aux = config.aux_buffers
     if counts is not None:
         check_counts(counts, (4, H, W), dev)
     if dev.type == "cpu":
         works = () if counts is None else _pixel_counters(scene, config)
-        color, depth, normal, hit, cell = fused_reference_planes(
-            scene, camera, config, row0, fh, *works)
+        planes = fused_reference_planes(scene, camera, config, row0, full_height, *works)
         if works:
             counts.copy_(torch.stack(_count_planes(works, config)))
-        return (color.reshape(H, W, 3), depth.reshape(H, W) if aux else None,
-                normal.reshape(H, W, 3) if aux else None, hit.reshape(H, W),
-                cell.reshape(H, W, 2) if cells else None)
+        return _shaped(planes, config, cells)
+    if scene.pyr_min_flat is None:
+        raise ValueError("the fused kernel reads the min pyramid: the scene has none "
+                         "(Scene.pyr_min_flat)")
+    check_min_pyramid(scene.pyr_min_flat, scene.m)
+    return _launch(scene, camera, config, row0, full_height, cells, counts,
+                   scene.pyr_min_flat)
+
+
+def fused_witness_planes(scene: Scene, camera: Camera, config: RenderConfig, row0=None,
+                         full_height: int | None = None):
+    """`fused_planes(..., cells=True)` by the max-mip march alone, the
+    march the fused kernel had before its min walk under the terrain: the
+    witness that the tests and chip_smoke.py hold the kernel's hit, depth,
+    hit cells and colour to, bit for bit. A CUDA scene launches the kernel
+    without the min pyramid (which passes under nothing); a CPU scene runs
+    the plain version with `witness=True`. No render path calls it."""
+    if scene.device.type == "cpu":
+        return _shaped(fused_reference_planes(scene, camera, config, row0, full_height,
+                                              witness=True), config, True)
+    return _launch(scene, camera, config, row0, full_height, True, None, None)
+
+
+def _shaped(planes, config: RenderConfig, cells: bool):
+    """The plain version's flat planes in the shapes `fused_planes` returns."""
+    H, W = config.height, config.width
+    color, depth, normal, hit, cell = planes
+    aux = config.aux_buffers
+    return (color.reshape(H, W, 3), depth.reshape(H, W) if aux else None,
+            normal.reshape(H, W, 3) if aux else None, hit.reshape(H, W),
+            cell.reshape(H, W, 2) if cells else None)
+
+
+def _launch(scene: Scene, camera: Camera, config: RenderConfig, row0, full_height, cells,
+            counts, pyr_min):
+    """One launch of the kernel on a CUDA scene; `pyr_min` None: the
+    witness march."""
+    H, W = config.height, config.width
+    fh = full_height or H
+    dev = scene.device
+    aux = config.aux_buffers
     if dev.type != "cuda":
         raise ValueError(f"render_frame_fused runs on cpu or cuda, not {dev}")
     _check_inputs(scene, camera, config)
@@ -204,9 +254,9 @@ def fused_planes(scene: Scene, camera: Camera, config: RenderConfig, row0=None,
         next_pixel = torch.zeros(1, dtype=torch.int32, device=dev)
         err = lib.hmrt_render_tile(
             params.data_ptr(), scene.pyr_flat.data_ptr(), scene.corners.data_ptr(),
-            scene.gx.data_ptr(), scene.gy.data_ptr(), ptr(albedo), color.data_ptr(),
-            hit.data_ptr(), ptr(depth), ptr(normal), ptr(cell), H, W, fh, scene.n,
-            scene.m, scene.levels, INTERSECTOR_IDS[config.cell_intersect],
+            ptr(pyr_min), scene.gx.data_ptr(), scene.gy.data_ptr(), ptr(albedo),
+            color.data_ptr(), hit.data_ptr(), ptr(depth), ptr(normal), ptr(cell), H, W, fh,
+            scene.n, scene.m, scene.levels, INTERSECTOR_IDS[config.cell_intersect],
             int(config.shading == "phong"), int(config.shadows), int(config.fog),
             config.ambient, config.specular, config.shininess, config.fog_density,
             float(lo), float(hi), next_pixel.data_ptr(), ptr(counts),

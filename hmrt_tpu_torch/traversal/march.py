@@ -14,7 +14,9 @@ CUDA kernel marches it: `l0_step`'s walk and hits, but a ray that stays
 under a block's lowest corner passes the whole block untested, and one
 under the map's lowest height ends. `l0_min_step_relaxed` is the relaxed
 tail as the kernel marches it: `l0_step_relaxed`'s samples, brackets and
-hits, with the same two shortcuts under the terrain.
+hits, with the same two shortcuts under the terrain. `fused_step` is the
+fused render's march: each lane takes a `maxmip_step` above the terrain
+and an `l0_min_step` under it, with the max-mip march's hits.
 
 Robustness rules, as in the JAX package: cell coordinates are INTEGER
 per-lane state, so every step makes integer progress and no epsilon is
@@ -393,6 +395,15 @@ def below_margins(ray, gmin, gmax, *, m: int, cell_intersect: str):
     return m0, m1, zfloor
 
 
+def passes_under(oz, za, zb, lo, hi, below):
+    """The test under the terrain: the ray stays below `lo`, the lowest
+    corner of a cell (or a block) whose highest is `hi`, by the margin
+    m0 + (hi - lo) m1 of `below` (`below_margins`) over the window from
+    t (za = t dz) to its exit (zb)."""
+    m0, m1, _ = below
+    return oz + torch.maximum(za, zb) + (m0 + (hi - lo) * m1) < lo
+
+
 def _dda_steps(b0, step, o, inv, none, t_cross, strict: bool, top, rounds: int):
     """How many boundaries of one axis the level-0 DDA crosses before
     t_cross, counting from boundary index b0 (step +-1): the smallest k in
@@ -495,9 +506,9 @@ def l0_min_step(ray, st, corners, pyr_flat, pyr_min, gmax, below, *, m: int, lev
             0, torch.clamp(idx - m * m, 0, min_flat_size(m) - 1)))
     under = torch.zeros_like(act)
     if below is not None:
-        m0, m1, zfloor = below
+        zfloor = below[2]
         if hierarchy:
-            under = oz + torch.maximum(za, zb) + (m0 + (hi - lo) * m1) < lo
+            under = passes_under(oz, za, zb, lo, hi, below)
     above = fine & (zmin > hi)
     test = act & fine & ~above & ~under
     if counter is not None:
@@ -537,6 +548,50 @@ def l0_min_step(ray, st, corners, pyr_flat, pyr_min, gmax, below, *, m: int, lev
                 t_hit=torch.where(hit_now, t_c, st["t_hit"]),
                 hx=torch.where(hit_now, icx, st["hx"]),
                 hy=torch.where(hit_now, icy, st["hy"]))
+
+
+def fused_step(ray, st, corners, pyr_flat, heights_flat, pyr_min, gmax, below, *, n: int,
+               m: int, levels: int, intersector, counter: WorkCounter | None = None):
+    """One masked step of the fused render's march as the CUDA kernel
+    marches it (`march_common.cuh::fused_steps`): each lane takes a
+    `maxmip_step` or an `l0_min_step`, by its mode `st["under"]` (bool:
+    the min walk under the terrain). The max-mip march above the terrain,
+    the min walk under it, and the switch only at level 0, where both
+    stand in the same level-0 cell at the same t: there a cell the ray
+    passes under by the margin (`passes_under`) is the min walk's step,
+    which passes it and ascends the min pyramid, and any other cell the
+    max-mip march's, which skips a cell the ray clears and ascends, or
+    tests it. A lane's mode is that of its last step at level 0; at a
+    level >= 1 it keeps it. So a ray that rises out from under the terrain
+    returns to the max-mip march at the first level-0 cell it clears, and
+    one that meets the terrain from above walks under it once a cell lies
+    above it by the margin.
+
+    The hits are the max-mip march's (hit, t_hit, hx, hy, bit for bit):
+    from a level-0 state both marches find the hits of the level-0 walk.
+    Under "flat" (`below` None) no cell is passed under, and every step
+    is `maxmip_step`'s. ray and st as in `maxmip_step`, with "under";
+    `corners` and `pyr_min` as in `l0_min_step`; `counter` records the
+    step's work."""
+    ox, oy, oz, dx, dy, dz, inv_x, inv_y, t1 = ray
+    act, lvl, icx, icy, mode = st["alive"], st["lvl"], st["icx"], st["icy"], st["under"]
+    fine = lvl == 0
+    use_min = act & ~fine & mode
+    if below is not None:
+        t_exit, _, _, _ = step_geometry(ox, oy, dx, dy, icx, icy, 0, inv_x, inv_y)
+        z00, z10, z01, z11 = corners(icx, icy)
+        lo = torch.minimum(torch.minimum(z00, z10), torch.minimum(z01, z11))
+        hi = torch.maximum(torch.maximum(z00, z10), torch.maximum(z01, z11))
+        under0 = passes_under(oz, st["t"] * dz, torch.minimum(t_exit, t1) * dz, lo, hi, below)
+        use_min = use_min | (act & fine & under0)
+    a = maxmip_step(ray, dict(st, alive=act & ~use_min), pyr_flat, heights_flat, gmax, n=n,
+                    m=m, levels=levels, intersector=intersector, counter=counter)
+    b = l0_min_step(ray, dict(st, alive=use_min), corners, pyr_flat, pyr_min, gmax, below,
+                    m=m, levels=levels, intersector=intersector, counter=counter)
+    out = {k: torch.where(use_min, b[k], a[k]) for k in a}
+    out["alive"] = a["alive"] | b["alive"]
+    out["under"] = torch.where(act, use_min, mode)
+    return out
 
 
 def _axis_exit(b0, k, step, o, inv, none):
@@ -829,8 +884,8 @@ def l0_min_step_relaxed(ray, st, corners, pyr_flat, pyr_min, gmax, below, *, m: 
     under = torch.zeros_like(act)
     zfloor = None
     if below is not None:
-        m0, m1, zfloor = below
-        under = oz + torch.maximum(za, zb) + (m0 + (hi - lo) * m1) < lo
+        zfloor = below[2]
+        under = passes_under(oz, za, zb, lo, hi, below)
     wt = torch.maximum(t, t_exit_c)
     new_icx, new_icy = nx, ny
     clear = torch.ones_like(act)

@@ -5,17 +5,20 @@ Run from the root of a checkout:
 
     python3 kernel_times.py [--root DIR] [VARIANT ...]
 
-It builds the B1, B3 and B4 scenes (bench/configs.py) and prints one JSON
-line per variant: the device ms of each march_pass launch of one compact B3
-frame and their sum, the render_tile kernel's device ms on the B3 frame
-(backend "pallas") and on the B1 frame (torch.profiler, the kernel alone),
+It builds the B1, B2, B3 and B4 scenes (bench/configs.py) and prints one
+JSON line per variant: the device ms of each march_pass launch of one
+compact B3 frame and their sum, the render_tile kernel's device ms on the
+B3 frame (backend "pallas") and on the B1 frame (torch.profiler, the kernel
+alone), and on both and on B3's 16-row bands at the horizon beside the
+counting instance's steps, cell tests, longest ray and bound,
 the shade_pass kernel's device ms on the lanes of the B3 frame (untextured)
 and of B4's orbit frame 0 (textured), three times each by CUDA events over
 SHADE_REPS calls queued behind a spin kernel, with the 32-byte sectors its
 gathers touch in either layout (chip_smoke.py::shade_sectors), the B3
 frame's ms through each path (CUDA events, median of 5), B5's eight bands
 of 270 rows on one card (CUDA events, median of 3, with the marches each
-band's launches ran and each launch's device ms), each march_pass
+band's launches ran and each launch's device ms), B2's frame ms through
+each path in turns (CUDA events, median of 5), each march_pass
 launch of the B3 frame with its level-0 tail off, forced, "auto" and relaxed
 at strides 4, 8 and 16 (render_frame_compact's l0_tail and relax) with the
 march's bound on that frame and the primary tail launch's steps and cell
@@ -90,8 +93,9 @@ def variant_library(build, spec: str):
 
 def registers(log: str) -> dict:
     """{kernel name: [registers, bytes of spill stores]} of the timed
-    (non-counting) instances of the march kernels and of both instances of
-    shade_pass (untextured, textured) in a ptxas log."""
+    (non-counting) instances of the march kernels, of both instances of
+    render_tile (timed, "_count") and of shade_pass (untextured, textured)
+    in a ptxas log."""
     regs = {}
     entry, spill = None, 0
     for line in log.splitlines():
@@ -109,8 +113,9 @@ def registers(log: str) -> dict:
                 mode = re.search(r"ILb0ELi(\d)E", entry)
                 suffix = {None: "", "0": "", "1": "_l0", "2": "_relax"}[mode and mode.group(1)]
                 regs["march_pass_kernel" + suffix] = [int(m.group(1)), spill]
-            if "render_tile_kernel" in entry and "ILb1E" not in entry:
-                regs["render_tile_kernel"] = [int(m.group(1)), spill]
+            if "render_tile_kernel" in entry:  # the timed and the counting instance
+                suffix = "_count" if "ILb1E" in entry else ""
+                regs["render_tile_kernel" + suffix] = [int(m.group(1)), spill]
             if "shade_pass_kernel" in entry:  # one instance before the records
                 suffix = ("_textured" if "ILb1E" in entry else
                           "_untextured" if "ILb0E" in entry else "")
@@ -219,6 +224,37 @@ def relaxed_tail_rays(scene, cam, cfg, march_pass, kernel_ms, tail_survivors) ->
     return out
 
 
+def fused_rows(scene, cam, cfg, scene1, cam1, cfg1, render_frame_fused, fused_work,
+               kernel_ms) -> dict:
+    """K3 on the B1 frame, the B3 frame and B3's 16-row bands at the horizon:
+    the kernel's device ms (profiler) beside the counting instance's steps,
+    cell tests, longest ray and bound (chip_smoke.py::fused_work); for the
+    bands, each band's device ms from the first row with a hit down (12
+    bands; a band's call by events is the host's time), the slowest one,
+    and rows 609-624, the slowest before the march under the terrain."""
+    import torch
+
+    def row(sc, cm, cf, row0=None, fh=None, reps=5):
+        work = fused_work(sc, cm, cf, row0, fh)
+        out = {k: v for k, v in work.items() if k not in ("counts", "hit")}
+        out["ms"] = kernel_ms(lambda: render_frame_fused(sc, cm, cf, row0, fh),
+                              "render_tile_kernel", reps)
+        return out, work["hit"]
+
+    b1, _ = row(scene1, cam1, cfg1, reps=20)
+    b3, hit3 = row(scene, cam, cfg)
+    first = int(torch.nonzero(hit3.any(dim=1)).squeeze(1)[0])
+    band = dataclasses.replace(cfg, height=16)
+    cands = range(first, min(first + 16 * 12, cfg.height - 15), 16)
+    by_row = {r0: kernel_ms(lambda r0=r0: render_frame_fused(scene, cam, band, r0, cfg.height),
+                            "render_tile_kernel", 3) for r0 in cands}
+    slow = max(by_row, key=by_row.get)
+    bands = {"by_row_ms": by_row, "slowest_row0": slow}
+    for key, r0 in (("slowest", slow), ("rows_609", 609)):
+        bands[key], _ = row(scene, cam, band, r0, cfg.height, reps=10)
+    return {"b1": b1, "b3": b3, "b3_bands": bands}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE), help="checkout to import hmrt_tpu_torch from")
@@ -229,8 +265,9 @@ def main() -> int:
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE))
-    from chip_smoke import (card_line, event_ms, kernel_ms, launch_times, median_ms,
-                            queued_ms, shade_sectors, tail_launches, tail_survivors)
+    from chip_smoke import (card_line, event_ms, fused_work, kernel_ms, launch_times,
+                            median_ms, queued_ms, shade_sectors, tail_launches,
+                            tail_survivors)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import hmrt_tpu_torch as T
     from hmrt_tpu_torch.api.flythrough import frame_camera, orbit_flythrough
@@ -246,8 +283,10 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     b3, b1, b4 = BENCH_CONFIGS["B3"], BENCH_CONFIGS["B1"], BENCH_CONFIGS["B4"]
+    b2 = BENCH_CONFIGS["B2"]
     scene, cam, _ = bench_scene(b3, device=dev)
     scene1, cam1, _ = bench_scene(b1, device=dev)
+    scene2, cam2, _ = bench_scene(b2, device=dev)
     scene4, _, terr4 = bench_scene(b4, device=dev)
     cam4 = frame_camera(orbit_flythrough(b4.map_n, float(terr4.max()), b4.frames, device=dev), 0)
     shade_cases = {"b3": (shade_lanes(scene, cam, b3.render), shade_inputs(scene, False)),
@@ -270,6 +309,8 @@ def main() -> int:
         k3 = kernel_ms(lambda: render_frame_fused(scene, cam, cfg_f), "render_tile_kernel", 5)
         k3_b1 = kernel_ms(lambda: render_frame_fused(scene1, cam1, b1.render),
                           "render_tile_kernel", 20)
+        k3_rows = fused_rows(scene, cam, cfg_f, scene1, cam1, b1.render, render_frame_fused,
+                             fused_work, kernel_ms)
         k2 = {f"shade_pass_ms_{k}": [queued_ms(lambda: shade_pass(*lanes, *inputs), SHADE_REPS)
                                      for _ in range(3)]
               for k, (lanes, inputs) in shade_cases.items()}
@@ -327,11 +368,16 @@ def main() -> int:
                 by_live[count]["auto_ran"] = [k for k, v in
                                               march_pass.mode_launches.read().items() if v]
         relaxed = relaxed_tail_rays(scene, cam, cfg_c, march_pass, kernel_ms, tail_survivors)
-        frames = {}
+        frames, frames_b2 = {}, {}
         for label, cf in (("compact", cfg_c), ("fused", cfg_f), ("fused", cfg_f),
                           ("compact", cfg_c)):
             frames.setdefault(label, []).append(
                 median_ms(lambda: T.render_frame(scene, cam, cf), 5)[0])
+        for label in ("compact", "fused", "fused", "compact"):
+            cf = dataclasses.replace(b2.render, backend="pallas" if label == "fused" else label)
+            T.render_frame(scene2, cam2, cf)
+            frames_b2.setdefault(label, []).append(
+                median_ms(lambda: T.render_frame(scene2, cam2, cf), 5)[0])
         # B5's 8 bands of 270 rows on one card (B3's map and camera), each
         # with the marches its launches ran
         b5 = BENCH_CONFIGS["B5"].render
@@ -351,7 +397,8 @@ def main() -> int:
             "root": args.root, "variant": spec, "card": card,
             "march_pass_ms_per_launch": [ms for _, ms in per_launch],
             "march_pass_ms_per_frame": sum(ms for _, ms in per_launch),
-            "render_tile_ms_b3": k3, "render_tile_ms_b1": k3_b1, **k2,
+            "render_tile_ms_b3": k3, "render_tile_ms_b1": k3_b1, "render_tile": k3_rows,
+            **k2,
             "march_pass_ms_per_launch_by_tail": tails,
             "march_bound_by_tail": tail_bounds,
             "tail_launch_ms_by_group": by_group,
@@ -360,6 +407,7 @@ def main() -> int:
             "relaxed_tail_rays": relaxed,
             "shade_sectors": sectors,
             "frame_ms_compact": frames["compact"], "frame_ms_fused": frames["fused"],
+            "b2_frame_ms_compact": frames_b2["compact"], "b2_frame_ms_fused": frames_b2["fused"],
             "b5_bands": b5_bands,
             "registers": registers(log)}), flush=True)
     return 0

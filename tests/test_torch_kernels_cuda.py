@@ -19,7 +19,7 @@ from hmrt_tpu_torch.core.renderer import render_frame_oracle
 from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, march_pass,
                                                march_pass_reference)
 from hmrt_tpu_torch.kernels.raycast import (fused_planes, fused_reference_planes,
-                                            render_frame_fused,
+                                            fused_witness_planes, render_frame_fused,
                                             render_frame_fused_reference)
 from hmrt_tpu_torch.kernels.shade_pass import shade_pass, shade_pass_reference
 from hmrt_tpu_torch.traversal.intersect import INTERSECTORS, SURFACES
@@ -616,9 +616,21 @@ def _assert_fused_equal(got, want, aux):
         assert float((normal.reshape(-1, 3) - want[2]).abs().max()) <= 1e-6
 
 
+def _assert_equals_witness(got, witness):
+    """The kernel's planes against the witness kernel's (the max-mip march
+    alone): colour, depth, normals, hit and hit cells bit for bit."""
+    for a, b in zip(got, witness):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("case", list(FUSED_CASES))
 @pytest.mark.parametrize("n", [65, 128])
 def test_fused_kernel_equals_plain(cuda, n, case):
+    """The kernel against its plain version (the march under the terrain),
+    and against the witness kernel, the old march, bit for bit; the witness
+    kernel against the old march's plain version."""
     sc, cam = _fused_scene(n, cuda)
     cfg = T.RenderConfig(**dict(dict(width=128, height=64), **FUSED_CASES[case]))
     before = render_frame_fused.launches
@@ -626,6 +638,10 @@ def test_fused_kernel_equals_plain(cuda, n, case):
     torch.cuda.synchronize()
     assert render_frame_fused.launches == before + 1
     _assert_fused_equal(got, fused_reference_planes(sc, cam, cfg), cfg.aux_buffers)
+    witness = fused_witness_planes(sc, cam, cfg)
+    _assert_equals_witness(got, witness)
+    _assert_fused_equal(witness, fused_reference_planes(sc, cam, cfg, witness=True),
+                        cfg.aux_buffers)
 
 
 @pytest.mark.parametrize("shadows", [False, True])
@@ -648,6 +664,38 @@ def test_fused_kernel_counts_equal_work_counter(cuda, shadows):
     _assert_fused_equal(got, want, True)
     for k, lane in enumerate(x for w in works for x in (w.lane_steps, w.lane_tests)):
         assert torch.equal(counts[k].reshape(-1), lane)
+    # the march under the terrain takes fewer steps than the old march
+    old = WorkCounter(sc.pyr_flat.shape[0], sc.n, cuda, lanes=46 * 101)
+    fused_reference_planes(sc, cam, cfg, counter=old, witness=True)
+    assert int(counts[0].sum()) < int(old.lane_steps.sum())
+
+
+def test_fused_kernel_counts_under_flat_are_the_old_marchs(cuda):
+    """Under "flat" nothing is passed under: the counting instance's four
+    planes are the old march's per-pixel counts, and the frame is the
+    witness kernel's."""
+    sc, cam = _fused_scene(128, cuda)
+    cfg = T.RenderConfig(width=101, height=46, shading="phong", shadows=True,
+                         aux_buffers=True, cell_intersect="flat")
+    counts = torch.full((4, 46, 101), -1, dtype=torch.int32, device=cuda)
+    got = fused_planes(sc, cam, cfg, cells=True, counts=counts)
+    _assert_equals_witness(got, fused_witness_planes(sc, cam, cfg))
+    works = [WorkCounter(sc.pyr_flat.shape[0], sc.n, cuda, lanes=46 * 101) for _ in range(2)]
+    fused_reference_planes(sc, cam, cfg, counter=works[0], shadow_counter=works[1],
+                           witness=True)
+    for k, lane in enumerate(x for w in works for x in (w.lane_steps, w.lane_tests)):
+        assert torch.equal(counts[k].reshape(-1), lane)
+
+
+def test_fused_kernel_needs_the_min_pyramid(cuda):
+    """A scene on the card without its min pyramid raises; it never runs
+    the old march."""
+    sc, cam = _fused_scene(65, cuda)
+    before = render_frame_fused.launches
+    with pytest.raises(ValueError, match="min pyramid"):
+        fused_planes(dataclasses.replace(sc, pyr_min_flat=None), cam,
+                     T.RenderConfig(width=32, height=16))
+    assert render_frame_fused.launches == before
 
 
 @pytest.mark.parametrize("n", [65, 128])
@@ -664,6 +712,7 @@ def test_fused_kernel_row_bands_equal_plain(cuda, n):
         torch.cuda.synchronize()
         _assert_fused_equal(got, fused_reference_planes(sc, cam, cfg, row0=16 * k,
                                                         full_height=64), True)
+        _assert_equals_witness(got, fused_witness_planes(sc, cam, cfg, 16 * k, 64))
         bands.append(got)
     for f in range(5):
         assert torch.equal(torch.cat([b[f] for b in bands]), whole[f])
