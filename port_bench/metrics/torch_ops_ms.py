@@ -1,0 +1,13 @@
+"""Device ms per traced frame of every device op that is not one of the
+port's kernels: torch's sorts, gathers, scatters, elementwise maths,
+copies and memsets."""
+
+from port_bench.trace import PORT_KERNELS
+
+
+def read(ctx):
+    t = ctx.trace
+    if not t:
+        return None
+    s = t.op_seconds(lambda name: not name.startswith(PORT_KERNELS))
+    return s / t.frames * 1e3 if s else None
