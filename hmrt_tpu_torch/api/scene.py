@@ -16,6 +16,7 @@ from hmrt_tpu_torch.core.pyramid import (build_min_pyramid_flat, build_pyramid_f
                                          corner_records, next_pow2, num_levels)
 from hmrt_tpu_torch.device import resolve
 from hmrt_tpu_torch.types import Camera, Light, Scene
+from hmrt_tpu_torch.utils.profiling import span
 
 
 def corner_grads(heights: torch.Tensor):
@@ -73,7 +74,9 @@ def make_scene(heights, albedo=None, light: Light | None = None,
     height grid.
 
     `albedo` is an optional (N, N, 3) float [0,1] texture, stored planar
-    (3, N*N)."""
+    (3, N*N). Spans "hmrt.scene", and inside it "hmrt.scene.pyramids" (max
+    and min pyramids, corner records) and "hmrt.scene.records" (gradients,
+    shade and albedo records)."""
     h = np.asarray(heights, np.float32)
     if h.ndim != 2 or h.shape[0] != h.shape[1]:
         raise ValueError(f"heights must be square (N, N), got {h.shape}")
@@ -82,15 +85,20 @@ def make_scene(heights, albedo=None, light: Light | None = None,
         raise ValueError("heightmap must be at least 2x2")
     device = resolve(device)
     m = next_pow2(n - 1)
-    ht = torch.from_numpy(np.ascontiguousarray(h)).to(device)
-    gx, gy = corner_grads(ht)
-    alb = None if albedo is None else _planar_albedo(albedo, n, device)
-    shade_rec, albedo_rec = shade_records(gx, gy, alb)
-    return Scene(heights=ht, pyr_flat=build_pyramid_flat(ht),
-                 pyr_min_flat=build_min_pyramid_flat(ht), corners=corner_records(ht, m),
-                 albedo=alb, light=light if light is not None else Light.create(device=device),
-                 gx=gx, gy=gy, shade_rec=shade_rec, albedo_rec=albedo_rec, n=n, m=m,
-                 levels=num_levels(m))
+    with span("hmrt.scene"):
+        ht = torch.from_numpy(np.ascontiguousarray(h)).to(device)
+        with span("hmrt.scene.pyramids"):
+            pyr_flat, pyr_min_flat = build_pyramid_flat(ht), build_min_pyramid_flat(ht)
+            corners = corner_records(ht, m)
+        with span("hmrt.scene.records"):
+            gx, gy = corner_grads(ht)
+            alb = None if albedo is None else _planar_albedo(albedo, n, device)
+            shade_rec, albedo_rec = shade_records(gx, gy, alb)
+        return Scene(heights=ht, pyr_flat=pyr_flat, pyr_min_flat=pyr_min_flat,
+                     corners=corners, albedo=alb,
+                     light=light if light is not None else Light.create(device=device),
+                     gx=gx, gy=gy, shade_rec=shade_rec, albedo_rec=albedo_rec, n=n, m=m,
+                     levels=num_levels(m))
 
 
 def _tensor(a, device):

@@ -26,6 +26,12 @@ march of the compact path (`march_shadows`: the kernel on the card, its
 plain version on the CPU); (3) one global shading pass with the
 expressions of `core/renderer.py::shade_hits`, the albedo sampled from the
 caller's full array.
+
+Stage spans (utils/profiling.py, while the port's tracing is armed):
+"hmrt.tiled.cut" (the tiles, their boxes, order and cull probes),
+"hmrt.tiled.build" (a tile's load and sub-scene build), "hmrt.tiled.render"
+(a tile's render and composite) and "hmrt.tiled.shadow" (a tile's shadow
+march, with its build inside).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from hmrt_tpu_torch.core.renderer import render_frame
 from hmrt_tpu_torch.device import resolve
 from hmrt_tpu_torch.shading import shade as sh
 from hmrt_tpu_torch.types import Camera, Frame, Light
+from hmrt_tpu_torch.utils.profiling import span
 
 
 class TileSceneCache:
@@ -223,11 +230,13 @@ def render_frame_tiled(source, camera: Camera, config: RenderConfig, *,
     sky_col = torch.clamp(torch.stack(sh.sky_color(dirs[..., 2], lgt.sky_top,
                                                    lgt.sky_horizon), dim=-1), 0.0, 1.0)
 
-    origins = list(_tile_origins(side, tile))
-    if cull:
-        ordered = _front_to_back(origins, _tile_boxes(origins, fetch, t_cells), camera.eye)
-    else:
-        ordered = [(og, None) for og in origins]
+    with span("hmrt.tiled.cut"):
+        origins = list(_tile_origins(side, tile))
+        if cull:
+            ordered = _front_to_back(origins, _tile_boxes(origins, fetch, t_cells),
+                                     camera.eye)
+        else:
+            ordered = [(og, None) for og in origins]
     dflat = dirs.reshape(-1, 3)
 
     best_t = torch.full((H, W), torch.inf, dtype=torch.float32, device=device)
@@ -238,29 +247,32 @@ def render_frame_tiled(source, camera: Camera, config: RenderConfig, *,
 
     for (y0, x0), box in ordered:
         if box is not None:
-            tmin, ib = _ray_box_tmin(eye_v[0], eye_v[1], eye_v[2],
-                                     dflat[:, 0], dflat[:, 1], dflat[:, 2], box)
-            if not bool(torch.any(ib & (tmin < best_t.reshape(-1)))):
-                continue
+            with span("hmrt.tiled.cut"):
+                tmin, ib = _ray_box_tmin(eye_v[0], eye_v[1], eye_v[2],
+                                         dflat[:, 0], dflat[:, 1], dflat[:, 2], box)
+                if not bool(torch.any(ib & (tmin < best_t.reshape(-1)))):
+                    continue
         rendered += 1
 
         def build_full(y0=y0, x0=x0):
             heights, alb = load_tile(y0, x0, albedo is not None)
             return make_scene(heights, albedo=alb, light=light, device=device)
 
-        scene = cache.get((y0, x0, "full"), build_full)
-        # the camera in tile-local coordinates (the margin moves the tile's
-        # origin by one more sample): an exact shift by integers
-        off = torch.tensor([x0 - 1, y0 - 1, 0.0], dtype=torch.float32, device=device)
-        cam_local = Camera(eye=camera.eye - off, target=camera.target - off,
-                           up=camera.up, fov_y=camera.fov_y)
-        fr = render_frame(scene, cam_local, sub_cfg)
-        t = torch.where(fr.hit, fr.depth, torch.inf)
-        closer = t < best_t
-        best_color = torch.where(closer[..., None], fr.color, best_color)
-        best_normal = torch.where(closer[..., None], fr.normal, best_normal)
-        best_t = torch.minimum(best_t, t)
-        any_hit = any_hit | fr.hit
+        with span("hmrt.tiled.build"):
+            scene = cache.get((y0, x0, "full"), build_full)
+        with span("hmrt.tiled.render"):
+            # the camera in tile-local coordinates (the margin moves the
+            # tile's origin by one more sample): an exact shift by integers
+            off = torch.tensor([x0 - 1, y0 - 1, 0.0], dtype=torch.float32, device=device)
+            cam_local = Camera(eye=camera.eye - off, target=camera.target - off,
+                               up=camera.up, fov_y=camera.fov_y)
+            fr = render_frame(scene, cam_local, sub_cfg)
+            t = torch.where(fr.hit, fr.depth, torch.inf)
+            closer = t < best_t
+            best_color = torch.where(closer[..., None], fr.color, best_color)
+            best_normal = torch.where(closer[..., None], fr.normal, best_normal)
+            best_t = torch.minimum(best_t, t)
+            any_hit = any_hit | fr.hit
         del scene  # the cache, if any, holds the working set
 
     if _stats is not None:
@@ -317,29 +329,32 @@ def _shade_shadowed(camera, config, lgt, albedo, load_tile, origins, boxes, side
     occ = torch.zeros(P, dtype=torch.bool, device=device)
     marched = 0
     for (y0, x0), box in zip(origins, boxes):
-        live = hit & ~occ
-        if not bool(torch.any(live)):
-            break
-        if box is not None:
-            _, ib = _ray_box_tmin(sx, sy, sz, *sun, box)
-            if not bool(torch.any(live & ib)):
-                continue
-        marched += 1
-        # a cached "full" scene of the primary pass serves the shadow march;
-        # otherwise build (and cache) one without the albedo
-        sub = cache.peek((y0, x0, "full"))
-        if sub is None:
-            def build_shadow(y0=y0, x0=x0):
-                return make_scene(load_tile(y0, x0, False)[0], light=lgt, device=device)
+        with span("hmrt.tiled.shadow"):
+            live = hit & ~occ
+            if not bool(torch.any(live)):
+                break
+            if box is not None:
+                _, ib = _ray_box_tmin(sx, sy, sz, *sun, box)
+                if not bool(torch.any(live & ib)):
+                    continue
+            marched += 1
+            # a cached "full" scene of the primary pass serves the shadow
+            # march; otherwise build (and cache) one without the albedo
+            sub = cache.peek((y0, x0, "full"))
+            if sub is None:
+                def build_shadow(y0=y0, x0=x0):
+                    return make_scene(load_tile(y0, x0, False)[0], light=lgt, device=device)
 
-            sub = cache.get((y0, x0, "shadow"), build_shadow)
-        srays = (torch.where(live, sx - (x0 - 1), -1e6), torch.where(live, sy - (y0 - 1), -1e6),
-                 sz.contiguous(), *sun)
-        sstate = init_state(srays, live, sub.pyr_flat[-1], n=sub.n, m=sub.m,
-                            levels=sub.levels, clip=clip)
-        shit = march_shadows(srays, sstate, sub, cell_intersect=config.cell_intersect, clip=clip)
-        occ = occ | (shit != 0)
-        del sub
+                with span("hmrt.tiled.build"):
+                    sub = cache.get((y0, x0, "shadow"), build_shadow)
+            srays = (torch.where(live, sx - (x0 - 1), -1e6),
+                     torch.where(live, sy - (y0 - 1), -1e6), sz.contiguous(), *sun)
+            sstate = init_state(srays, live, sub.pyr_flat[-1], n=sub.n, m=sub.m,
+                                levels=sub.levels, clip=clip)
+            shit = march_shadows(srays, sstate, sub, cell_intersect=config.cell_intersect,
+                                 clip=clip)
+            occ = occ | (shit != 0)
+            del sub
     if _stats is not None:
         _stats["shadow_tiles_marched"] = marched
 

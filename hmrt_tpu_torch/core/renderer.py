@@ -14,6 +14,7 @@ from hmrt_tpu_torch.config import RenderConfig
 from hmrt_tpu_torch.shading import shade as sh
 from hmrt_tpu_torch.traversal.march import march_dda, march_maxmip
 from hmrt_tpu_torch.types import Camera, Frame, Scene
+from hmrt_tpu_torch.utils.profiling import span
 
 SHADOW_EPS = 1e-2
 
@@ -50,15 +51,18 @@ def render_frame(scene: Scene, camera: Camera, config: RenderConfig):
     `choose_backend` picks for config.backend. Returns a Frame; on the
     fused path with config.debug_counters, (frame, counts) as
     `kernels/raycast.py::render_frame_fused` returns (the compact and
-    oracle paths ignore the flag, as the JAX package's do)."""
+    oracle paths ignore the flag, as the JAX package's do). The frame is
+    the span "hmrt.frame", with the path as its argument
+    (utils/profiling.py)."""
     path = choose_backend(scene.device.type, scene.m, config.backend)
-    if path == "compact":
-        from hmrt_tpu_torch.kernels.compact import render_frame_compact
-        return render_frame_compact(scene, camera, config)
-    if path == "fused":
-        from hmrt_tpu_torch.kernels.raycast import render_frame_fused
-        return render_frame_fused(scene, camera, config)
-    return render_frame_oracle(scene, camera, config)
+    with span("hmrt.frame", path):
+        if path == "compact":
+            from hmrt_tpu_torch.kernels.compact import render_frame_compact
+            return render_frame_compact(scene, camera, config)
+        if path == "fused":
+            from hmrt_tpu_torch.kernels.raycast import render_frame_fused
+            return render_frame_fused(scene, camera, config)
+        return render_frame_oracle(scene, camera, config)
 
 
 def _broadcast_eye(eye, p):

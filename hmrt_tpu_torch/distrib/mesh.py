@@ -20,6 +20,11 @@ is gathered through host copies; the renders stay on the card.
 `spawn` starts the ranks itself (torch.multiprocessing, a file store under
 `build/`), so nothing here needs `torchrun`; `make_mesh` also joins a
 group that `torchrun` or the caller set up.
+
+Stage spans (utils/profiling.py, while the port's tracing is armed):
+"hmrt.band" around a rank's band render (the path as its argument, the
+compact path's stage spans inside) and "hmrt.gather" around each
+`gather_rows`.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from hmrt_tpu_torch.core.pyramid import build_min_pyramid_flat
 from hmrt_tpu_torch.core.renderer import COMPACT_MIN_M, choose_backend, render_frame
 from hmrt_tpu_torch.device import resolve
 from hmrt_tpu_torch.types import Camera, Frame, Light, Scene
+from hmrt_tpu_torch.utils.profiling import span
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 #: how long a collective may wait for the other ranks before it fails
@@ -210,12 +216,13 @@ def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     uint8: not every backend gathers bool."""
     if x.dtype == torch.bool:
         return gather_rows(x.to(torch.uint8), mesh).bool()
-    src = x.contiguous()
-    if mesh.host_collectives:
-        src = src.cpu()
-    parts = [torch.empty_like(src) for _ in range(mesh.size)]
-    dist.all_gather(parts, src, group=mesh.group)
-    return torch.cat(parts).to(mesh.device)
+    with span("hmrt.gather"):
+        src = x.contiguous()
+        if mesh.host_collectives:
+            src = src.cpu()
+        parts = [torch.empty_like(src) for _ in range(mesh.size)]
+        dist.all_gather(parts, src, group=mesh.group)
+        return torch.cat(parts).to(mesh.device)
 
 
 def all_reduce_max(v: float, mesh: Mesh) -> float:
@@ -287,14 +294,16 @@ def render_band(scene: Scene, camera: Camera, config: RenderConfig, row0: int,
     """Rows [row0, row0 + config.height) of a full_height-row frame, by
     `band_path`: one rank's work under band sharding."""
     path = band_path(scene, config, use_kernels)
-    if path == "compact":
-        from hmrt_tpu_torch.kernels.compact import render_frame_compact
-        return render_frame_compact(scene, camera, config, row0=row0, full_height=full_height)
-    if path == "fused":
-        from hmrt_tpu_torch.kernels.raycast import render_frame_fused
-        return render_frame_fused(scene, camera, config, row0, full_height)
-    from hmrt_tpu_torch.core.renderer import render_frame_oracle
-    return render_frame_oracle(scene, camera, config, row0, full_height)
+    with span("hmrt.band", path):
+        if path == "compact":
+            from hmrt_tpu_torch.kernels.compact import render_frame_compact
+            return render_frame_compact(scene, camera, config, row0=row0,
+                                        full_height=full_height)
+        if path == "fused":
+            from hmrt_tpu_torch.kernels.raycast import render_frame_fused
+            return render_frame_fused(scene, camera, config, row0, full_height)
+        from hmrt_tpu_torch.core.renderer import render_frame_oracle
+        return render_frame_oracle(scene, camera, config, row0, full_height)
 
 
 def _check_placement(scene: Scene, camera: Camera, mesh: Mesh):

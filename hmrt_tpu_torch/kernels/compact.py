@@ -31,6 +31,14 @@ more than L0_TAIL_AUTO_THRESH of the survivors are already at level 0,
 decided on the device (a flag the kernel reads), with no host wait. `relax=k` runs the
 relaxed stride tail there instead: not exact (a feature narrower than k
 cells along a ray can be tunnelled; no false hits), opt-in.
+
+Stage spans (utils/profiling.py, while the port's tracing is armed):
+"hmrt.raygen" (the primary rays and their start state), "hmrt.primary"
+(the primary march), in each march "hmrt.march.pass0", "hmrt.march.round"
+and "hmrt.march.tail" around each kernel launch, "hmrt.sort" around a
+sorted round's key, argsort and gathers and "hmrt.unsort" around the
+scatter back, "hmrt.shade" (shade data, colour maths) and inside it
+"hmrt.shadow" (the shadow rays and their march).
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from hmrt_tpu_torch.shading import shade as sh
 from hmrt_tpu_torch.traversal.intersect import BIG_T
 from hmrt_tpu_torch.traversal.march import entry_cell, ray_box_range
 from hmrt_tpu_torch.types import Camera, Frame, Scene
+from hmrt_tpu_torch.utils.profiling import span
 
 BIG_KEY = 2 ** 30   # sort key of a dead lane: after every live column
 
@@ -167,41 +176,45 @@ def march_rounds(rays, state, scene: Scene, *, cell_intersect: str, clip,
     kw = dict(n=scene.n, m=scene.m, levels=scene.levels,
               cell_intersect=cell_intersect, clip=clip)
 
-    def run(rays, state, res, budget, tail=False):
-        cnt = None
-        if counts is not None:
-            cnt = torch.empty((2, p), dtype=torch.int32, device=rays[0].device)
-            counts.append(cnt)
-        return march_pass(rays, state, res, scene.pyr_flat, scene.heights, scene.corners,
-                          budget=budget, counts=cnt, l0_only=tail,
-                          relax=0 if tail is False else relax,
-                          pyr_min=scene.pyr_min_flat, **kw)
+    def run(name, rays, state, res, budget, tail=False):
+        with span(name):
+            cnt = None
+            if counts is not None:
+                cnt = torch.empty((2, p), dtype=torch.int32, device=rays[0].device)
+                counts.append(cnt)
+            return march_pass(rays, state, res, scene.pyr_flat, scene.heights,
+                              scene.corners, budget=budget, counts=cnt, l0_only=tail,
+                              relax=0 if tail is False else relax,
+                              pyr_min=scene.pyr_min_flat, **kw)
 
     if not skip_pass0 and first_budget > 0:
-        state, res = run(rays, state, res, first_budget)
+        state, res = run("hmrt.march.pass0", rays, state, res, first_budget)
     m5 = max(scene.m // 32, 1)
     perm_tot = None
     for r in range(rounds):
-        tail = False
-        if r == rounds - 1 and l0_tail:
-            # force level 0 before the sort, so the sort key is the tail's column
-            forced = force_level0(rays, state)
-            if l0_tail == "auto":
-                tail = l0_tail_flag(state)
-                forced = tuple(torch.where(tail, f, s) for f, s in zip(forced, state))
-            else:
-                tail = True
-            state = forced
-        perm = torch.argsort(column_key(state, m5))
-        rays = tuple(x.index_select(0, perm) if i in moving else x
-                     for i, x in enumerate(rays))
-        state = tuple(x.index_select(0, perm) for x in state)
-        res = tuple(x.index_select(0, perm) for x in res)
-        perm_tot = perm if perm_tot is None else perm_tot.index_select(0, perm)
-        state, res = run(rays, state, res,
-                         UNBUDGETED if r == rounds - 1 else round_budget, tail)
+        last = r == rounds - 1
+        with span("hmrt.sort"):
+            tail = False
+            if last and l0_tail:
+                # force level 0 before the sort, so the sort key is the tail's column
+                forced = force_level0(rays, state)
+                if l0_tail == "auto":
+                    tail = l0_tail_flag(state)
+                    forced = tuple(torch.where(tail, f, s) for f, s in zip(forced, state))
+                else:
+                    tail = True
+                state = forced
+            perm = torch.argsort(column_key(state, m5))
+            rays = tuple(x.index_select(0, perm) if i in moving else x
+                         for i, x in enumerate(rays))
+            state = tuple(x.index_select(0, perm) for x in state)
+            res = tuple(x.index_select(0, perm) for x in res)
+            perm_tot = perm if perm_tot is None else perm_tot.index_select(0, perm)
+        state, res = run("hmrt.march.tail" if last and l0_tail else "hmrt.march.round",
+                         rays, state, res, UNBUDGETED if last else round_budget, tail)
     # back to launch order: lane k of the sorted planes is launch lane perm_tot[k]
-    return tuple(torch.empty_like(x).index_copy_(0, perm_tot, x) for x in res)
+    with span("hmrt.unsort"):
+        return tuple(torch.empty_like(x).index_copy_(0, perm_tot, x) for x in res)
 
 
 def march_shadows(srays, sstate, scene: Scene, *, cell_intersect: str, clip,
@@ -277,9 +290,10 @@ def shade_frame(scene: Scene, config: RenderConfig, rays, hit_i, t_hit, hx, hy, 
     diff = sh.lambert(nx, ny, nz, lx, ly, lz)
 
     if config.shadows:
-        srays, sstate = shadow_start(points, (nx, ny, nz), hit, hx, hy, scene,
-                                     config.clip_box)
-        occ = shadow_hits(srays, sstate) != 0
+        with span("hmrt.shadow"):
+            srays, sstate = shadow_start(points, (nx, ny, nz), hit, hx, hy, scene,
+                                         config.clip_box)
+            occ = shadow_hits(srays, sstate) != 0
         diff = torch.where(occ, 0.0, diff)
 
     sr, sg, sb = light.sun_color[0], light.sun_color[1], light.sun_color[2]
@@ -346,17 +360,20 @@ def render_frame_compact(scene: Scene, camera: Camera, config: RenderConfig, *,
     if row0 is not None and not 0 <= row0 <= (full_height or config.height) - config.height:
         raise ValueError(f"row band [{row0}, {row0 + config.height}) outside a "
                          f"{full_height or config.height}-row screen")
-    rays = primary_rays(camera, config, row0, full_height)
+    with span("hmrt.raygen"):
+        rays = primary_rays(camera, config, row0, full_height)
+        state0 = init_state(rays, None, scene.pyr_flat[-1], n=scene.n, m=scene.m,
+                            levels=scene.levels, clip=config.clip_box)
     sched = dict(cell_intersect=config.cell_intersect, clip=config.clip_box,
                  first_budget=first_budget, round_budget=round_budget, l0_tail=l0_tail,
                  relax=relax)
-
-    state0 = init_state(rays, None, scene.pyr_flat[-1], n=scene.n, m=scene.m,
-                        levels=scene.levels, clip=config.clip_box)
     counts = counts if counts is not None else {"primary": None, "shadow": None}
-    hit_i, t_hit, hx, hy = march_rounds(rays, state0, scene, rounds=rounds, moving=(3, 4, 5),
-                                        counts=counts["primary"], **sched)
-    return to_frame(config, *shade_frame(
-        scene, config, rays, hit_i, t_hit, hx, hy, shade=shade_pass,
-        shadow_hits=lambda srays, sstate: march_shadows(
-            srays, sstate, scene, rounds=rounds, counts=counts["shadow"], **sched)))
+    with span("hmrt.primary"):
+        hit_i, t_hit, hx, hy = march_rounds(rays, state0, scene, rounds=rounds,
+                                            moving=(3, 4, 5), counts=counts["primary"],
+                                            **sched)
+    with span("hmrt.shade"):
+        return to_frame(config, *shade_frame(
+            scene, config, rays, hit_i, t_hit, hx, hy, shade=shade_pass,
+            shadow_hits=lambda srays, sstate: march_shadows(
+                srays, sstate, scene, rounds=rounds, counts=counts["shadow"], **sched)))

@@ -42,7 +42,8 @@ only where a few rays walk long level-0 chains above the terrain,
 march_pass.cu). Both give the same hits; a ray that ends as a miss ends in
 another state, after other counts, so the plain version takes the group
 too. `march_pass.mode_launches` counts, on the card, which march each
-launch ran.
+launch ran, and while the port's tracing is armed (utils/profiling.py)
+the live lanes each launch was handed, with the spans that launched it.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ from hmrt_tpu_torch.traversal.march import (WorkCounter, below_margins, fused_st
                                             l0_min_step, l0_min_step_relaxed, maxmip_step,
                                             ray_box_range, ray_inverses, record_corners,
                                             relaxed_planes, run_masked)
+from hmrt_tpu_torch.utils import profiling
 
 UNBUDGETED = 1 << 22
 #: the kernel's mode argument: the max-mip march, the exact level-0 tail,
@@ -86,15 +88,29 @@ def check_tail(l0_only, relax: int, budget: int, group="auto") -> None:
                          "level-0 tail (l0_only, relax 0)")
 
 
+#: the span of the live-lane count, which no stage is charged with
+COUNT_SPAN = "hmrt.count"
+
+
 class LaunchTally:
     """Launches of the march kernel by the march each one ran (TALLY_KEYS),
     counted on the card by the kernel itself: an "auto" tail whose flag
     was false ran "maxmip", and an exact level-0 tail ran "l0" (one lane a
     ray) or "l0_g32" (32 lanes a ray, when the caller asked for it).
-    `read()` waits for the card."""
+    `read()` waits for the card.
+
+    While the port's tracing is armed, each pass also counts the lanes it
+    is handed alive on the planes' device (`count_live`: one reduction of
+    the alive plane, in the span COUNT_SPAN, before the launch; unarmed,
+    nothing), recorded with the lanes launched and the spans open at the
+    launch. `read_live()` reads them all at once, after the frames.
+    (Counting in the kernel, at claim time, cost the max-mip and relaxed
+    instances 2 to 3 registers, PERF.md, so the kernel is left as it
+    was.)"""
 
     def __init__(self):
         self._slots = {}  # device -> int32 (len(TALLY_KEYS),)
+        self._records = []  # (spans, live count on the device, lanes) a launch
 
     def slots(self, dev) -> torch.Tensor:
         """The device's tally, made at its first launch."""
@@ -102,9 +118,37 @@ class LaunchTally:
             self._slots[dev] = torch.zeros(len(TALLY_KEYS), dtype=torch.int32, device=dev)
         return self._slots[dev]
 
+    def count_live(self, alive: torch.Tensor) -> None:
+        """While tracing is armed, count the live lanes of the `alive`
+        plane a pass is handed, on its device, recorded with the lanes and
+        the spans open now; unarmed, nothing. The port's alive planes hold
+        0 or 1 (`init_state` makes them from a bool, and a pass writes 0 or
+        keeps its input), so their sum is the count of `alive != 0`, in one
+        launch where `count_nonzero` takes three: under the profiler the
+        count's own time is kept small beside the frame's."""
+        if not profiling.armed() or not alive.numel():
+            return
+        spans = profiling.open_spans()
+        with profiling.span(COUNT_SPAN):
+            live = alive.sum(dtype=torch.int32)
+        self._records.append((spans, live, alive.numel()))
+
+    def read_live(self) -> list:
+        """Each recorded launch since the last read, in launch order, as
+        (spans, live lanes, lanes launched); forgets them. One wait for
+        each device, whatever the number of launches."""
+        recs, self._records = self._records, []
+        live = {}
+        for dev in {r[1].device for r in recs}:
+            ks = [k for k, r in enumerate(recs) if r[1].device == dev]
+            live.update(zip(ks, torch.stack([recs[k][1] for k in ks]).tolist()))
+        return [(spans, live[k], lanes) for k, (spans, _, lanes) in enumerate(recs)]
+
     def reset(self) -> None:
+        """Zero the launch counts and forget the live-lane records."""
         for t in self._slots.values():
             t.zero_()
+        self._records = []
 
     def read(self) -> dict:
         counts = dict.fromkeys(TALLY_KEYS, 0)
@@ -264,7 +308,8 @@ def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: i
     `pyr_min`: the
     scene's min pyramid (`Scene.pyr_min_flat`), which the kernel's level-0
     tails, exact and relaxed, read: a pass that may run a tail on the card
-    raises without it."""
+    raises without it. While the port's tracing is armed, the pass's live
+    lanes go to `march_pass.mode_launches` (LaunchTally.count_live)."""
     check_tail(l0_only, relax, budget, group)
     p = rays[0].shape[0]
     flag = l0_only if isinstance(l0_only, torch.Tensor) else None
@@ -277,6 +322,7 @@ def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: i
         check_min_pyramid(pyr_min, m)
     if counts is not None:
         check_counts(counts, (2, p), dev)
+    march_pass.mode_launches.count_live(state[0])
     if dev.type == "cpu":
         work = None if counts is None else WorkCounter(pyr_flat.shape[0], n, dev, lanes=p)
         out = march_pass_reference(rays, state, results, pyr_flat, heights,

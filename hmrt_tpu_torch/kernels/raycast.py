@@ -37,6 +37,7 @@ from hmrt_tpu_torch.kernels.shade_pass import shade_pass_reference
 from hmrt_tpu_torch.traversal.intersect import INTERSECTOR_IDS
 from hmrt_tpu_torch.traversal.march import WorkCounter
 from hmrt_tpu_torch.types import Camera, Frame, Scene, recip_f32, sqrt_f32, tan_half
+from hmrt_tpu_torch.utils.profiling import span
 
 # params vector layout (f32[32]), as hmrt_tpu/kernels/raycast.py
 _P_EYE = 0        # 0-2
@@ -227,43 +228,46 @@ def _shaped(planes, config: RenderConfig, cells: bool):
 def _launch(scene: Scene, camera: Camera, config: RenderConfig, row0, full_height, cells,
             counts, pyr_min):
     """One launch of the kernel on a CUDA scene; `pyr_min` None: the
-    witness march."""
+    witness march. Spans "hmrt.fused.params" (the checks and
+    `make_params`) and "hmrt.fused.kernel" (the outputs and the launch)."""
     H, W = config.height, config.width
     fh = full_height or H
     dev = scene.device
     aux = config.aux_buffers
     if dev.type != "cuda":
         raise ValueError(f"render_frame_fused runs on cpu or cuda, not {dev}")
-    _check_inputs(scene, camera, config)
-    if row0 is not None and not 0 <= row0 <= fh - H:
-        raise ValueError(f"row band [{row0}, {row0 + H}) outside a {fh}-row screen")
-    params = make_params(scene, camera, config, row0, fh)
-    lib = _build.library()
-    color = torch.empty((H, W, 3), dtype=torch.float32, device=dev)
-    hit = torch.empty((H, W), dtype=torch.int32, device=dev)
-    depth = torch.empty((H, W), dtype=torch.float32, device=dev) if aux else None
-    normal = torch.empty((H, W, 3), dtype=torch.float32, device=dev) if aux else None
-    cell = torch.empty((H, W, 2), dtype=torch.int32, device=dev) if cells else None
-    albedo = scene.albedo if config.texture else None
-    lo, hi = (0.0, float(scene.n - 1)) if config.clip_box is None else config.clip_box
+    with span("hmrt.fused.params"):
+        _check_inputs(scene, camera, config)
+        if row0 is not None and not 0 <= row0 <= fh - H:
+            raise ValueError(f"row band [{row0}, {row0 + H}) outside a {fh}-row screen")
+        params = make_params(scene, camera, config, row0, fh)
+    with span("hmrt.fused.kernel"):
+        lib = _build.library()
+        color = torch.empty((H, W, 3), dtype=torch.float32, device=dev)
+        hit = torch.empty((H, W), dtype=torch.int32, device=dev)
+        depth = torch.empty((H, W), dtype=torch.float32, device=dev) if aux else None
+        normal = torch.empty((H, W, 3), dtype=torch.float32, device=dev) if aux else None
+        cell = torch.empty((H, W, 2), dtype=torch.int32, device=dev) if cells else None
+        albedo = scene.albedo if config.texture else None
+        lo, hi = (0.0, float(scene.n - 1)) if config.clip_box is None else config.clip_box
 
-    def ptr(x):
-        return None if x is None else x.data_ptr()
+        def ptr(x):
+            return None if x is None else x.data_ptr()
 
-    with torch.cuda.device(dev):
-        next_pixel = torch.zeros(1, dtype=torch.int32, device=dev)
-        err = lib.hmrt_render_tile(
-            params.data_ptr(), scene.pyr_flat.data_ptr(), scene.corners.data_ptr(),
-            ptr(pyr_min), scene.gx.data_ptr(), scene.gy.data_ptr(), ptr(albedo),
-            color.data_ptr(), hit.data_ptr(), ptr(depth), ptr(normal), ptr(cell), H, W, fh,
-            scene.n, scene.m, scene.levels, INTERSECTOR_IDS[config.cell_intersect],
-            int(config.shading == "phong"), int(config.shadows), int(config.fog),
-            config.ambient, config.specular, config.shininess, config.fog_density,
-            float(lo), float(hi), next_pixel.data_ptr(), ptr(counts),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "render_tile")
-    render_frame_fused.launches += 1
-    return color, depth, normal, hit != 0, cell
+        with torch.cuda.device(dev):
+            next_pixel = torch.zeros(1, dtype=torch.int32, device=dev)
+            err = lib.hmrt_render_tile(
+                params.data_ptr(), scene.pyr_flat.data_ptr(), scene.corners.data_ptr(),
+                ptr(pyr_min), scene.gx.data_ptr(), scene.gy.data_ptr(), ptr(albedo),
+                color.data_ptr(), hit.data_ptr(), ptr(depth), ptr(normal), ptr(cell), H, W,
+                fh, scene.n, scene.m, scene.levels, INTERSECTOR_IDS[config.cell_intersect],
+                int(config.shading == "phong"), int(config.shadows), int(config.fog),
+                config.ambient, config.specular, config.shininess, config.fog_density,
+                float(lo), float(hi), next_pixel.data_ptr(), ptr(counts),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "render_tile")
+        render_frame_fused.launches += 1
+        return color, depth, normal, hit != 0, cell
 
 
 def render_frame_fused(scene: Scene, camera: Camera, config: RenderConfig, row0=None,
