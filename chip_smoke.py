@@ -1447,22 +1447,24 @@ def hold_tail(label, tail, scene, plain, run_kw, card, old=None):
 
 
 def tail_launches(render, march_pass) -> list:
-    """The inputs of every exact level-0 tail launch of march_pass (l0_only
-    set, relax 0) in one call of render(): [(args, kwargs), ...] in launch
+    """The inputs of every exact level-0 tail launch of the compact path
+    (its `launch_pass`, with l0_only set, relax 0) in one eager call of
+    render(), each run by march_pass: [(args, kwargs), ...] in launch
     order."""
     import hmrt_tpu_torch.kernels.compact as compact
     seen = []
+    launch = compact.launch_pass
 
     def spy(*args, **kw):
         if kw.get("l0_only") is not False and not kw.get("relax"):
             seen.append((args, dict(kw)))
         return march_pass(*args, **kw)
 
-    compact.march_pass = spy
+    compact.launch_pass = spy
     try:
         render()
     finally:
-        compact.march_pass = march_pass
+        compact.launch_pass = launch
     return seen
 
 
@@ -1697,7 +1699,9 @@ def grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4
     def old_walk(launch, sc):  # a launch whose flag reads false runs no tail
         return live_plain(launch, sc, "old") if bool(launch[1]["l0_only"]) else None
 
-    launches3 = tail_launches(lambda: T.render_frame(scene, cam, cfg), march_pass)
+    # eager frames (render_frame may replay a graph, which runs no Python)
+    from hmrt_tpu_torch.kernels.compact import render_frame_compact
+    launches3 = tail_launches(lambda: render_frame_compact(scene, cam, cfg), march_pass)
     if len(launches3) != 2:
         raise AssertionError(f"B3's frame made {len(launches3)} tail launches, not 2")
     primary3, shadow3 = launches3
@@ -1710,7 +1714,7 @@ def grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4
             "B3 shadow, tail forced": hold_launch("B3 shadow tail launch, tail forced",
                                                   forced3, plains(forced3, scene), card,
                                                   old=old_walk(forced3, scene))}
-    launches4 = tail_launches(lambda: T.render_frame(scene4, cam40, cfg4), march_pass)
+    launches4 = tail_launches(lambda: render_frame_compact(scene4, cam40, cfg4), march_pass)
     if len(launches4) != 1:
         raise AssertionError(f"B4's frame made {len(launches4)} tail launches, not 1")
     plain4 = plains(launches4[0], scene4)
@@ -1869,24 +1873,25 @@ def margin_holds(run_path, card, dev, scene, cam, terr3, scene4, cams4, terr4, c
                         got=tuple(x.index_select(0, live) for x in out[1])))
             return out
 
-        compact.march_pass = spy
+        launch, compact.launch_pass = compact.launch_pass, spy
         try:
             run_path(f"margin hold: {label}", render, ("march_pass",), ("render_tile",))
         finally:
-            compact.march_pass = march_pass
+            compact.launch_pass = launch
 
     t0 = time.perf_counter()
     b2 = BENCH_CONFIGS["B2"]
     scene2, cam2, _ = bench_scene(b2, device=dev)
-    capture("B2", lambda: T.render_frame(scene2, cam2, b2.render))
+    # eager frames: a frame replayed from its graph runs no Python, so no spy
+    capture("B2", lambda: compact.render_frame_compact(scene2, cam2, b2.render))
     b5 = BENCH_CONFIGS["B5"].render
     band = dataclasses.replace(b5, height=b5.height // 8)
     for r in range(3, 8):
         capture(f"B5 band {r}", lambda r=r: compact.render_frame_compact(
             scene, cam, band, row0=r * band.height, full_height=b5.height))
     for i in range(1, cams4.eye.shape[0]):
-        capture(f"B4 orbit frame {i}", lambda i=i: T.render_frame(scene4, frame_camera(cams4, i),
-                                                                  cfg4))
+        capture(f"B4 orbit frame {i}", lambda i=i: compact.render_frame_compact(
+            scene4, frame_camera(cams4, i), cfg4))
     untextured4 = dataclasses.replace(cfg4, texture=False)  # the marches do not read it
     capture("B4 tiled", lambda: T.render_frame_tiled(terr4, frame_camera(cams4, 0), untextured4,
                                                      tile=TILE, cull=False))

@@ -31,7 +31,7 @@ from hmrt_tpu_torch.device import resolve
 from hmrt_tpu_torch.distrib import mesh as dm
 from hmrt_tpu_torch.core.renderer import choose_backend
 from hmrt_tpu_torch.distrib.bench import time_animation_sharded, time_flythrough_frames
-from hmrt_tpu_torch.kernels.compact import render_frame_compact
+from hmrt_tpu_torch.kernels.compact import GRAPH_STEPS, frame_graphs, render_frame_compact
 from hmrt_tpu_torch.types import Camera
 
 #: the keys of every row the JAX runner writes on one device
@@ -147,6 +147,7 @@ def run_bench(name: str, frames: int | None = None, scale: float = 1.0,
         if l0_tail == "auto":
             return None
         return lambda i: render_frame_compact(scene, frame_camera(cams, i), cf, l0_tail=l0_tail)
+    graphs0 = frame_graphs.read()
     if frame_sharded:
         stats = time_flythrough_frames(scene, cams, render, n_frames, mesh, reps=reps,
                                        hit_frac=hit_frac)
@@ -176,6 +177,9 @@ def run_bench(name: str, frames: int | None = None, scale: float = 1.0,
         row["hit_frac"] = round(hit_frac, 4)
     if compact:
         row["l0_tail"] = l0_tail
+        # the timed frames through render_frame by how they ran (FrameGraphs)
+        graphs = frame_graphs.read()
+        row["frame_graph"] = {k: graphs[k] - graphs0[k] for k in GRAPH_STEPS}
     if cfg.sharded and chips == 1:
         row["note"] = ("UNSHARDED FALLBACK: config is multi-chip but only one "
                        "device is attached; number below is single-chip")

@@ -4,8 +4,9 @@ Counterpart of `hmrt_tpu/bench/timing.py`, with its metric row (ms/frame,
 fps, Mrays/s; BASELINE.json:2). A host loop calls the frame body once per
 frame of the batched camera, as a viewer would; the time of a rep runs from
 a CUDA event recorded before the loop to one recorded after it, so it
-includes the host work between launches (for example the level check of
-`march_pass`, which waits on the device once per launch). One warm loop
+includes the host work between launches (the Python dispatch of an eager
+frame; a compact frame replayed from its CUDA graph is one launch,
+kernels/compact.py::FrameGraphs). One warm loop
 runs first: it builds the kernels and settles the allocator.
 
 On a mesh of ranks (distrib/bench.py) every rep starts after a barrier,

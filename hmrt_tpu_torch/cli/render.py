@@ -156,6 +156,7 @@ def main(argv=None):
 
     import hmrt_tpu_torch as T
     from hmrt_tpu_torch.device import resolve
+    from hmrt_tpu_torch.kernels.compact import frame_graphs
 
     device = resolve("cpu" if args.cpu else None)
     if args.tile and args.sharded:
@@ -181,6 +182,7 @@ def main(argv=None):
     if args.flythrough:
         from hmrt_tpu_torch.api.flythrough import frame_camera
         cams = T.orbit_flythrough(n, zmax, args.flythrough, device=device)
+        graphs0 = frame_graphs.read()  # how the frames ran (kernels/compact.py::FrameGraphs)
         t0 = time.time()
         if args.tile:
             # out-of-core animation: the tile-scene cache keeps the working
@@ -198,8 +200,11 @@ def main(argv=None):
         dt = time.time() - t0
         out = _flythrough_path(args)
         np.save(out, stack)
+        graphs = frame_graphs.read()
+        graphs = {k: graphs[k] - graphs0[k] for k in graphs}
         print(f"wrote {len(stack)} frames to {out} "
-              f"({dt / args.flythrough * 1e3:.1f} ms/frame incl. host loop)")
+              f"({dt / args.flythrough * 1e3:.1f} ms/frame incl. host loop"
+              + (f"; compact frames {graphs}" if any(graphs.values()) else "") + ")")
         return 0
 
     t0 = time.time()

@@ -53,12 +53,14 @@ def render_frame(scene: Scene, camera: Camera, config: RenderConfig):
     `kernels/raycast.py::render_frame_fused` returns (the compact and
     oracle paths ignore the flag, as the JAX package's do). The frame is
     the span "hmrt.frame", with the path as its argument
-    (utils/profiling.py)."""
+    (utils/profiling.py). On a CUDA scene the compact path replays the
+    frame from a CUDA graph once the frame before had the same scene,
+    config and camera shapes (kernels/compact.py::FrameGraphs)."""
     path = choose_backend(scene.device.type, scene.m, config.backend)
     with span("hmrt.frame", path):
         if path == "compact":
-            from hmrt_tpu_torch.kernels.compact import render_frame_compact
-            return render_frame_compact(scene, camera, config)
+            from hmrt_tpu_torch.kernels.compact import frame_graphs
+            return frame_graphs.render(scene, camera, config)
         if path == "fused":
             from hmrt_tpu_torch.kernels.raycast import render_frame_fused
             return render_frame_fused(scene, camera, config)

@@ -39,21 +39,32 @@ and "hmrt.march.tail" around each kernel launch, "hmrt.sort" around a
 sorted round's key, argsort and gathers and "hmrt.unsort" around the
 scatter back, "hmrt.shade" (shade data, colour maths) and inside it
 "hmrt.shadow" (the shadow rays and their march).
+
+Frame graphs: a compact frame holds no host wait and no host decision
+(every pass runs over the same P lanes, the "auto" tail is a device flag),
+so `render_frame` (core/renderer.py) renders it through `frame_graphs`:
+the second frame in a row of one scene, config and camera shape captures
+`render_frame_compact` as one CUDA graph, and the frames after it replay
+that graph (`FrameGraphs`).
 """
 
 from __future__ import annotations
+
+import dataclasses
+import threading
+import weakref
 
 import torch
 
 from hmrt_tpu_torch.config import RenderConfig
 from hmrt_tpu_torch.core.renderer import SHADOW_EPS
-from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass
+from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, launch_pass, march_pass
 from hmrt_tpu_torch.kernels.shade_pass import shade_pass
 from hmrt_tpu_torch.shading import shade as sh
 from hmrt_tpu_torch.traversal.intersect import BIG_T
 from hmrt_tpu_torch.traversal.march import entry_cell, ray_box_range
 from hmrt_tpu_torch.types import Camera, Frame, Scene
-from hmrt_tpu_torch.utils.profiling import span
+from hmrt_tpu_torch.utils.profiling import armed, span
 
 BIG_KEY = 2 ** 30   # sort key of a dead lane: after every live column
 
@@ -169,7 +180,9 @@ def march_rounds(rays, state, scene: Scene, *, cell_intersect: str, clip,
     the others are one value broadcast. Returns the result planes (hit,
     t_hit, hx, hy) in launch order. `counts`, a list, takes each pass's
     (2, P) per-ray steps and cell tests, in that pass's lane order
-    (march_pass's counting instance)."""
+    (march_pass's counting instance). Each pass launches through
+    `launch_pass`, without `march_pass`'s checks: every plane it is handed
+    is made here, from the scene (march_pass.py)."""
     check_l0_tail(l0_tail, relax)
     p = rays[0].shape[0]
     res = empty_results(p, rays[0].device)
@@ -182,10 +195,10 @@ def march_rounds(rays, state, scene: Scene, *, cell_intersect: str, clip,
             if counts is not None:
                 cnt = torch.empty((2, p), dtype=torch.int32, device=rays[0].device)
                 counts.append(cnt)
-            return march_pass(rays, state, res, scene.pyr_flat, scene.heights,
-                              scene.corners, budget=budget, counts=cnt, l0_only=tail,
-                              relax=0 if tail is False else relax,
-                              pyr_min=scene.pyr_min_flat, **kw)
+            return launch_pass(rays, state, res, scene.pyr_flat, scene.heights,
+                               scene.corners, budget=budget, counts=cnt, l0_only=tail,
+                               relax=0 if tail is False else relax,
+                               pyr_min=scene.pyr_min_flat, **kw)
 
     if not skip_pass0 and first_budget > 0:
         state, res = run("hmrt.march.pass0", rays, state, res, first_budget)
@@ -377,3 +390,134 @@ def render_frame_compact(scene: Scene, camera: Camera, config: RenderConfig, *,
             scene, config, rays, hit_i, t_hit, hx, hy, shade=shade_pass,
             shadow_hits=lambda srays, sstate: march_shadows(
                 srays, sstate, scene, rounds=rounds, counts=counts["shadow"], **sched)))
+
+
+#: what a compact frame through `render_frame` did (FrameGraphs' tally)
+GRAPH_STEPS = ("eager", "captured", "replayed")
+
+
+def graph_step(last_key, key, captured: bool) -> str:
+    """The key rule of `FrameGraphs`, one of GRAPH_STEPS: what a frame of
+    `key` does after a frame of `last_key`, where `captured` says whether
+    a graph of last_key is held. A key of None (a frame no graph may take)
+    and a key other than the last run eagerly; the second frame of a key
+    in a row captures the graph, and the frames after it replay it."""
+    if key is None or key != last_key:
+        return "eager"
+    return "replayed" if captured else "captured"
+
+
+@dataclasses.dataclass
+class _Slot:
+    """One device's last key and, once captured, its graph: the static
+    camera it reads, the frame it writes and the launches it holds."""
+    key: tuple
+    scene: weakref.ref
+    graph: torch.cuda.CUDAGraph | None = None
+    held: Scene | None = None          # the scene, held while its graph is
+    camera: Camera | None = None
+    frame: Frame | None = None
+    launches: tuple = (0, 0)           # march_pass's and shade_pass's a replay
+
+
+class FrameGraphs:
+    """Compact frames of `render_frame`, replayed from one CUDA graph per
+    device.
+
+    A frame's key is its scene (by identity), its RenderConfig, its device
+    and the shapes and dtypes of its camera's tensors. A frame may take a
+    graph only on a CUDA scene, with the camera's tensors on its device,
+    on the device's default stream and while the port's tracing is unarmed
+    (utils/profiling.py: armed frames run eagerly, so their spans and
+    live-lane counts read the kernels stage by stage). Of such frames, the
+    first of a key runs eagerly, the second in a row captures
+    `render_frame_compact` as a graph and replays it, and each later one
+    replays it (`graph_step`): the camera's eye, target, up and fov_y are
+    copied into the graph's static camera, the graph is replayed, and the
+    frame's tensors are copied out of the graph's pool into new ones, so a
+    Frame the caller holds never changes. Copies on the card, so a replay
+    holds no host wait. A path whose scene changes every call (the tiled
+    path) never captures.
+
+    Memory: one graph a device, for the last key: the scene it holds
+    alive, its static camera and its pool (the frame's working planes).
+    A frame of another key releases them.
+
+    `tally` counts the frames by GRAPH_STEPS (plain ints; frames that may
+    take no graph count as eager): `read()`, `reset()`."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._slots = {}  # device -> _Slot
+        self.tally = dict.fromkeys(GRAPH_STEPS, 0)
+
+    def read(self) -> dict:
+        return dict(self.tally)
+
+    def reset(self) -> None:
+        """Zero the tally (the graphs are kept)."""
+        with self._lock:
+            self.tally.update(dict.fromkeys(GRAPH_STEPS, 0))
+
+    @staticmethod
+    def key(scene: Scene, camera: Camera, config: RenderConfig):
+        """The frame's key, or None where it may take no graph."""
+        dev = scene.device
+        cam = _cam_tensors(camera)
+        if dev.type != "cuda" or armed() or any(t.device != dev for t in cam) \
+                or torch.cuda.current_stream(dev) != torch.cuda.default_stream(dev):
+            return None
+        return id(scene), config, dev, tuple((tuple(t.shape), t.dtype) for t in cam)
+
+    def render(self, scene: Scene, camera: Camera, config: RenderConfig) -> Frame:
+        """The compact frame of `render_frame_compact(scene, camera,
+        config)`, eagerly or from the device's graph (class docstring)."""
+        key = self.key(scene, camera, config)
+        if key is None:
+            with self._lock:
+                self.tally["eager"] += 1
+            return render_frame_compact(scene, camera, config)
+        with self._lock:
+            slot = self._slots.get(scene.device)
+            last = slot.key if slot is not None and slot.scene() is scene else None
+            step = graph_step(last, key, slot is not None and slot.graph is not None)
+            self.tally[step] += 1
+            if step == "eager":
+                # a new key: release the old graph, its scene and its pool
+                self._slots[scene.device] = _Slot(key, weakref.ref(scene))
+                return render_frame_compact(scene, camera, config)
+            if step == "captured":
+                self._capture(slot, scene, camera, config)
+            else:
+                for dst, src in zip(_cam_tensors(slot.camera), _cam_tensors(camera)):
+                    dst.copy_(src)
+                march_pass.launches += slot.launches[0]
+                shade_pass.launches += slot.launches[1]
+            slot.graph.replay()
+            out = slot.frame
+            return Frame(color=out.color.clone(), depth=_clone(out.depth),
+                         normal=_clone(out.normal), hit=out.hit.clone())
+
+    @staticmethod
+    def _capture(slot: _Slot, scene: Scene, camera: Camera, config: RenderConfig) -> None:
+        """Capture the frame on a static copy of `camera` into `slot`. Other
+        threads may go on using the card meanwhile ("thread_local")."""
+        cam = Camera(*(t.clone() for t in _cam_tensors(camera)))
+        graph = torch.cuda.CUDAGraph()
+        m0, s0 = march_pass.launches, shade_pass.launches
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            frame = render_frame_compact(scene, cam, config)
+        slot.graph, slot.held, slot.camera, slot.frame = graph, scene, cam, frame
+        slot.launches = (march_pass.launches - m0, shade_pass.launches - s0)
+
+
+def _cam_tensors(camera: Camera) -> tuple:
+    return camera.eye, camera.target, camera.up, camera.fov_y
+
+
+def _clone(x):
+    return None if x is None else x.clone()
+
+
+#: the process's frame graphs, one a device (`render_frame`'s compact path)
+frame_graphs = FrameGraphs()

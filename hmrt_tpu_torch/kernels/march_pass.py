@@ -44,6 +44,12 @@ another state, after other counts, so the plain version takes the group
 too. `march_pass.mode_launches` counts, on the card, which march each
 launch ran, and while the port's tracing is armed (utils/profiling.py)
 the live lanes each launch was handed, with the spans that launched it.
+
+`march_pass` checks every input before a launch, the range of the level
+plane too, which waits on the card. `launch_pass` is the same pass without
+the checks: the compact path (kernels/compact.py) makes every plane it
+hands over itself, so its frame holds no host wait and can be replayed
+from a CUDA graph.
 """
 
 from __future__ import annotations
@@ -309,7 +315,11 @@ def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: i
     scene's min pyramid (`Scene.pyr_min_flat`), which the kernel's level-0
     tails, exact and relaxed, read: a pass that may run a tail on the card
     raises without it. While the port's tracing is armed, the pass's live
-    lanes go to `march_pass.mode_launches` (LaunchTally.count_live)."""
+    lanes go to `march_pass.mode_launches` (LaunchTally.count_live).
+
+    Every input is checked before a launch on the card, the levels of the
+    `lvl` plane too (a wait on the card); `launch_pass` is the same pass
+    without the checks."""
     check_tail(l0_only, relax, budget, group)
     p = rays[0].shape[0]
     flag = l0_only if isinstance(l0_only, torch.Tensor) else None
@@ -322,6 +332,40 @@ def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: i
         check_min_pyramid(pyr_min, m)
     if counts is not None:
         check_counts(counts, (2, p), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"march_pass runs on cpu or cuda, not {dev}")
+    if dev.type == "cuda":
+        _check_inputs(rays, state, results, pyr_flat, corners, n, m, levels, budget)
+        if (flag is not None or l0_only) and pyr_min is None:
+            raise ValueError("the level-0 tail on the card, exact or relaxed, reads the min "
+                             "pyramid: pass pyr_min=scene.pyr_min_flat")
+    return launch_pass(rays, state, results, pyr_flat, heights, corners, n=n, m=m,
+                       levels=levels, budget=budget, cell_intersect=cell_intersect,
+                       clip=clip, counts=counts, l0_only=l0_only, relax=relax, group=group,
+                       pyr_min=pyr_min)
+
+
+def launch_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: int,
+                levels: int, budget: int, cell_intersect: str = "triangle",
+                clip=None, counts: torch.Tensor | None = None, l0_only=False,
+                relax: int = 0, group="auto", pyr_min: torch.Tensor | None = None):
+    """`march_pass` without its checks: the internal launch entry of
+    `kernels/compact.py::march_rounds`, which makes every plane it hands
+    over itself, from one Scene. It runs no check that waits on the card,
+    so a compact frame holds no host wait and can be captured in a CUDA
+    graph. Arguments and result as `march_pass`'s.
+
+    No level outside [0, levels - 1] can reach it from there: the state
+    planes come from `init_state` (`levels - 1` at the pyramid top, or 0
+    for a start cell), from `force_level0` (0), or are the kernel's own
+    output of the pass before (gathered or kept by an "auto" flag), which
+    holds every level in that range. The other planes are made as
+    `march_pass` checks them: contiguous, of one length and of its dtypes
+    (`init_state`, `empty_results`, the gathers), with the scene's
+    pyramids and records (`make_scene`). Any other caller goes through
+    `march_pass`."""
+    p = rays[0].shape[0]
+    dev = rays[0].device
     march_pass.mode_launches.count_live(state[0])
     if dev.type == "cpu":
         work = None if counts is None else WorkCounter(pyr_flat.shape[0], n, dev, lanes=p)
@@ -333,14 +377,9 @@ def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: i
         if work is not None:
             counts.copy_(torch.stack([work.lane_steps, work.lane_tests]))
         return out
-    if dev.type != "cuda":
-        raise ValueError(f"march_pass runs on cpu or cuda, not {dev}")
-    _check_inputs(rays, state, results, pyr_flat, corners, n, m, levels, budget)
+    flag = l0_only if isinstance(l0_only, torch.Tensor) else None
     mode = (MODE_MAXMIP if flag is None and not l0_only
             else MODE_RELAX if relax else MODE_L0)
-    if mode != MODE_MAXMIP and pyr_min is None:
-        raise ValueError("the level-0 tail on the card, exact or relaxed, reads the min "
-                         "pyramid: pass pyr_min=scene.pyr_min_flat")
     lib = _build.library()
     outs = [torch.empty_like(x) for x in (*state, *results)]
     lo, hi = (0.0, float(n - 1)) if clip is None else clip

@@ -56,6 +56,19 @@ def _vec3(v, device):
     return torch.as_tensor(v, dtype=torch.float32, device=device)
 
 
+#: device -> the y axis (0, 1, 0) f32 on it, `Camera.basis`' fallback hint
+_Y_AXIS: dict = {}
+
+
+def y_axis(device: torch.device) -> torch.Tensor:
+    """The f32 y axis on `device`, made once per device (as a row of the
+    identity, so no host copy, and so no host wait, runs in any frame).
+    Callers must not write to it."""
+    if device not in _Y_AXIS:
+        _Y_AXIS[device] = torch.eye(3, dtype=torch.float32, device=device)[1]
+    return _Y_AXIS[device]
+
+
 @dataclasses.dataclass(frozen=True)
 class Camera:
     """Pinhole perspective camera."""
@@ -84,8 +97,7 @@ class Camera:
         f = f / _norm(f)
         r = _cross(f, self.up)
         n2 = torch.sum(r * r)
-        alt = _cross(f, torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
-                                     device=f.device))
+        alt = _cross(f, y_axis(f.device))
         r = torch.where(n2 > 1e-12, r, alt)
         r = r / _norm(r)
         u = _cross(r, f)

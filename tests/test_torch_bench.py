@@ -195,7 +195,7 @@ def test_frame_counts_and_bound(monkeypatch):
         live.append(int(torch.count_nonzero(state[0])))
         return march_pass(rays, state, *a, **kw)
 
-    monkeypatch.setattr(compact, "march_pass", recording)
+    monkeypatch.setattr(compact, "launch_pass", recording)
     fc = count_frame(scene, cam, cfg)
     assert fc.n_primary == 3 and len(fc.counts) == 5
     assert all(c.shape == (2, 128 * 32) and c.dtype == torch.int32 for c in fc.counts)

@@ -38,7 +38,8 @@ from hmrt_tpu_torch.distrib.dryrun import render_sharded_jobs, scene_digest
 from hmrt_tpu_torch.distrib.mesh import make_mesh, replicate_scene, spawn
 from hmrt_tpu_torch.kernels.compact import (empty_results, force_level0, init_state,
                                             primary_rays, render_frame_compact)
-from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass, march_pass_reference
+from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, launch_pass, march_pass,
+                                               march_pass_reference)
 from hmrt_tpu_torch.traversal.intersect import BIG_T, INTERSECTORS
 from hmrt_tpu_torch.traversal.march import (MARGIN_S, MARGIN_TOL, T_TOL, WorkCounter,
                                             below_margins, entry_cell, l0_min_step, l0_step,
@@ -579,7 +580,7 @@ def test_missed_rays_state_is_read_by_nothing(path, monkeypatch):
                                     tile=32, device="cpu")
 
     want = render()
-    monkeypatch.setattr(compact, "march_pass", _scrambling(march_pass))
+    monkeypatch.setattr(compact, "launch_pass", _scrambling(launch_pass))
     got = render()
     for f in ("color", "hit", "depth", "normal"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f

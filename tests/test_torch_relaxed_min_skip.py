@@ -34,7 +34,8 @@ from hmrt_tpu.traversal.march import corner_heights as jax_corner_heights
 from hmrt_tpu_torch.bench.configs import BENCH_CONFIGS, bench_scene
 from hmrt_tpu_torch.kernels.compact import (empty_results, force_level0, init_state,
                                             primary_rays, render_frame_compact)
-from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass, march_pass_reference
+from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, launch_pass, march_pass,
+                                               march_pass_reference)
 from hmrt_tpu_torch.traversal.intersect import INTERSECTORS, SURFACES
 from hmrt_tpu_torch.traversal.march import (EPS_EXIT, T_TOL, WorkCounter, below_margins,
                                             l0_min_step_relaxed, l0_step_relaxed,
@@ -435,7 +436,7 @@ def test_relaxed_missed_rays_state_is_read_by_nothing(path, monkeypatch):
                                     full_height=32, **kw)
 
     want = render()
-    monkeypatch.setattr(compact, "march_pass", _scrambling(march_pass))
+    monkeypatch.setattr(compact, "launch_pass", _scrambling(launch_pass))
     got = render()
     for f in ("color", "hit", "depth", "normal"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f

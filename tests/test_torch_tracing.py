@@ -143,7 +143,7 @@ def test_tracing_nests_and_disarms(scene):
 
 def test_live_counts_are_the_alive_planes_of_each_launch(scene, cam, monkeypatch):
     want = []
-    real = compact.march_pass
+    real = compact.launch_pass
 
     def counting(rays, state, *a, **kw):
         # the tally sums the alive plane: the port's planes hold 0 or 1
@@ -151,7 +151,7 @@ def test_live_counts_are_the_alive_planes_of_each_launch(scene, cam, monkeypatch
         want.append((profiling.open_spans(), int((state[0] != 0).sum()), state[0].shape[0]))
         return real(rays, state, *a, **kw)
 
-    monkeypatch.setattr(compact, "march_pass", counting)
+    monkeypatch.setattr(compact, "launch_pass", counting)
     with tracing():
         render_frame(scene, cam, _cfg())
     got = march_pass.mode_launches.read_live()
