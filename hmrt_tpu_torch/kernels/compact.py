@@ -38,7 +38,8 @@ Stage spans (utils/profiling.py, while the port's tracing is armed):
 and "hmrt.march.tail" around each kernel launch, "hmrt.sort" around a
 sorted round's key, argsort and gathers and "hmrt.unsort" around the
 scatter back, "hmrt.shade" (shade data, colour maths) and inside it
-"hmrt.shadow" (the shadow rays and their march).
+"hmrt.shadow" (the shadow rays and their march) and, with fog,
+"hmrt.shade.fog" (`apply_fog`).
 
 Frame graphs: a compact frame holds no host wait and no host decision
 (every pass runs over the same P lanes, the "auto" tail is a device flag),
@@ -322,8 +323,9 @@ def shade_frame(scene: Scene, config: RenderConfig, rays, hit_i, t_hit, hx, hy, 
         g = g + config.specular * spec * sg
         b = b + config.specular * spec * sb
     if config.fog:
-        r, g, b = sh.apply_fog(r, g, b, torch.where(hit, t_hit, 0.0),
-                               config.fog_density, light.fog_color)
+        with span("hmrt.shade.fog"):
+            r, g, b = sh.apply_fog(r, g, b, torch.where(hit, t_hit, 0.0),
+                                   config.fog_density, light.fog_color)
     skyr, skyg, skyb = sh.sky_color(dz, light.sky_top, light.sky_horizon)
     color = torch.stack([torch.where(hit, c, s) for c, s in
                          ((r, skyr), (g, skyg), (b, skyb))], dim=-1)

@@ -170,3 +170,35 @@ def test_a_tiled_render_captures_nothing(world):
     got = _since(before)
     assert stats["tiles_rendered"] > 1 and got["eager"] >= stats["tiles_rendered"]
     assert got["captured"] == got["replayed"] == 0
+
+
+def test_b4_settings_replay_bit_equal_through_the_textured_shade_kernel(world, tmp_path):
+    """B4's render settings (texture, fog, Phong, no shadow rays): the
+    eager, captured and replayed frames equal eager renders bit for bit,
+    and a replay runs the textured instance of the shade kernel."""
+    from port_bench.trace import readable
+
+    scene = world["textured"]
+    cfg = RenderConfig(width=320, height=180, backend="compact", shading="phong",
+                       shadows=False, texture=True, fog=True, fog_density=0.0015)
+    cams = _cameras(world)
+    before = _tally()
+    frames = [render_frame(scene, cam, cfg) for cam in cams]
+    assert _since(before) == {"eager": 1, "captured": 1, "replayed": len(cams) - 2}
+    for cam, fr in zip(cams, frames):
+        _assert_equal(fr, render_frame_compact(scene, cam, cfg))
+    render_frame(scene, cams[2], cfg)
+    torch.cuda.synchronize()
+    before = _tally()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        replayed = render_frame(scene, cams[3], cfg)
+        torch.cuda.synchronize()
+    assert _since(before) == {"eager": 0, "captured": 0, "replayed": 1}
+    _assert_equal(replayed, frames[3])
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    kernels = [readable(e["name"]) for e in json.loads(path.read_text())["traceEvents"]
+               if e.get("cat") == "kernel"]
+    assert kernels.count("shade_pass_kernel<true>") == 1
+    assert "shade_pass_kernel<false>" not in kernels

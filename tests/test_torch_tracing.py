@@ -1,7 +1,8 @@
 """The port's stage spans and live-lane counts (utils/profiling.py), on the
 CPU: which spans a frame records, how they nest, that unarmed they cost
 one shared no-op and record nothing, that the counts are those of the
-alive planes, and that arming changes no frame, hit cell or count."""
+alive planes, that the benchmark's `stage_of` charges the shade stage's
+inner spans to it, and that arming changes no frame, hit cell or count."""
 
 import json
 import os
@@ -19,6 +20,7 @@ from hmrt_tpu_torch.kernels import compact
 from hmrt_tpu_torch.kernels.march_pass import march_pass
 from hmrt_tpu_torch.utils import profiling
 from hmrt_tpu_torch.utils.profiling import maybe_trace, span, tracing
+from port_bench.stages import stage_of
 
 N = 65
 #: the spans of one B3-like compact frame (shadows, rounds=2, the auto tail),
@@ -117,6 +119,21 @@ def test_a_compact_frame_records_each_stage_span_nested(scene, cam, frames):
                      ("hmrt.unsort", "hmrt.shade"): frames}
 
 
+@pytest.mark.parametrize("fog", [False, True])
+@pytest.mark.parametrize("shadows", [False, True])
+def test_fog_span_once_a_frame_with_fog_inside_the_shade_stage(scene, cam, fog, shadows):
+    _, spans = _profiled(lambda: [render_frame(scene, cam, _cfg(fog=fog, shadows=shadows))
+                                  for _ in range(2)])
+    names = Counter(n for _, _, n in spans)
+    assert names["hmrt.frame"] == names["hmrt.shade"] == 2
+    assert names["hmrt.shade.fog"] == (2 if fog else 0)
+    assert names["hmrt.shadow"] == (2 if shadows else 0)
+    for name, outer in _parents(spans):
+        if name == "hmrt.shade.fog":
+            assert outer == ("hmrt.frame", "hmrt.shade"), (name, outer)
+            assert stage_of(outer + (name,)) == "shade"
+
+
 def test_the_oracle_path_carries_only_the_frame_span(scene, cam):
     _, spans = _profiled(lambda: render_frame(scene, cam, _cfg(backend="oracle")))
     assert [n for _, _, n in spans] == ["hmrt.frame"]
@@ -125,7 +142,8 @@ def test_the_oracle_path_carries_only_the_frame_span(scene, cam):
 def test_unarmed_span_is_the_shared_noop_and_records_nothing(scene, cam):
     assert not profiling.armed() and profiling.open_spans() == ()
     assert span("hmrt.a") is span("hmrt.b", "x")
-    _, spans = _profiled(lambda: render_frame(scene, cam, _cfg()), armed=False)
+    _, spans = _profiled(lambda: [render_frame(scene, cam, _cfg(fog=fog)) for fog in (False, True)],
+                         armed=False)
     assert spans == []
     assert march_pass.mode_launches.read_live() == []
 
