@@ -16,7 +16,12 @@ entry points:
     and the sky early-out) under backend "auto", timed; march_pass and
     shade_pass held against their plain versions at its shapes, march_pass
     also on 1, 33 and 300,000 rays and at a budget that ends rays inside a
-    chunk; B2 and B3 frames against the torch oracle;
+    chunk; B2 and B3 frames against the torch oracle; the ray sort
+    (ray_sort.py: one reorder a sorted round, counted on the main paths of
+    B3 and B4) on every round and unsort of a B3 and a B4 frame, against
+    its plain version bit for bit, timed beside CUB's radix sort
+    (yardsticks/ray_sort_cub.cu), torch's argsort and index_selects, and
+    the bytes a reorder cannot avoid;
   - the fused path: B1 (256^2, 512x512, Lambert) under "auto", which takes
     the fused kernel, against the torch oracle; B3 through backend
     "pallas", timed and held against the compact frame; the fused kernel
@@ -1301,10 +1306,10 @@ def tail_survivors(scene, cam, cfg, count: int = TAIL_RAYS):
     composes), forced to level 0 and sorted by column as the tail round
     takes them. Returns (rays, state, results, rays alive before the tail)."""
     import torch
-    from hmrt_tpu_torch.kernels.compact import (FIRST_BUDGET, ROUND_BUDGET, column_key,
-                                                empty_results, force_level0, init_state,
-                                                primary_rays)
+    from hmrt_tpu_torch.kernels.compact import (FIRST_BUDGET, ROUND_BUDGET, empty_results,
+                                                init_state, primary_rays)
     from hmrt_tpu_torch.kernels.march_pass import march_pass
+    from hmrt_tpu_torch.kernels.ray_sort import column_key, force_level0
     rays = primary_rays(cam, cfg)
     p = rays[0].shape[0]
     st0 = init_state(rays, None, scene.pyr_flat[-1], n=scene.n, m=scene.m, levels=scene.levels)
@@ -1466,6 +1471,213 @@ def tail_launches(render, march_pass) -> list:
     finally:
         compact.launch_pass = launch
     return seen
+
+
+def sort_rounds(render) -> tuple[list, list]:
+    """The inputs of every `ray_sort` and `ray_unsort` call of the compact
+    path in one eager call of render(): ([(args, kwargs), ...],
+    [(planes, perm), ...]), in call order."""
+    import hmrt_tpu_torch.kernels.compact as compact
+    sorts, unsorts = [], []
+    real_sort, real_unsort = compact.ray_sort, compact.ray_unsort
+
+    def spy_sort(*args, **kw):
+        sorts.append((args, dict(kw)))
+        return real_sort(*args, **kw)
+
+    def spy_unsort(planes, perm):
+        unsorts.append((planes, perm))
+        return real_unsort(planes, perm)
+
+    compact.ray_sort, compact.ray_unsort = spy_sort, spy_unsort
+    try:
+        render()
+    finally:
+        compact.ray_sort, compact.ray_unsort = real_sort, real_unsort
+    return sorts, unsorts
+
+
+def cub_library():
+    """The yardstick yardsticks/ray_sort_cub.cu (CUB's radix sort between
+    ray_sort.cu's key pass and gather), built beside a copy of ray_sort.cu
+    named ray_sort.cuh."""
+    import ctypes
+    import shutil
+    from hmrt_tpu_torch.kernels import _build
+    out = _build.BUILD_DIR / "yardsticks"
+    out.mkdir(parents=True, exist_ok=True)
+    shutil.copyfile(_build.CSRC / "ray_sort.cu", out / "ray_sort.cuh")
+    shutil.copyfile(ROOT / "yardsticks" / "ray_sort_cub.cu", out / "ray_sort_cub.cu")
+    lib = ctypes.CDLL(str(_build.build(out, out)))
+    lib.hmrt_ray_sort_cub_temp.argtypes = [ctypes.c_int] * 2
+    lib.hmrt_ray_sort_cub_temp.restype = ctypes.c_longlong
+    lib.hmrt_ray_sort_cub.argtypes = (_build.SIGNATURES["hmrt_ray_sort"][:-1]
+                                      + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
+    lib.hmrt_ray_sort_cub.restype = ctypes.c_int
+    return lib
+
+
+def cub_sort(lib, rays, state, res, perm_tot, **kw):
+    """One `ray_sort` round through the CUB yardstick (`cub_library`)."""
+    import torch
+    from hmrt_tpu_torch.kernels.ray_sort import launch_round
+    temp = torch.empty(max(lib.hmrt_ray_sort_cub_temp(state[0].shape[0], kw["m5"]), 1),
+                       dtype=torch.uint8, device=state[0].device)
+
+    def entry(*args):
+        return lib.hmrt_ray_sort_cub(*args[:-1], temp.data_ptr(), temp.numel(), args[-1])
+
+    return launch_round(entry, rays, state, res, perm_tot, **kw)
+
+
+def reorder_io_bytes(p: int, planes: int, first: bool) -> int:
+    """The bytes a sorted round's reorder of p lanes cannot avoid: each of
+    its `planes` 4-byte planes read and written once, the running
+    permutation read (after the first round) and written."""
+    return p * (8 * planes + 4 * (not first) + 4)
+
+
+def reorder_sort_bytes(p: int, tail: bool, m5: int) -> int:
+    """The bytes ray_sort.cu moves beyond `reorder_io_bytes`: the key pass
+    reads alive, lvl, icx and icy (and on a tail round t and four ray
+    planes, writing the forced lvl, icx and icy, which the gather reads
+    back) and writes the key; each radix digit (ceil(bits / 9) over the
+    key's bits) reads and writes key and index; the gather reads the
+    permutation."""
+    digits = -(-(m5 * m5).bit_length() // 9)
+    return p * (16 + 4 + (32 + 12 if tail else 0) + 16 * digits + 4)
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device ms a call of fn(), captured once as a CUDA graph and replayed
+    `reps` times between CUDA events, as the frame's graph runs it."""
+    import torch
+    fn()  # allocations and lazy set-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def same_bits(a, b) -> bool:
+    """Equal shapes and values; float planes compared bit for bit."""
+    import torch
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a.long(), b.long())
+
+
+def hold_ray_sort(label, render, card, cub, reps: int = 50) -> dict:
+    """Every reorder and unsort of one eager compact frame (render()),
+    replayed on its own inputs. The kernels' permutation, flag and every
+    plane must equal ray_sort_reference's, and each unsort index_copy_'s,
+    bit for bit; the CUB yardstick's permutation too. Each is then timed by
+    `graph_ms`: the kernels (`ms`), their plain version on the card
+    (`plain_ms`), the CUB yardstick (`library_ms`; for an unsort,
+    index_copy_) and torch's argsort and one index_select a plane on the
+    round's key (`argsort_ms`), beside the bound: the bytes the reorder
+    cannot avoid (`reorder_io_bytes`) at the card's peak, and the key and
+    radix passes' own traffic (`sort_bytes`) apart. Returns the kernels
+    line's entry: the frame's sums and each round's row."""
+    import torch
+    from hmrt_tpu_torch.bench.floor import bound
+    from hmrt_tpu_torch.kernels.ray_sort import (column_key, force_level0, l0_tail_flag,
+                                                 ray_sort, ray_sort_reference, ray_unsort)
+    sorts, unsorts = sort_rounds(render)
+    torch.cuda.synchronize()
+    rows = []
+    for k, ((rays, state, res, perm_tot), kw) in enumerate(sorts):
+        got = ray_sort(rays, state, res, perm_tot, **kw)
+        want = ray_sort_reference(rays, state, res, perm_tot, **kw)
+        via_cub = cub_sort(cub, rays, state, res, perm_tot, **kw)
+        planes = [(f"ray {i}", got[0][i], want[0][i]) for i in kw["moving"]] \
+            + [(name, a, b) for name, a, b in zip(STATE, got[1], want[1])] \
+            + [(name, a, b) for name, a, b in zip(RESULTS, got[2] or (), want[2] or ())]
+        bad = [name for name, a, b in planes if not same_bits(a, b)]
+        if (got[2] is None) != (want[2] is None):
+            bad.append("results")
+        if not same_bits(got[3], want[3]):
+            bad.append("permutation")
+        if not same_bits(via_cub[3], want[3]):
+            bad.append("CUB's permutation")
+        if kw["tail"] == "auto" and int(got[4]) != int(want[4]):
+            bad.append("auto flag")
+        if bad:
+            raise AssertionError(f"ray_sort, {label} round {k}: {bad} differ from the plain "
+                                 f"version's")
+        tail = kw["tail"]
+        forced = state
+        if tail:  # the round's key, as the plain version makes it
+            forced = force_level0(rays, state)
+            if tail == "auto":
+                flag = l0_tail_flag(state)
+                forced = tuple(torch.where(flag, f, s) for f, s in zip(forced, state))
+        key = column_key(forced, kw["m5"])
+        carried = [x for i, x in enumerate(rays) if i in kw["moving"]] + list(state) \
+            + list(res or ())
+
+        def argsort_chain():
+            perm = torch.argsort(key, stable=True)
+            for x in carried:
+                x.index_select(0, perm)
+            if perm_tot is not None:
+                perm_tot.index_select(0, perm)
+
+        p = state[0].shape[0]
+        io = reorder_io_bytes(p, len(carried), perm_tot is None)
+        rows.append({
+            "lanes": p, "live": int((state[0] != 0).sum()), "planes": len(carried),
+            "tail": str(tail), "m5": kw["m5"],
+            "ms": graph_ms(lambda: ray_sort(rays, state, res, perm_tot, **kw), reps),
+            "plain_ms": graph_ms(lambda: ray_sort_reference(rays, state, res, perm_tot, **kw),
+                                 reps),
+            "library_ms": graph_ms(lambda: cub_sort(cub, rays, state, res, perm_tot, **kw),
+                                   reps),
+            "argsort_ms": graph_ms(argsort_chain, reps),
+            "bound_ms": bound(io, 0)[0], "io_bytes": io,
+            "sort_bytes": reorder_sort_bytes(p, bool(tail), kw["m5"])})
+    for planes, perm in unsorts:
+        perm64 = perm.long()
+
+        def index_copy():
+            return tuple(torch.empty_like(x).index_copy_(0, perm64, x) for x in planes)
+
+        bad = [i for i, (a, b) in enumerate(zip(ray_unsort(planes, perm), index_copy()))
+               if not same_bits(a, b)]
+        if bad:
+            raise AssertionError(f"ray_unsort, {label}: planes {bad} differ from index_copy_'s")
+        io = perm.shape[0] * 4 * (1 + 2 * len(planes))
+        plain_ms = graph_ms(index_copy, reps)  # the plain version is torch's own
+        rows.append({
+            "unsort_planes": len(planes), "lanes": perm.shape[0],
+            "ms": graph_ms(lambda: ray_unsort(planes, perm), reps),
+            "plain_ms": plain_ms, "library_ms": plain_ms,
+            "bound_ms": bound(io, 0)[0], "io_bytes": io})
+    for k, r in enumerate(rows):
+        what = (f"unsort of {r['unsort_planes']} planes" if "unsort_planes" in r else
+                f"round {k} ({r['live']} live, {r['planes']} planes, tail {r['tail']}; CUB "
+                f"{r['library_ms']:.4f} ms, argsort + index_select {r['argsort_ms']:.4f} ms, "
+                f"{r['sort_bytes'] / r['lanes']:.0f} B a lane of key and radix passes)")
+        log(f"  ray_sort {label}, {r['lanes']} lanes, {what}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['io_bytes'] / r['lanes']:.0f} "
+            f"B a lane)  [{card}]")
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"ray_sort, {label} frame: {len(sorts)} reorders and {len(unsorts)} unsorts equal to the "
+        f"plain version's, bit for bit; kernels {total['ms']:.4f} ms, plain "
+        f"{total['plain_ms']:.4f} ms, CUB/index_copy_ {total['library_ms']:.4f} ms, argsort + "
+        f"index_select {sum(r.get('argsort_ms', 0) for r in rows):.4f} ms, bound "
+        f"{total['bound_ms']:.4f} ms  [{card}]")
+    return {**total, "argsort_ms": sum(r.get("argsort_ms", 0) for r in rows),
+            "reorders": len(sorts), "unsorts": len(unsorts), "rows": rows}
 
 
 def live_plain(launch, scene, group=1):
@@ -2026,9 +2238,10 @@ def main(argv=None) -> int:
     from hmrt_tpu_torch.kernels.compact import (FIRST_BUDGET, ROUND_BUDGET, ROUNDS,
                                                 empty_results, hit_points, init_state,
                                                 march_rounds, primary_rays,
-                                                shadow_start)
+                                                render_frame_compact, shadow_start)
     from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, march_pass,
                                                    march_pass_reference)
+    from hmrt_tpu_torch.kernels.ray_sort import ray_sort
     from hmrt_tpu_torch.kernels.raycast import (fused_planes, fused_reference_planes,
                                                 fused_witness_planes, render_frame_fused,
                                                 render_frame_fused_reference)
@@ -2042,7 +2255,7 @@ def main(argv=None) -> int:
         f"cuda {torch.version.cuda}  device {kind}")
 
     kernel_fns = {"march_pass": march_pass, "shade_pass": shade_pass,
-                  "render_tile": render_frame_fused}
+                  "render_tile": render_frame_fused, "ray_sort": ray_sort}
     paths = {}  # launches of each kernel on each path, each run from counts of 0
     mode_paths = {}  # march_pass's launches by template instance on each path
 
@@ -2095,11 +2308,19 @@ def main(argv=None) -> int:
         fn()
         return time.perf_counter() - t
 
-    with ThreadPoolExecutor(2) as pool:  # nvcc and g++ at once
-        builds = [pool.submit(timed, _build.library), pool.submit(timed, native.library)]
-        kernels_s, native_s = (f.result() for f in builds)
+    cub = None
+
+    def build_cub():
+        nonlocal cub
+        cub = cub_library()
+
+    with ThreadPoolExecutor(3) as pool:  # nvcc and g++ at once
+        builds = [pool.submit(timed, _build.library), pool.submit(timed, native.library),
+                  pool.submit(timed, build_cub)]
+        kernels_s, native_s, cub_s = (f.result() for f in builds)
     log(f"build: CUDA kernels {kernels_s:.2f} s, host library {native_s:.2f} s (g++ "
-        f"{native.compiler_version()}, {native.library_path().name}); host CPUs: "
+        f"{native.compiler_version()}, {native.library_path().name}), the CUB yardstick "
+        f"{cub_s:.2f} s; host CPUs: "
         f"os.cpu_count() {os.cpu_count()}, sched_getaffinity {len(os.sched_getaffinity(0))}")
     for line in sorted(_build.BUILD_DIR.glob("*.log"))[-1].read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -2120,7 +2341,17 @@ def main(argv=None) -> int:
         f"built in {time.perf_counter() - t0:.2f} s")
 
     fr = run_path("B3 main path (render_frame, auto)", lambda: T.render_frame(scene, cam, cfg),
-                  ("march_pass", "shade_pass"), ("render_tile",))
+                  ("march_pass", "shade_pass", "ray_sort"), ("render_tile",))
+
+    def hold_sort_launches(label, cf):
+        """One reorder a sorted round: ROUNDS primary, and min(ROUNDS, 2)
+        shadow rounds where the frame casts shadow rays."""
+        want = ROUNDS + (min(ROUNDS, 2) if cf.shadows else 0)
+        if paths[label]["ray_sort"] != want:
+            raise AssertionError(f"{label}: ray_sort launched {paths[label]['ray_sort']} "
+                                 f"reorders, not {want}")
+
+    hold_sort_launches("B3 main path (render_frame, auto)", cfg)
 
     def check_frame(label, f, cf):
         color = f.color
@@ -2233,6 +2464,7 @@ def main(argv=None) -> int:
         f"{shade_call_ms:.4f} ms), plain {shade_plain_ms:.4f} ms"
         f"; bound {k2_bound[0]:.4f} ms ({k2_bound[1]})  [{card}]")
     log_sectors("B3", k2_sectors, p)
+    sort_b3 = hold_ray_sort("B3", lambda: render_frame_compact(scene, cam, cfg), card, cub)
 
     # shadow rays from the frame's hits, started in the hit cells
     srays, sstate = shadow_start(points, got[:3], hit, hx, hy, scene)
@@ -2625,7 +2857,8 @@ def main(argv=None) -> int:
     cam40 = frame_camera(cams4, 0)
     fr4 = run_path("B4 main path (render_frame, auto, orbit frame 0)",
                    lambda: T.render_frame(scene4, cam40, cfg4),
-                   ("march_pass", "shade_pass"), ("render_tile",))
+                   ("march_pass", "shade_pass", "ray_sort"), ("render_tile",))
+    hold_sort_launches("B4 main path (render_frame, auto, orbit frame 0)", cfg4)
     b4_launches = paths["B4 main path (render_frame, auto, orbit frame 0)"]
     b4_marches = mode_paths["B4 main path (render_frame, auto, orbit frame 0)"]
     if not b4_marches["l0"] or b4_marches["l0_g32"]:
@@ -2687,6 +2920,8 @@ def main(argv=None) -> int:
         f"{shade_tex_plain_ms:.4f} ms; bound {k2_tex_bound[0]:.4f} ms ({k2_tex_bound[1]})  "
         f"[{card}]")
     log_sectors("B4", k2_tex_sectors, p4)
+    sort_b4 = hold_ray_sort("B4 orbit frame 0", lambda: render_frame_compact(scene4, cam40, cfg4),
+                            card, cub)
 
     # the B4 frame's march work, counted as the runner's --floor counts it,
     # against the device time of its march_pass launches
@@ -2828,6 +3063,12 @@ def main(argv=None) -> int:
          "b3_frame_bound_ms": k3_frame_bound[0], "b3_frame_bound_by": k3_frame_bound[1],
          "b3_band_row0": row0, "b3_band_ms": band_ms, "b3_band_plain_ms": band_plain_ms,
          "b3_band_bound_ms": band_bound[0], "b3_band_bound_by": band_bound[1]},
+        {"name": "ray_sort", "route": "cuda",
+         "source": "hmrt_tpu_torch/kernels/csrc/ray_sort.cu", "replaces": None,
+         "launches": launches["ray_sort"], "max_abs_err": 0.0,
+         "ms": sort_b3["ms"], "plain_ms": sort_b3["plain_ms"], "bound_ms": sort_b3["bound_ms"],
+         "bound_by": "bytes", "library_ms": sort_b3["library_ms"],
+         "argsort_ms": sort_b3["argsort_ms"], "b3_frame": sort_b3, "b4_frame": sort_b4},
     ]
     log(json.dumps({"host_library": {"build_s": native_s, **host_times,
                                      "b4_scene_build_s": b4_build_s},

@@ -45,6 +45,14 @@ SIGNATURES = {
     "hmrt_render_tile": [_P] * 12 + [_I] * 10 + [_F] * 6 + [_P] * 3,
     # ray, t, cell, corners; m intersector steps; box_lo box_hi; t_o i_o stream
     "hmrt_l0_probe": [_P] * 4 + [_I] * 3 + [_F] * 2 + [_P] * 3,
+    # p tail_mode
+    "hmrt_ray_sort_scratch": [_I] * 2,
+    # alive t lvl icx icy, ox oy dx dy or null, src dst; n_extra; state_o,
+    # perm_in or null, perm_out, flag or null, scratch; scratch_n p m5
+    # tail_mode; thresh; stream
+    "hmrt_ray_sort": [_P] * 11 + [_I] + [_P] * 5 + [_I] * 4 + [_F] + [_P],
+    # perm src dst; n p; stream
+    "hmrt_ray_unsort": [_P] * 3 + [_I] * 2 + [_P],
 }
 
 

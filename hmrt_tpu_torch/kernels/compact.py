@@ -4,11 +4,12 @@ Counterpart of the legacy flow of `hmrt_tpu/kernels/compact.py`
 (`fold_inv=False`). Rays are generated and initialised in torch, and the
 ray state lives in flat per-lane planes. A march pass (`march_pass`, CUDA
 kernel 1) steps every live ray up to a budget. Between passes the
-survivors are SORTED by their current 32-cell terrain column (one argsort
-and one gather of the moving planes), so the rays of a thread block march
-through nearby terrain; the last round is unbudgeted, so every ray
-resolves. Results return to launch order by one scatter through the
-composed permutation. The shade pass (`shade_pass`, CUDA kernel 2) then
+survivors are SORTED by their current 32-cell terrain column (`ray_sort`,
+kernels/ray_sort.py: a stable counting sort of the column key and one
+gather of the planes), so the rays of a thread block march through nearby
+terrain; the last round is unbudgeted, so every ray resolves. Results
+return to launch order by one scatter through the composed permutation
+(`ray_unsort`). The shade pass (`shade_pass`, CUDA kernel 2) then
 runs in launch order, the shadow march repeats the sorted rounds from the
 hit cells, and the final colour maths is plain torch.
 
@@ -22,12 +23,12 @@ ported.
 The tail, as in the JAX package: the last sorted round of the primary and
 of the shadow march may run as the forced-level-0 tail (`l0_tail`). Its
 survivors are first descended to the level-0 cell at their position
-(`force_level0`, so the sort key is their level-0 column), then march the
+(ray_sort.py::force_level0, so the sort key is their level-0 column), then march the
 level-0 DDA with the exact test, skipping no cell whose max they do not
 clear, but passing under whole blocks of the min pyramid (march_pass.py).
 That gives up skips the max pyramid could still take and never changes a
 hit, so every `l0_tail` gives the same frame. "auto" forces the tail when
-more than L0_TAIL_AUTO_THRESH of the survivors are already at level 0,
+more than ray_sort.py::L0_TAIL_AUTO_THRESH of the survivors are at level 0,
 decided on the device (a flag the kernel reads), with no host wait. `relax=k` runs the
 relaxed stride tail there instead: not exact (a feature narrower than k
 cells along a ray can be tunnelled; no false hits), opt-in.
@@ -36,10 +37,10 @@ Stage spans (utils/profiling.py, while the port's tracing is armed):
 "hmrt.raygen" (the primary rays and their start state), "hmrt.primary"
 (the primary march), in each march "hmrt.march.pass0", "hmrt.march.round"
 and "hmrt.march.tail" around each kernel launch, "hmrt.sort" around a
-sorted round's key, argsort and gathers and "hmrt.unsort" around the
-scatter back, "hmrt.shade" (shade data, colour maths) and inside it
-"hmrt.shadow" (the shadow rays and their march) and, with fog,
-"hmrt.shade.fog" (`apply_fog`).
+sorted round's reorder (`ray_sort`: key, sort and gathers) and
+"hmrt.unsort" around the scatter back, "hmrt.shade" (shade data, colour
+maths) and inside it "hmrt.shadow" (the shadow rays and their march) and,
+with fog, "hmrt.shade.fog" (`apply_fog`).
 
 Frame graphs: a compact frame holds no host wait and no host decision
 (every pass runs over the same P lanes, the "auto" tail is a device flag),
@@ -60,6 +61,7 @@ import torch
 from hmrt_tpu_torch.config import RenderConfig
 from hmrt_tpu_torch.core.renderer import SHADOW_EPS
 from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, launch_pass, march_pass
+from hmrt_tpu_torch.kernels.ray_sort import ray_sort, ray_unsort
 from hmrt_tpu_torch.kernels.shade_pass import shade_pass
 from hmrt_tpu_torch.shading import shade as sh
 from hmrt_tpu_torch.traversal.intersect import BIG_T
@@ -67,19 +69,12 @@ from hmrt_tpu_torch.traversal.march import entry_cell, ray_box_range
 from hmrt_tpu_torch.types import Camera, Frame, Scene
 from hmrt_tpu_torch.utils.profiling import armed, span
 
-BIG_KEY = 2 ** 30   # sort key of a dead lane: after every live column
-
 #: Default schedule. Pass 0 in launch order resolves sky and near hits
 #: cheaply; each later round first sorts the survivors by terrain column.
 #: Chosen as a simple start, not tuned yet on the H100 (see PERF.md).
 FIRST_BUDGET = 64
 ROUNDS = 2
 ROUND_BUDGET = 256
-
-#: l0_tail="auto": the share of surviving rays already at level 0 (before
-#: the last sorted round) above which the tail is forced to level 0; the
-#: JAX package's value (hmrt_tpu/kernels/compact.py). Both choices are exact.
-L0_TAIL_AUTO_THRESH = 0.9
 
 
 def primary_rays(camera: Camera, config: RenderConfig, row0: int | None = None,
@@ -115,41 +110,6 @@ def init_state(rays, valid0, gmax, *, n: int, m: int, levels: int,
     return (valid.to(torch.int32), torch.where(valid, t0, BIG_T), lvl, icx, icy)
 
 
-def force_level0(rays, state):
-    """Descend every lane to the level-0 cell containing its position at t,
-    as `levels - 1` masked rounds of `descend_cell` do
-    (`hmrt_tpu/kernels/compact.py::_force_level0`). Descending without a
-    test is always exact (the skip test only skips when certain, and this
-    skips nothing), so the level-0 tail stays exact; a lane that could
-    still have taken pyramid skips now steps cell by cell.
-
-    Those rounds are a binary search of the position inside the lane's
-    cell: each compares it with the midpoint of the current cell, an
-    integer that f32 holds exactly. So the cell they reach is floor(p)
-    clamped to the level-0 cells under the lane's cell, which this computes
-    in one pass of torch over the planes, on any device, bit for bit the
-    same (tests/test_torch_relaxed.py holds it against the JAX rounds)."""
-    ox, oy, _, dx, dy, _ = rays
-    alive, t, lvl, icx, icy = state
-
-    def descend(o, d, c):
-        lo = c << lvl
-        hi = lo + (1 << lvl) - 1
-        f = torch.floor(o + t * d)
-        return torch.clamp(f, lo.to(torch.float32), hi.to(torch.float32)).to(torch.int32)
-
-    return alive, t, torch.zeros_like(lvl), descend(ox, dx, icx), descend(oy, dy, icy)
-
-
-def l0_tail_flag(state):
-    """The "auto" tail's choice, a 0-dim bool on the planes' device: more
-    than L0_TAIL_AUTO_THRESH of the alive lanes are at level 0."""
-    alive = state[0] != 0
-    n_alive = alive.sum()
-    n_l0 = (alive & (state[2] == 0)).sum(dtype=torch.int32)
-    return n_l0 > (L0_TAIL_AUTO_THRESH * n_alive.to(torch.float32)).to(torch.int32)
-
-
 def check_l0_tail(l0_tail, relax: int) -> None:
     """Raise unless l0_tail is True, False or "auto" and relax fits it."""
     if l0_tail not in (True, False, "auto"):
@@ -162,28 +122,21 @@ def check_l0_tail(l0_tail, relax: int) -> None:
                          "relax only when the tail is chosen)")
 
 
-def column_key(state, m5: int):
-    """Sort key: the 32-cell terrain column of each live lane's current
-    cell (at any level); dead lanes key BIG_KEY."""
-    alive, _, lvl, icx, icy = state
-    colx = torch.clamp((icx << lvl) >> 5, 0, m5 - 1)
-    coly = torch.clamp((icy << lvl) >> 5, 0, m5 - 1)
-    return torch.where(alive != 0, coly * m5 + colx, BIG_KEY)
-
-
 def march_rounds(rays, state, scene: Scene, *, cell_intersect: str, clip,
                  first_budget: int, rounds: int, round_budget: int,
                  moving: tuple, skip_pass0: bool = False, counts: list | None = None,
-                 l0_tail: bool | str = "auto", relax: int = 0):
+                 l0_tail: bool | str = "auto", relax: int = 0, keep: tuple = (0, 1, 2, 3)):
     """Pass 0 in launch order, then `rounds` sorted rounds (the last one
     unbudgeted, and the tail under `l0_tail`/`relax`, module docstring).
     `moving` names the ray planes that differ per ray and so ride the sort;
     the others are one value broadcast. Returns the result planes (hit,
-    t_hit, hx, hy) in launch order. `counts`, a list, takes each pass's
-    (2, P) per-ray steps and cell tests, in that pass's lane order
-    (march_pass's counting instance). Each pass launches through
-    `launch_pass`, without `march_pass`'s checks: every plane it is handed
-    is made here, from the scene (march_pass.py)."""
+    t_hit, hx, hy) at the indices `keep`, in launch order. `counts`, a
+    list, takes each pass's (2, P) per-ray steps and cell tests, in that
+    pass's lane order (march_pass's counting instance). Each pass launches
+    through `launch_pass`, without `march_pass`'s checks: every plane it is
+    handed is made here, from the scene (march_pass.py). Each sorted round
+    reorders through `ray_sort`, and the results go back through
+    `ray_unsort` (kernels/ray_sort.py)."""
     check_l0_tail(l0_tail, relax)
     p = rays[0].shape[0]
     res = empty_results(p, rays[0].device)
@@ -201,34 +154,25 @@ def march_rounds(rays, state, scene: Scene, *, cell_intersect: str, clip,
                                relax=0 if tail is False else relax,
                                pyr_min=scene.pyr_min_flat, **kw)
 
-    if not skip_pass0 and first_budget > 0:
+    # the results stay the constant empty planes until a pass has run
+    fresh = skip_pass0 or first_budget <= 0
+    if not fresh:
         state, res = run("hmrt.march.pass0", rays, state, res, first_budget)
     m5 = max(scene.m // 32, 1)
     perm_tot = None
     for r in range(rounds):
         last = r == rounds - 1
         with span("hmrt.sort"):
-            tail = False
-            if last and l0_tail:
-                # force level 0 before the sort, so the sort key is the tail's column
-                forced = force_level0(rays, state)
-                if l0_tail == "auto":
-                    tail = l0_tail_flag(state)
-                    forced = tuple(torch.where(tail, f, s) for f, s in zip(forced, state))
-                else:
-                    tail = True
-                state = forced
-            perm = torch.argsort(column_key(state, m5))
-            rays = tuple(x.index_select(0, perm) if i in moving else x
-                         for i, x in enumerate(rays))
-            state = tuple(x.index_select(0, perm) for x in state)
-            res = tuple(x.index_select(0, perm) for x in res)
-            perm_tot = perm if perm_tot is None else perm_tot.index_select(0, perm)
+            rays, state, moved, perm_tot, tail = ray_sort(
+                rays, state, None if fresh else res, perm_tot, m5=m5, moving=moving,
+                tail=l0_tail if last else False)
+            res = res if fresh else moved
         state, res = run("hmrt.march.tail" if last and l0_tail else "hmrt.march.round",
                          rays, state, res, UNBUDGETED if last else round_budget, tail)
+        fresh = False
     # back to launch order: lane k of the sorted planes is launch lane perm_tot[k]
     with span("hmrt.unsort"):
-        return tuple(torch.empty_like(x).index_copy_(0, perm_tot, x) for x in res)
+        return ray_unsort(tuple(res[i] for i in keep), perm_tot)
 
 
 def march_shadows(srays, sstate, scene: Scene, *, cell_intersect: str, clip,
@@ -238,12 +182,12 @@ def march_shadows(srays, sstate, scene: Scene, *, cell_intersect: str, clip,
     """The shadow march of a compact frame: min(rounds, 2) sorted rounds
     from the rays' start state and no pass 0, the last one the tail as in
     `march_rounds`. Only the origin planes differ per ray (the direction is
-    the sun's). Returns the hit plane in launch order; `counts` as in
-    `march_rounds`."""
+    the sun's). Returns the hit plane in launch order (the only result
+    plane it scatters back); `counts` as in `march_rounds`."""
     return march_rounds(srays, sstate, scene, cell_intersect=cell_intersect, clip=clip,
                         first_budget=first_budget, rounds=min(rounds, 2),
                         round_budget=round_budget, moving=(0, 1, 2), skip_pass0=True,
-                        counts=counts, l0_tail=l0_tail, relax=relax)[0]
+                        counts=counts, l0_tail=l0_tail, relax=relax, keep=(0,))[0]
 
 
 def hit_points(rays, hit, t_hit, hx, hy):
@@ -356,7 +300,7 @@ def render_frame_compact(scene: Scene, camera: Camera, config: RenderConfig, *,
     round_budget: steps of each earlier sorted round.
     The shadow march takes min(rounds, 2) sorted rounds and no pass 0.
     l0_tail: True forces the last round of each march to the level-0 tail,
-    "auto" (the default) when more than L0_TAIL_AUTO_THRESH of its rays are
+    "auto" (the default) when more than ray_sort.L0_TAIL_AUTO_THRESH of its rays are
     already at level 0, False never; the frame is the same for each.
     relax: stride in cells of the relaxed tail (0, the default: exact). Its
     contract: no false hits; a detected hit is the exact hit with the exact
@@ -419,7 +363,7 @@ class _Slot:
     held: Scene | None = None          # the scene, held while its graph is
     camera: Camera | None = None
     frame: Frame | None = None
-    launches: tuple = (0, 0)           # march_pass's and shade_pass's a replay
+    launches: tuple = (0, 0, 0)        # march_pass's, shade_pass's, ray_sort's a replay
 
 
 class FrameGraphs:
@@ -495,6 +439,7 @@ class FrameGraphs:
                     dst.copy_(src)
                 march_pass.launches += slot.launches[0]
                 shade_pass.launches += slot.launches[1]
+                ray_sort.launches += slot.launches[2]
             slot.graph.replay()
             out = slot.frame
             return Frame(color=out.color.clone(), depth=_clone(out.depth),
@@ -506,11 +451,12 @@ class FrameGraphs:
         threads may go on using the card meanwhile ("thread_local")."""
         cam = Camera(*(t.clone() for t in _cam_tensors(camera)))
         graph = torch.cuda.CUDAGraph()
-        m0, s0 = march_pass.launches, shade_pass.launches
+        before = (march_pass.launches, shade_pass.launches, ray_sort.launches)
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             frame = render_frame_compact(scene, cam, config)
         slot.graph, slot.held, slot.camera, slot.frame = graph, scene, cam, frame
-        slot.launches = (march_pass.launches - m0, shade_pass.launches - s0)
+        slot.launches = (march_pass.launches - before[0], shade_pass.launches - before[1],
+                         ray_sort.launches - before[2])
 
 
 def _cam_tensors(camera: Camera) -> tuple:

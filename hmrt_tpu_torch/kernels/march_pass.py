@@ -23,7 +23,7 @@ reads `pyr_flat` and `heights`, the function the records are held against
 
 Tail modes, as the TPU kernel's `l0_only` and `relax` arguments: with
 `l0_only` every ray is taken as a level-0 ray (the caller has forced it
-there, kernels/compact.py::force_level0) and marches the level-0 DDA with
+there, kernels/ray_sort.py::force_level0) and marches the level-0 DDA with
 the exact test, with `l0_step`'s hits (`traversal/march.py::l0_min_step`:
 a ray under a block's lowest corner passes the block untested, one under
 the map's lowest height ends); with `relax=k` as well, the relaxed stride

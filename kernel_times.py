@@ -11,7 +11,12 @@ compact B3 frame and their sum, the render_tile kernel's device ms on the
 B3 frame (backend "pallas") and on the B1 frame (torch.profiler, the kernel
 alone), and on both and on B3's 16-row bands at the horizon beside the
 counting instance's steps, cell tests, longest ray and bound,
-the shade_pass kernel's device ms on the lanes of the B3 frame (untextured)
+each sorted round's reorder of the B3 frame and of B4's orbit frame 0 and
+their unsorts (chip_smoke.py::hold_ray_sort: the kernels, their plain
+version, CUB's radix sort between the same key pass and gather, and
+torch's argsort and index_selects, each replayed from a CUDA graph, beside
+the bytes a reorder cannot avoid), the shade_pass kernel's device ms on the
+lanes of the B3 frame (untextured)
 and of B4's orbit frame 0 (textured), three times each by CUDA events over
 SHADE_REPS calls queued behind a spin kernel, with the 32-byte sectors its
 gathers touch in either layout (chip_smoke.py::shade_sectors), the B3
@@ -120,6 +125,10 @@ def registers(log: str) -> dict:
                 suffix = ("_textured" if "ILb1E" in entry else
                           "_untextured" if "ILb0E" in entry else "")
                 regs["shade_pass_kernel" + suffix] = [int(m.group(1)), spill]
+            sort = re.search(r"(ray_(?:un)?sort_[a-z_]+)[EI]", entry)
+            if sort:  # the ray sort's kernels, the last digit's scatter apart
+                suffix = "_last" if "ILb1E" in entry else ""
+                regs[sort.group(1) + suffix] = [int(m.group(1)), spill]
     return regs
 
 
@@ -265,9 +274,9 @@ def main() -> int:
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE))
-    from chip_smoke import (card_line, event_ms, fused_work, kernel_ms, launch_times,
-                            median_ms, queued_ms, shade_sectors, tail_launches,
-                            tail_survivors)
+    from chip_smoke import (card_line, cub_library, event_ms, fused_work, hold_ray_sort,
+                            kernel_ms, launch_times, median_ms, queued_ms, shade_sectors,
+                            tail_launches, tail_survivors)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import hmrt_tpu_torch as T
     from hmrt_tpu_torch.api.flythrough import frame_camera, orbit_flythrough
@@ -393,8 +402,18 @@ def main() -> int:
             b5_bands.append({"ms": median_ms(run, 3)[0], "ran": ran,
                              "march_ms": [ms for _, ms in launch_times(
                                  run, ("march_pass_kernel",))]})
+        # each sorted round's reorder and the unsorts of the B3 frame and of
+        # B4's orbit frame 0 (in a checkout from before the ray sort, none)
+        sort_rounds = {}
+        if importlib.util.find_spec("hmrt_tpu_torch.kernels.ray_sort"):
+            cub = cub_library()
+            sort_rounds = {"b3": hold_ray_sort("B3", lambda: render_frame_compact(
+                               scene, cam, cfg_c), card, cub),
+                           "b4": hold_ray_sort("B4 orbit frame 0", lambda: render_frame_compact(
+                               scene4, cam4, b4.render), card, cub)}
         print(json.dumps({
             "root": args.root, "variant": spec, "card": card,
+            "ray_sort_rounds": sort_rounds,
             "march_pass_ms_per_launch": [ms for _, ms in per_launch],
             "march_pass_ms_per_frame": sum(ms for _, ms in per_launch),
             "render_tile_ms_b3": k3, "render_tile_ms_b1": k3_b1, "render_tile": k3_rows,

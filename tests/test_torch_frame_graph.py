@@ -9,9 +9,10 @@ import torch
 import hmrt_tpu_torch as T
 from conftest import random_rays
 from hmrt_tpu_torch.kernels.compact import (GRAPH_STEPS, FrameGraphs, empty_results,
-                                            force_level0, frame_graphs, graph_step,
-                                            init_state, render_frame_compact)
+                                            frame_graphs, graph_step, init_state,
+                                            render_frame_compact)
 from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, launch_pass, march_pass
+from hmrt_tpu_torch.kernels.ray_sort import force_level0
 from hmrt_tpu_torch.types import _cross, _norm, y_axis
 from hmrt_tpu_torch.utils.profiling import tracing
 

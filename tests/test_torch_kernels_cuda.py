@@ -14,7 +14,8 @@ import torch
 import hmrt_tpu_torch as T
 from conftest import random_rays
 from hmrt_tpu_torch.kernels import _build
-from hmrt_tpu_torch.kernels.compact import force_level0, init_state, render_frame_compact
+from hmrt_tpu_torch.kernels.compact import init_state, render_frame_compact
+from hmrt_tpu_torch.kernels.ray_sort import force_level0
 from hmrt_tpu_torch.core.renderer import render_frame_oracle
 from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, march_pass,
                                                march_pass_reference)

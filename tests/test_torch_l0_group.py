@@ -27,8 +27,9 @@ from hmrt_tpu.io.heightmap import procedural_terrain as jax_procedural_terrain
 from hmrt_tpu.kernels.march_body import wavefront_step_l0 as jax_step_l0
 from hmrt_tpu.traversal.intersect import INTERSECTORS as JAX_INTERSECTORS
 from hmrt_tpu.traversal.march import corner_heights as jax_corner_heights
-from hmrt_tpu_torch.kernels.compact import empty_results, force_level0, init_state
+from hmrt_tpu_torch.kernels.compact import empty_results, init_state
 from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass, march_pass_reference
+from hmrt_tpu_torch.kernels.ray_sort import force_level0
 from hmrt_tpu_torch.traversal.intersect import BIG_T, INTERSECTORS
 from hmrt_tpu_torch.traversal.march import (WorkCounter, below_margins, entry_cell,
                                             l0_group_march, l0_min_step, ray_box_range,

@@ -12,8 +12,9 @@ import torch
 import hmrt_tpu_torch as T
 from conftest import random_rays
 from hmrt_tpu_torch.bench.latency import l0_walk, l0_walk_reference
-from hmrt_tpu_torch.kernels.compact import empty_results, force_level0, init_state
+from hmrt_tpu_torch.kernels.compact import empty_results, init_state
 from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass_reference
+from hmrt_tpu_torch.kernels.ray_sort import force_level0
 from hmrt_tpu_torch.traversal.march import WorkCounter
 
 torch.set_num_threads(2)  # the suite runs several workers at once

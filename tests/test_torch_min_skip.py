@@ -36,10 +36,11 @@ from hmrt_tpu_torch.bench.configs import BENCH_CONFIGS, bench_scene
 from hmrt_tpu_torch.core.pyramid import POS_INF, build_min_pyramid_flat, min_flat_size
 from hmrt_tpu_torch.distrib.dryrun import render_sharded_jobs, scene_digest
 from hmrt_tpu_torch.distrib.mesh import make_mesh, replicate_scene, spawn
-from hmrt_tpu_torch.kernels.compact import (empty_results, force_level0, init_state,
-                                            primary_rays, render_frame_compact)
+from hmrt_tpu_torch.kernels.compact import (empty_results, init_state, primary_rays,
+                                            render_frame_compact)
 from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, launch_pass, march_pass,
                                                march_pass_reference)
+from hmrt_tpu_torch.kernels.ray_sort import force_level0
 from hmrt_tpu_torch.traversal.intersect import BIG_T, INTERSECTORS
 from hmrt_tpu_torch.traversal.march import (MARGIN_S, MARGIN_TOL, T_TOL, WorkCounter,
                                             below_margins, entry_cell, l0_min_step, l0_step,

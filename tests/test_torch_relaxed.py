@@ -36,11 +36,10 @@ from hmrt_tpu.traversal.march import corner_heights as jax_corner_heights
 from hmrt_tpu.types import Camera as JaxCamera
 from hmrt_tpu_torch.api.scene import scene_from_arrays
 from hmrt_tpu_torch.core.renderer import render_frame_oracle
-from hmrt_tpu_torch.kernels.compact import (L0_TAIL_AUTO_THRESH, empty_results,
-                                            force_level0, init_state, l0_tail_flag,
-                                            render_frame_compact)
+from hmrt_tpu_torch.kernels.compact import empty_results, init_state, render_frame_compact
 from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, march_pass,
                                                march_pass_reference)
+from hmrt_tpu_torch.kernels.ray_sort import L0_TAIL_AUTO_THRESH, force_level0, l0_tail_flag
 from hmrt_tpu_torch.traversal.intersect import BIG_T, INTERSECTORS, SURFACES
 from hmrt_tpu_torch.traversal.march import (WorkCounter, entry_cell, l0_step,
                                             l0_step_relaxed, ray_box_range, ray_inverses,

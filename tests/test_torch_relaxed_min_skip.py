@@ -32,10 +32,11 @@ from hmrt_tpu.traversal.intersect import (INTERSECTORS as JAX_INTERSECTORS,
                                           SURFACES as JAX_SURFACES)
 from hmrt_tpu.traversal.march import corner_heights as jax_corner_heights
 from hmrt_tpu_torch.bench.configs import BENCH_CONFIGS, bench_scene
-from hmrt_tpu_torch.kernels.compact import (empty_results, force_level0, init_state,
-                                            primary_rays, render_frame_compact)
+from hmrt_tpu_torch.kernels.compact import (empty_results, init_state, primary_rays,
+                                            render_frame_compact)
 from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, launch_pass, march_pass,
                                                march_pass_reference)
+from hmrt_tpu_torch.kernels.ray_sort import force_level0
 from hmrt_tpu_torch.traversal.intersect import INTERSECTORS, SURFACES
 from hmrt_tpu_torch.traversal.march import (EPS_EXIT, T_TOL, WorkCounter, below_margins,
                                             l0_min_step_relaxed, l0_step_relaxed,

@@ -15,8 +15,9 @@ import hmrt_tpu_torch as T
 from conftest import random_rays
 from hmrt_tpu_torch.config import RenderConfig
 from hmrt_tpu_torch.core.renderer import render_frame
-from hmrt_tpu_torch.kernels.compact import empty_results, force_level0, init_state
+from hmrt_tpu_torch.kernels.compact import empty_results, init_state
 from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass
+from hmrt_tpu_torch.kernels.ray_sort import force_level0
 from hmrt_tpu_torch.utils.profiling import tracing
 
 pytestmark = pytest.mark.cuda
