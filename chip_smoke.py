@@ -80,20 +80,21 @@ entry points:
     in a thread on 127.0.0.1 (GET /, /state, POST /frame draft and full,
     a non-finite camera), each against render_frame at that camera; and
     load_heightmap on a PNG, a PGM, a TIFF and an ESRI ASCII grid;
-  - the grazing tail (phase 16): march_pass's level-0 tail at one lane and
-    32 lanes a ray on ~8,192 of B3's tail rays and on B4's 16, and its
-    relaxed tail at strides 4, 8 and 16 on B3's, against their plain
-    versions (all 9 planes and the per-ray counts exact; the hits also
+  - the grazing tail (phase 16): march_pass's level-0 tail (one lane a
+    ray) on ~8,192 of B3's tail rays and on B4's 16, and its relaxed tail
+    at strides 4, 8 and 16 on B3's, against their plain versions (all 9
+    planes and the per-ray counts exact; the hits also
     against the old walks, every cell tested and `l0_step_relaxed`, with
     their steps beside the new), timed beside their plain versions and bounds,
-    with the warp efficiency of B3's tail at one lane a ray (B4's main path
-    must have taken the march of one lane a ray, phase 11); B3's primary and shadow
+    with the warp efficiency of B3's tail (B4's main path must have run the
+    level-0 tail, phase 11); B3's primary and shadow
     tail launches and B4's as the main path makes them, at their full
-    width, replayed with every lane group against the plain version of the
-    march each ran on their live lanes and against the old walk's hits;
-    the min pyramid's MB; B4's latency bound, the least of the two
-    marches' chains of dependent steps at the time of one step of the probe
-    bench/latency.py (one dependent record load and cell test); the relaxed
+    width, replayed against the plain version of the march each ran on
+    their live lanes and against the old walk's hits; the min pyramid's MB;
+    B4's latency bound, the one-lane march's chain of dependent steps on
+    its longest ray at the time of one step of the probe bench/latency.py
+    (one dependent record load and cell test, timed over the serial walk's
+    chain of cells to the floor); the relaxed
     tail's fidelity and time on full B3 and B4 frames (bench/fidelity.py:
     no false, missed or late hit at any stride); the longest per-ray step
     chain of the tail launch on B3 and B4 with each tail; the runner's B2,
@@ -1329,11 +1330,12 @@ def tail_survivors(scene, cam, cfg, count: int = TAIL_RAYS):
 
 
 def plain_tail(rays, state, results, scene, relax, counter, cell_intersect="triangle",
-               group=1):
+               walk="min"):
     """The plain version of an unbudgeted tail pass: the exact tail as
-    march_pass_reference runs it for `group` (1: one lane a ray, passing
-    under the terrain by blocks; 32: the lane groups' walk, cell by cell to
-    the floor), "old" for the old walk (l0_step over every cell, whose hits
+    march_pass_reference runs it ("min": one lane a ray, passing under the
+    terrain by blocks), "floor" for the serial walk cell by cell to the
+    floor (l0_min_step with hierarchy=False, the chain the latency probe
+    walks), "old" for the old walk (l0_step over every cell, whose hits
     every form must give); with `relax` set the relaxed tail, as the kernel
     marches it (l0_min_step_relaxed), or for "old" the old relaxed walk
     (l0_step_relaxed), with `relax` an int or an int32 tensor of one stride
@@ -1342,17 +1344,17 @@ def plain_tail(rays, state, results, scene, relax, counter, cell_intersect="tria
     planes."""
     import torch
     from hmrt_tpu_torch.traversal.intersect import INTERSECTORS, SURFACES
-    from hmrt_tpu_torch.traversal.march import (below_margins, l0_min_step_relaxed, l0_step,
-                                                l0_step_relaxed, ray_box_range, ray_inverses,
-                                                record_corners, relaxed_planes, run_masked)
+    from hmrt_tpu_torch.traversal.march import (below_margins, l0_min_step,
+                                                l0_min_step_relaxed, l0_step, l0_step_relaxed,
+                                                ray_box_range, ray_inverses, record_corners,
+                                                relaxed_planes, run_masked)
     from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass_reference
     relaxed = isinstance(relax, torch.Tensor) or bool(relax)
-    if not relaxed and group != "old":
+    if not relaxed and walk == "min":
         return march_pass_reference(rays, state, results, scene.pyr_flat, scene.heights,
                                     n=scene.n, m=scene.m, levels=scene.levels,
                                     budget=UNBUDGETED, cell_intersect=cell_intersect,
-                                    counter=counter, l0_only=True, group=group,
-                                    pyr_min=scene.pyr_min_flat)
+                                    counter=counter, l0_only=True, pyr_min=scene.pyr_min_flat)
     ox, oy, oz, dx, dy, dz = rays
     inv_x, inv_y = ray_inverses(dx, dy)
     _, t1, _ = ray_box_range(ox, oy, dx, dy, float(scene.n - 1))
@@ -1364,17 +1366,22 @@ def plain_tail(rays, state, results, scene, relax, counter, cell_intersect="tria
     corners = record_corners(scene.heights.reshape(-1), scene.n, scene.m)
     gmax = scene.pyr_flat[-1]
     kw = dict(m=scene.m, intersector=INTERSECTORS[cell_intersect], counter=counter)
-    if not relaxed:
+    below = below_margins(ray, scene.pyr_min_flat[-1], gmax, m=scene.m,
+                          cell_intersect=cell_intersect)
+    if not relaxed and walk == "floor":
+        st = run_masked(lambda s: l0_min_step(ray, s, corners, scene.pyr_flat,
+                                              scene.pyr_min_flat, gmax, below,
+                                              levels=scene.levels, hierarchy=False, **kw),
+                        st, UNBUDGETED)
+    elif not relaxed:
         st = run_masked(lambda s: l0_step(ray, s, corners, gmax, **kw), st, UNBUDGETED)
     else:
         st.update(relaxed_planes(t))
         kw.update(surface=SURFACES[cell_intersect], stride=relax)
-        if group == "old":
+        if walk == "old":
             st = run_masked(lambda s: l0_step_relaxed(ray, s, corners, gmax, **kw), st,
                             UNBUDGETED)
         else:
-            below = below_margins(ray, scene.pyr_min_flat[-1], gmax, m=scene.m,
-                                  cell_intersect=cell_intersect)
             st = run_masked(lambda s: l0_min_step_relaxed(
                 ray, s, corners, scene.pyr_flat, scene.pyr_min_flat, gmax, below,
                 levels=scene.levels, **kw), st, UNBUDGETED)
@@ -1382,13 +1389,8 @@ def plain_tail(rays, state, results, scene, relax, counter, cell_intersect="tria
             (st["hit"].to(torch.int32), st["t_hit"], st["hx"], st["hy"]))
 
 
-#: the level-0 tail's instances held to the plain tail: the label, as in
-#: march_pass.mode_launches, and the lanes a ray the instance is forced to
-TAIL_GROUPS = (("l0", 1), ("l0_g32", 32))
-
-
 def hold_tail(label, tail, scene, plain, run_kw, card, old=None):
-    """One instance of K1's tail (`run_kw`: relax, group) against the plain
+    """One instance of K1's tail (`run_kw`: relax) against the plain
     tail on the same rays: its counting and timed launches must equal the
     plain planes and per-ray counts exactly. `tail` is (rays, state,
     results); `plain` is (out, WorkCounter, plain ms, lanes of the plain
@@ -1680,14 +1682,15 @@ def hold_ray_sort(label, render, card, cub, reps: int = 50) -> dict:
             "reorders": len(sorts), "unsorts": len(unsorts), "rows": rows}
 
 
-def live_plain(launch, scene, group=1):
+def live_plain(launch, scene, walk="min"):
     """The plain version of a captured march_pass launch (tail_launches) on
     its live lanes alone: march_pass_reference with the launch's arguments
-    (the level-0 tail as `group` marches it, 1 or 32, or the max-mip pass
-    when its "auto" flag reads false; "old" for the old walk, l0_step over
-    every cell) and a WorkCounter. Returns (the live lanes' indices, their
-    (rays, state, results), their plain (state, results), the WorkCounter,
-    the plain run's ms)."""
+    (the level-0 tail, or the max-mip pass when its "auto" flag reads
+    false; "old" for the old walk, l0_step over every cell, and "floor" for
+    the serial walk to the floor, as plain_tail takes them) and a
+    WorkCounter. Returns (the live lanes' indices, their (rays, state,
+    results), their plain (state, results), the WorkCounter, the plain
+    run's ms)."""
     import torch
     from hmrt_tpu_torch.kernels.march_pass import march_pass_reference
     from hmrt_tpu_torch.traversal.march import WorkCounter
@@ -1698,94 +1701,81 @@ def live_plain(launch, scene, group=1):
     work = WorkCounter(scene.pyr_flat.shape[0], scene.n, live.device, lanes=live.numel())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    if group == "old":
-        out = plain_tail(*sub, scene, 0, work, kw["cell_intersect"], group="old")
+    if walk != "min":
+        out = plain_tail(*sub, scene, 0, work, kw["cell_intersect"], walk=walk)
     else:
         out = march_pass_reference(*sub, scene.pyr_flat, scene.heights, counter=work,
-                                   group=group, **{k: kw[k] for k in (
+                                   **{k: kw[k] for k in (
                                        "n", "m", "levels", "budget", "cell_intersect", "clip",
                                        "l0_only", "relax", "pyr_min")})
     torch.cuda.synchronize()
     return live, sub, out, work, 1e3 * (time.perf_counter() - t0)
 
 
-def hold_launch(label, launch, plains, card, old=None) -> dict:
+def hold_launch(label, launch, plain, card, old=None) -> dict:
     """A tail launch as the main path made it (tail_launches), at its full
-    width, replayed with every lane group: "auto" and each of TAIL_GROUPS.
-    Its counting and its timed launch must equal the plain version of the
-    march it ran in all 9 planes and in the per-ray counts: on the live
-    lanes the plain run in `plains` (live_plain) under the instance's name
-    ("l0", "l0_g32", or "maxmip" for a launch whose flag reads false), the
-    dead lanes as they came with 0 steps and 0 tests, which is what the
-    plain version leaves them. Each group must run its instance ("auto":
-    one lane a ray; march_pass.mode_launches), or max-mip when the
-    launch's flag reads false. `old`: the old walk's live_plain, whose hit, t_hit, hx and hy
-    every group must give. Returns the rays, the live rays, the plain ms
-    and, by group, the kernel's ms, the instance it ran and its steps and
-    cell tests, and the warp efficiency of one lane a ray."""
+    width, replayed. Its counting and its timed launch must equal the plain
+    version of the march it ran in all 9 planes and in the per-ray counts:
+    on the live lanes the plain run `plain` (live_plain), the dead lanes as
+    they came with 0 steps and 0 tests, which is what the plain version
+    leaves them. It must run the level-0 tail ("l0" in
+    march_pass.mode_launches), or max-mip when the launch's flag reads
+    false. `old`: the old walk's live_plain, whose hit, t_hit, hx and hy it
+    must give. Returns the rays, the live rays, the plain ms, the kernel's
+    ms, the instance it ran, its steps and cell tests, and its warp
+    efficiency."""
     import torch
     from hmrt_tpu_torch.kernels.march_pass import march_pass
     args, kw = launch
     p = args[0][0].shape[0]
-    live = next(iter(plains.values()))[0]
+    live, _, out, work, plain_ms = plain
     tail = bool(kw["l0_only"])
-    entry = {"rays": p, "live": int(live.numel()), "tail": tail, "max_abs_err": 0.0,
-             "plain_ms": {k: v[4] for k, v in plains.items()}}
-    for group in ("auto", *(g for _, g in TAIL_GROUPS)):
-        kw_g = {**kw, "group": group}
-        cnt = torch.empty((2, p), dtype=torch.int32, device=live.device)
-        march_pass.mode_launches.reset()
-        got = (march_pass(*args, **{**kw_g, "counts": cnt}), march_pass(*args, **kw_g))
-        ran = [k for k, v in march_pass.mode_launches.read().items() if v]
-        may = (("maxmip",) if not tail else ("l0",) if group == "auto"
-               else tuple(k for k, g in TAIL_GROUPS if g == group))
-        if len(ran) != 1 or ran[0] not in may:
-            raise AssertionError(f"{label}, group {group}: the launches ran {ran}, not one "
-                                 f"of {may}")
-        _, _, out, work, _ = plains[ran[0]]
-        want = tuple(x.clone().index_copy_(0, live, o)
-                     for x, o in zip(args[1] + args[2], out[0] + out[1]))
-        want_cnt = torch.zeros((2, p), dtype=torch.int32, device=live.device)
-        want_cnt[0].index_copy_(0, live, work.lane_steps)
-        want_cnt[1].index_copy_(0, live, work.lane_tests)
-        for planes in got:
-            for name, a, b in zip(STATE + RESULTS, planes[0] + planes[1], want):
+    cnt = torch.empty((2, p), dtype=torch.int32, device=live.device)
+    march_pass.mode_launches.reset()
+    got = (march_pass(*args, **{**kw, "counts": cnt}), march_pass(*args, **kw))
+    ran = [k for k, v in march_pass.mode_launches.read().items() if v]
+    if ran != ["l0" if tail else "maxmip"]:
+        raise AssertionError(f"{label}: the launches ran {ran}, flag {tail}")
+    want = tuple(x.clone().index_copy_(0, live, o)
+                 for x, o in zip(args[1] + args[2], out[0] + out[1]))
+    want_cnt = torch.zeros((2, p), dtype=torch.int32, device=live.device)
+    want_cnt[0].index_copy_(0, live, work.lane_steps)
+    want_cnt[1].index_copy_(0, live, work.lane_tests)
+    for planes in got:
+        for name, a, b in zip(STATE + RESULTS, planes[0] + planes[1], want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: plane {name} differs from the plain version "
+                                     f"on {int((a != b).sum())} lanes")
+        if old is not None:
+            old_want = tuple(x.clone().index_copy_(0, live, o)
+                             for x, o in zip(args[2], old[2][1]))
+            for name, a, b in zip(RESULTS, planes[1], old_want):
                 if not torch.equal(a, b):
-                    raise AssertionError(f"{label}, group {group}: plane {name} differs from "
-                                         f"the plain version on {int((a != b).sum())} lanes")
-            if old is not None:
-                old_want = tuple(x.clone().index_copy_(0, live, o)
-                                 for x, o in zip(args[2], old[2][1]))
-                for name, a, b in zip(RESULTS, planes[1], old_want):
-                    if not torch.equal(a, b):
-                        raise AssertionError(f"{label}, group {group}: {name} differs from "
-                                             f"the old walk's on {int((a != b).sum())} lanes")
-        if not torch.equal(cnt, want_cnt):
-            raise AssertionError(f"{label}, group {group}: per-ray counts differ from the "
-                                 "plain WorkCounter")
-        entry[str(group)] = {"ms": kernel_ms(lambda: march_pass(*args, **kw_g),
-                                             "march_pass_kernel", 5), "ran": ran[0],
-                             "steps": int(cnt[0].sum(dtype=torch.int64)),
-                             "tests": int(cnt[1].sum(dtype=torch.int64))}
-        if group == 1 and tail and live.numel():
-            lane = cnt[0].index_select(0, live)
-            entry["warp_efficiency_one_lane"] = warp_efficiency(
-                [lane], lambda st: torch.nn.functional.pad(st, (0, -st.shape[0] % 32))
-                .reshape(-1, 32))
+                    raise AssertionError(f"{label}: {name} differs from the old walk's on "
+                                         f"{int((a != b).sum())} lanes")
+    if not torch.equal(cnt, want_cnt):
+        raise AssertionError(f"{label}: per-ray counts differ from the plain WorkCounter")
+    entry = {"rays": p, "live": int(live.numel()), "tail": tail, "max_abs_err": 0.0,
+             "plain_ms": plain_ms, "ran": ran[0],
+             "ms": kernel_ms(lambda: march_pass(*args, **kw), "march_pass_kernel", 5),
+             "steps": int(cnt[0].sum(dtype=torch.int64)),
+             "tests": int(cnt[1].sum(dtype=torch.int64))}
+    if tail and live.numel():
+        entry["warp_efficiency"] = warp_efficiency(
+            [cnt[0].index_select(0, live)],
+            lambda st: torch.nn.functional.pad(st, (0, -st.shape[0] % 32)).reshape(-1, 32))
     if old is not None:
         entry["old_steps"] = int(old[3].steps)
         entry["old_tests"] = int(old[3].tests)
     log(f"  {label}: {p} lanes, {entry['live']} live, flag {tail}; 9 planes and per-ray "
-        f"counts equal the plain version of the march each group ran ("
-        + ", ".join(f"{k} {v:.1f} ms" for k, v in entry["plain_ms"].items()) + ")"
+        f"counts equal the plain version of the march it ran ({plain_ms:.1f} ms)"
         + ("" if old is None else
            f"; hit, t_hit and cells equal the old walk's ({entry['old_steps']} steps, "
            f"{entry['old_tests']} cell tests)")
-        + "; " + ", ".join(f"{g} ({entry[g]['ran']}) {entry[g]['ms']:.4f} ms, "
-                           f"{entry[g]['steps']} steps, {entry[g]['tests']} tests"
-                           for g in entry if g in ("auto", "1", "32"))
-        + (f"; one lane a ray keeps {100 * entry['warp_efficiency_one_lane']:.1f}% of its "
-           "warps' lanes busy" if "warp_efficiency_one_lane" in entry else "")
+        + f"; {entry['ran']} {entry['ms']:.4f} ms, {entry['steps']} steps, "
+          f"{entry['tests']} tests"
+        + (f"; one lane a ray keeps {100 * entry['warp_efficiency']:.1f}% of its warps' lanes "
+           "busy" if "warp_efficiency" in entry else "")
         + f"  [{card}]")
     return entry
 
@@ -1813,17 +1803,17 @@ def parent_raygen_moves(sc, cm, cf) -> dict:
 
 def grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4,
                        main_modes) -> dict:
-    """Phase 16, the grazing tail. K1's level-0 tail (l0_only; one lane or 32
-    lanes a ray) and relaxed tail (strides 4, 8, 16) against their plain
-    versions on B3's tail survivors (and in hits against the old walk and
-    the old relaxed walk), and the level-0 tail's instances on
-    B4's, exact, in all 9 planes and in the counting instance's per-ray
-    counts, each timed beside its plain version (with its WorkCounter) and
-    its bound; B3's tail warp efficiency at one lane a ray; B3's shadow tail
-    launch and B4's tail launch as the main path makes them, replayed with
-    every lane group against the plain version on their live lanes (B4's
-    16 are the rays held above); B4's latency bound by group (the longest
-    chain over G, times the probe's dependent step on that ray); the raygen
+    """Phase 16, the grazing tail. K1's level-0 tail (l0_only, one lane a
+    ray) and relaxed tail (strides 4, 8, 16) against their plain versions on
+    B3's tail survivors (and in hits against the old walk and the old
+    relaxed walk), and the level-0 tail on B4's, exact, in all 9 planes and
+    in the counting instance's per-ray counts, each timed beside its plain
+    version (with its WorkCounter) and its bound; B3's tail warp efficiency;
+    B3's primary and shadow tail launches and B4's tail launch as the main
+    path makes them, replayed against the plain version on their live lanes
+    (B4's 16 are the rays held above); B4's latency bound (the one-lane
+    march's steps on its longest ray, times the probe's dependent step,
+    timed over the serial walk's chain of cells to the floor); the raygen
     root's moves on B4; the relaxed tail's fidelity and time on full B3 and
     B4 (orbit frame 0) frames (bench/fidelity.py), failing on any false,
     missed or late hit; the longest per-ray step chain of the tail launch,
@@ -1855,17 +1845,16 @@ def grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4
         f"forced to level 0 and sorted by column; {int(under.sum())} of those stand below "
         f"the surface; the min pyramid the tail reads: "
         f"{scene.pyr_min_flat.numel() * 4 / 1e6:.1f} MB")
-    # the plain versions: the level-0 tail of each instance (one lane a ray
-    # under the terrain by blocks; 32 lanes a ray cell by cell to the
-    # floor), the old walk (every cell, no min pyramid: the hits all must
-    # give), and the relaxed tail (as the kernel marches it, and the old
+    # the plain versions: the level-0 tail (one lane a ray, under the
+    # terrain by blocks), the old walk (every cell, no min pyramid: the hits
+    # it must give), and the relaxed tail (as the kernel marches it, and the old
     # relaxed walk, whose hits it must give) at every stride in one masked
     # loop over the rays repeated once per stride (the plain loop's time is
     # its launches, whatever its width), each with its WorkCounter;
     # plain_ms is that loop's time
     plain = {}
-    for label, relax, group in (("l0", 0, 1), ("l0_g32", 0, 32), ("old", 0, "old"),
-                                ("relax", STRIDES, 1), ("relax_old", STRIDES, "old")):
+    for label, relax, walk in (("l0", 0, "min"), ("old", 0, "old"), ("relax", STRIDES, "min"),
+                               ("relax_old", STRIDES, "old")):
         if relax:
             rep = len(STRIDES)
             rays_p = tuple(torch.cat([r] * rep) for r in t_rays)
@@ -1877,15 +1866,13 @@ def grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4
         work = WorkCounter(scene.pyr_flat.shape[0], scene.n, dev, lanes=rays_p[0].shape[0])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = plain_tail(rays_p, state_p, res_p, scene, relax, work, cfg.cell_intersect,
-                         group)
+        out = plain_tail(rays_p, state_p, res_p, scene, relax, work, cfg.cell_intersect, walk)
         torch.cuda.synchronize()
         plain[label] = (out, work, 1e3 * (time.perf_counter() - t0))
     modes = {}
     tail3 = (t_rays, t_state, t_res)
-    for label, group in TAIL_GROUPS:
-        modes[label] = hold_tail(label, tail3, scene, (*plain[label], slice(None)),
-                                 dict(group=group), card, old=plain["old"][:2])
+    modes["l0"] = hold_tail("l0", tail3, scene, (*plain["l0"], slice(None)), {}, card,
+                            old=plain["old"][:2])
     for k in STRIDES:  # this stride's copy of the rays in the batched plain loops
         i = STRIDES.index(k)
         modes[f"relax{k}"] = hold_tail(f"relax{k}", tail3, scene,
@@ -1900,14 +1887,9 @@ def grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4
 
     # the main path's own tail launches at their full width: B3's primary
     # tail (513,374 live rays), B3's shadow tail (its flag reads false, no
-    # ray being left; and forced, so that each group's sweep of the dead
-    # rays runs) and B4's (16 live rays), each against the plain version of
-    # the march each group ran and in hits against the old walk
-    def plains(launch, sc):
-        if not bool(launch[1]["l0_only"]):
-            return {"maxmip": live_plain(launch, sc)}
-        return {label: live_plain(launch, sc, group) for label, group in TAIL_GROUPS}
-
+    # ray being left; and forced, so that the sweep of the dead rays runs)
+    # and B4's (16 live rays), each against the plain version of the march
+    # it ran and in hits against the old walk
     def old_walk(launch, sc):  # a launch whose flag reads false runs no tail
         return live_plain(launch, sc, "old") if bool(launch[1]["l0_only"]) else None
 
@@ -1919,34 +1901,32 @@ def grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4
     primary3, shadow3 = launches3
     forced3 = (shadow3[0], {**shadow3[1], "l0_only": True})
     held = {"B3 primary": hold_launch("B3 primary tail launch", primary3,
-                                      plains(primary3, scene), card,
+                                      live_plain(primary3, scene), card,
                                       old=old_walk(primary3, scene)),
-            "B3 shadow": hold_launch("B3 shadow tail launch", shadow3, plains(shadow3, scene),
-                                     card),
+            "B3 shadow": hold_launch("B3 shadow tail launch", shadow3,
+                                     live_plain(shadow3, scene), card),
             "B3 shadow, tail forced": hold_launch("B3 shadow tail launch, tail forced",
-                                                  forced3, plains(forced3, scene), card,
+                                                  forced3, live_plain(forced3, scene), card,
                                                   old=old_walk(forced3, scene))}
     launches4 = tail_launches(lambda: render_frame_compact(scene4, cam40, cfg4), march_pass)
     if len(launches4) != 1:
         raise AssertionError(f"B4's frame made {len(launches4)} tail launches, not 1")
-    plain4 = plains(launches4[0], scene4)
+    plain4 = live_plain(launches4[0], scene4)
     old4 = old_walk(launches4[0], scene4)
     held["B4"] = hold_launch("B4 orbit frame 0 tail launch", launches4[0], plain4, card,
                              old=old4)
     # its live rays alone, held the same way, and the latency bound of
-    # their launch by group: the longest chain of cells (the lane groups'
-    # walk) over G windows, each at least one step of the probe
-    # (bench/latency.py: one lane, each record load waiting on the previous
-    # cell's test)
-    _, (r4, s4, res4), _, _, _ = plain4["l0"]
-    b4_modes = {label: hold_tail(f"{label} (B4)", (r4, s4, res4), scene4,
-                                 (*plain4[label][2:], slice(None)), dict(group=group), card,
-                                 old=old4[2:4])
-                for label, group in TAIL_GROUPS}
-    out4 = plain4["l0_g32"][2]
-    work4 = plain4["l0_g32"][3]
-    longest = int(torch.argmax(b4_modes["l0_g32"]["lane_steps"]))
-    chain = int(b4_modes["l0_g32"]["lane_steps"][longest])
+    # their launch: the one-lane march's steps on its longest ray, each at
+    # least one step of the probe (bench/latency.py: one lane, each record
+    # load waiting on the previous cell's test), timed over the longest
+    # chain of cells of the serial walk to the floor, in whose state the
+    # probe's walk must end
+    _, (r4, s4, res4), _, _, _ = plain4
+    b4_tail = hold_tail("l0 (B4)", (r4, s4, res4), scene4, (*plain4[2:], slice(None)), {},
+                        card, old=old4[2:4])
+    _, _, out4, work4, floor_ms = live_plain(launches4[0], scene4, "floor")
+    longest = int(torch.argmax(work4.lane_steps))
+    chain = int(work4.lane_steps[longest])
     one = tuple(tuple(x[longest:longest + 1].contiguous() for x in planes)
                 for planes in (r4, s4, res4))
     walk_kw = dict(steps=chain, cell_intersect=cfg4.cell_intersect)
@@ -1957,38 +1937,30 @@ def grazing_tail_phase(run_path, card, dev, scene, cam, cfg, scene4, cam40, cfg4
     for (name, want), got in zip(ended.items(), (walk[0], *walk[2:])):
         if not torch.equal(got, want):
             raise AssertionError(f"the probe's walk ends with {name} {got.tolist()}, the "
-                                 f"march with {want.tolist()}")
+                                 f"serial walk with {want.tolist()}")
     if bool(walk[4]) and not torch.equal(walk[1], out4[1][1][at]):
-        raise AssertionError("the probe's walk hits at another t than the march")
+        raise AssertionError("the probe's walk hits at another t than the serial walk")
     probe_ms = kernel_ms(lambda: l0_walk(one[0], one[1], scene4, **walk_kw), "l0_probe_kernel",
                          5)
     step_us = 1e3 * probe_ms / chain
     kw1 = dict(n=scene4.n, m=scene4.m, levels=scene4.levels, budget=UNBUDGETED, l0_only=True,
-               group=1, pyr_min=scene4.pyr_min_flat)
+               pyr_min=scene4.pyr_min_flat)
     one_ms = kernel_ms(lambda: march_pass(*one, scene4.pyr_flat, scene4.heights,
                                           scene4.corners, **kw1), "march_pass_kernel", 5)
-    log(f"  B4 tail's longest ray, {chain} cells: the probe walks it in {probe_ms:.4f} ms "
-        f"({step_us:.4f} us a dependent record load and cell test) and ends in the march's "
-        f"state; march_pass at one lane a ray on it alone {one_ms:.4f} ms  [{card}]")
-    # each march's chain of dependent steps on the longest ray (one lane a
-    # ray: its own steps; 32 lanes: the chain of cells, 32 a window); the
-    # launch's latency bound is the least of them, whichever march runs it
-    windows = {label: -(-(chain if group > 1 else b4_modes[label]["longest"]) // group)
-               for label, group in TAIL_GROUPS}
-    least = min(windows.values()) * step_us / 1e3
-    for label, group in TAIL_GROUPS:
-        e = b4_modes[label]
-        e["own_latency_ms"] = windows[label] * step_us / 1e3
-        e["latency_bound_ms"] = least
-        e["probe_us_per_step"] = step_us
-        e["one_ray_ms"] = one_ms
-        log(f"  B4 tail, {group} lane(s) a ray: {e['ms']:.4f} ms against a latency bound of "
-            f"{least:.4f} ms (its own chain: {windows[label]} dependent steps of the longest "
-            f"ray at {step_us:.4f} us, {e['own_latency_ms']:.4f} ms)  [{card}]")
-    for label, _ in TAIL_GROUPS:
-        modes[label]["launches"] = main_modes["B3"][label]
-        modes[label]["b4_launches"] = main_modes["B4"][label]
-        modes[label]["b4_tail"] = {k: v for k, v in b4_modes[label].items() if k != "lane_steps"}
+    log(f"  B4 tail's longest chain, {chain} cells of the serial walk to the floor (plain "
+        f"{floor_ms:.1f} ms): the probe walks it in {probe_ms:.4f} ms ({step_us:.4f} us a "
+        f"dependent record load and cell test) and ends in the walk's state; march_pass on "
+        f"that ray alone {one_ms:.4f} ms  [{card}]")
+    b4_tail["chain"] = chain
+    b4_tail["latency_bound_ms"] = b4_tail["longest"] * step_us / 1e3
+    b4_tail["probe_us_per_step"] = step_us
+    b4_tail["one_ray_ms"] = one_ms
+    log(f"  B4 tail, one lane a ray: {b4_tail['ms']:.4f} ms against a latency bound of "
+        f"{b4_tail['latency_bound_ms']:.4f} ms ({b4_tail['longest']} dependent steps of its "
+        f"longest ray at {step_us:.4f} us)  [{card}]")
+    modes["l0"]["launches"] = main_modes["B3"]["l0"]
+    modes["l0"]["b4_launches"] = main_modes["B4"]["l0"]
+    modes["l0"]["b4_tail"] = {k: v for k, v in b4_tail.items() if k != "lane_steps"}
     for e in modes.values():
         e.pop("lane_steps")
     moves4 = parent_raygen_moves(scene4, cam40, cfg4)
@@ -2861,8 +2833,8 @@ def main(argv=None) -> int:
     hold_sort_launches("B4 main path (render_frame, auto, orbit frame 0)", cfg4)
     b4_launches = paths["B4 main path (render_frame, auto, orbit frame 0)"]
     b4_marches = mode_paths["B4 main path (render_frame, auto, orbit frame 0)"]
-    if not b4_marches["l0"] or b4_marches["l0_g32"]:
-        raise AssertionError(f"B4's tail launch did not march one lane a ray: {b4_marches}")
+    if not b4_marches["l0"]:
+        raise AssertionError(f"B4's tail launch did not march the level-0 tail: {b4_marches}")
     b4_frac = check_frame("B4 orbit frame 0", fr4, cfg4)
     b4_ms, b4_times = median_ms(lambda: T.render_frame(scene4, cam40, cfg4), 5)
     log_rate("B4 orbit frame 0", b4_ms, b4_times, cfg4, b4_frac)

@@ -6,14 +6,16 @@ again, and a walk past the map's edge reads clamped records. On CUDA
 tensors it launches the probe `kernels/csrc/l0_probe.cu`, one lane whose
 every record load waits on the previous cell's test; on CPU tensors it runs
 the plain loop, `l0_walk_reference`. Over a ray of a tail launch, for the
-steps the lane groups' march took on it (a cell a step, to the floor), the
-walk ends where that march ends: the same t, cell, hit and cell tests.
+steps the serial walk under the floor took on it
+(`traversal/march.py::l0_min_step` with `hierarchy=False`: a cell a step,
+to the floor), the walk ends where that walk ends: the same t, cell, hit
+and cell tests.
 
 The probe is on no render path. Its time over `steps` is the latency of
-one dependent record load plus one cell test, and ceil(chain / G) of them
-is the least time a group of G lanes can take over a ray whose march is
-`chain` cells long: the latency bound of a tail launch (chip_smoke.py,
-phase 16).
+one dependent record load plus one cell test. Over the longest chain of a
+tail launch, the serial walk's steps on its longest ray, it is the
+chain-of-steps bound of a launch that marches one lane a ray
+(kernel_times.py, chip_smoke.py phase 16).
 """
 
 from __future__ import annotations

@@ -17,7 +17,7 @@ class RenderConfig:
       B2: max-mip + depth/normal bufs  -> traversal="maxmip", aux_buffers=True
       B3: shadows + Phong + sky test   -> shadows=True, shading="phong"
       B4: albedo texture + fog         -> texture=True, fog=True
-      B5: multi-device tile sharding   -> not ported yet
+      B5: multi-device band sharding   -> distrib/mesh.py render_frame_sharded
     """
 
     # --- image ---

@@ -33,9 +33,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signature of every kernel entry point: argument types, in order
 SIGNATURES = {
     # 24 state/ray planes, pyr_flat, corners, pyr_min or null; p m levels
-    # budget intersector mode stride; box_lo box_hi; tail flag or null;
-    # group; tally or null, ray counter, counts or null, stream
-    "hmrt_march_pass": [_P] * 27 + [_I] * 7 + [_F] * 2 + [_P] + [_I] + [_P] * 4,
+    # budget intersector mode stride; box_lo box_hi; tail flag or null,
+    # tally or null, ray counter, counts or null, stream
+    "hmrt_march_pass": [_P] * 27 + [_I] * 7 + [_F] * 2 + [_P] * 5,
     # hit hx hy fx fy shade_rec albedo_rec, 6 outputs; p c (cells a side); stream
     "hmrt_shade_pass": [_P] * 13 + [_I] * 2 + [_P],
     # params pyr corners pyr_min-or-null gx gy albedo, color hit depth normal

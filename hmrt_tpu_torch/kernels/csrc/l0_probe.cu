@@ -8,12 +8,13 @@
 // test: a cell that hits is taken again, as the plain loop takes it
 // (bench/latency.py). So each step is one dependent record load plus one
 // cell test, and the walk's time over `steps` is their latency. Walked over
-// the longest ray of a tail launch, ceil(steps / G) of them is the least
-// time that G lanes a ray, one window of G cells after another, can take.
+// the longest chain of a tail launch, the serial walk's steps on its
+// longest ray, it is the chain-of-steps bound of a launch that marches one
+// lane a ray: no lane can finish its ray sooner.
 //
-// The walk ends in the state the lane groups' march (cell by cell, to the
-// floor) reaches after the same steps, so bench/latency.py holds it to the
-// plain walk and to march_pass.
+// The walk ends in the state the serial walk under the floor (the torch
+// l0_min_step with hierarchy=False: cell by cell, to the floor) reaches
+// after the same steps, so the tests hold it to that plain walk.
 
 #include <cuda_runtime.h>
 

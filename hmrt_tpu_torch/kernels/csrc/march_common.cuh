@@ -43,18 +43,6 @@
 // computed. A hit, an ascent or the end of the ray drops the ring, and the
 // loads still in flight are wasted.
 //
-// The level-0 tail by lane groups (`l0_group_steps`). The same fact lets G
-// lanes test G consecutive cells of ONE ray at once: the k-th cell of the
-// level-0 DDA is the k-th element of the merge of the x- and y-boundary
-// exit sequences (each non-decreasing in f32: `(float)b` is exact, and a
-// subtraction and a product by a fixed-sign factor round monotonically),
-// taken x first on a tie as `cell_exit` takes it. A cell's skip, exact and
-// out tests depend only on the ray, the cell, its exit and the running t,
-// and that t is the running fmaxf of the earlier cells' exits (exact and
-// associative), so a prefix max over the window gives each lane its t. A
-// ballot then finds the first cell that ends the ray. Every float
-// expression is the serial step's, so the bits are the serial march's.
-//
 // The level-0 tail under the terrain (`l0_min_steps`). Most of a tail's
 // rays entered the map's wall below the surface and march beneath it to the
 // far edge without a hit: every cell a step and an exact test whose answer
@@ -473,29 +461,6 @@ static __device__ __forceinline__ float axis_exit(int b0, int k, int s, float o,
   return none ? BIG_T : ((float)(b0 + k * s) * 1.0f - o) * inv;
 }
 
-// The cell k steps on from level-0 cell (icx, icy) along the ray's DDA: its
-// x-steps among those k are the smallest i in [0, k] whose x exit comes
-// after the y exit of step k - 1 - i (not tx <= ty, as cell_exit breaks a
-// tie), found by binary search over the two exit sequences.
-static __device__ __forceinline__ void dda_cell(const MarchRay& r, int icx, int icy, int k,
-                                                int& cx, int& cy) {
-  const bool pos_x = r.dx > 0.0f, pos_y = r.dy > 0.0f;
-  const int sx = pos_x ? 1 : -1, sy = pos_y ? 1 : -1;
-  const bool none_x = fabsf(r.dx) < TINY, none_y = fabsf(r.dy) < TINY;
-  const int bx0 = icx + (pos_x ? 1 : 0), by0 = icy + (pos_y ? 1 : 0);
-  int lo = 0, hi = k;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (!(axis_exit(bx0, mid, sx, r.ox, r.inv_x, none_x) <=
-          axis_exit(by0, k - 1 - mid, sy, r.oy, r.inv_y, none_y)))
-      hi = mid;
-    else
-      lo = mid + 1;
-  }
-  cx = icx + lo * sx;
-  cy = icy + (k - lo) * sy;
-}
-
 // The per-ray constants of the tail's tests under the terrain (the torch
 // below_margins, in its float order): a ray that over a test window stays
 // below a cell's (or a block's) lowest corner `lo` by m0 + (hi - lo) * m1
@@ -839,127 +804,6 @@ static __device__ __forceinline__ int fused_steps(const MarchRay& r, MarchState&
   s.icx = icx;
   s.icy = icy;
   s.under = under_mode;
-  return st;
-}
-
-// Up to `budget` steps of the forced-level-0 tail of one ray, marched by a
-// group of G lanes (G a power of two <= 32; `gmask` the group's lanes of the
-// warp, `k` this lane's rank in it), which all call it together with the
-// same ray and state and leave with the same `s`, `h` and `w`. Each window,
-// lane k takes the cell k steps on from the current one (dda_cell); its
-// own exit, record, skip, exact and out tests are l0_min_steps' level-0
-// expressions, with the t it enters at taken as the prefix max of the
-// earlier lanes' exits (the serial t, bit for bit). The first lane that
-// ends the ray (a hit, out of the map, up or under the floor, or past the
-// budget) gives the ray its state, as the serial march leaves it after
-// that cell (the torch l0_min_step with hierarchy=False); with none,
-// the ray moves on G cells. A window has G record loads in flight, and the
-// next window's are issued before this one is tested (its cells follow
-// from the geometry alone), so a window waits on no load of its own unless
-// it is the ray's first. Returns the steps taken; COUNT adds them and the
-// cell tests up to the end to `w`, as march_steps does.
-template <bool COUNT, int G>
-static __device__ __forceinline__ int l0_group_steps(const MarchRay& r, MarchState& s,
-                                                     MarchHit& h, int budget, const Terrain& g,
-                                                     float gmin, float gmax, Work& w, int k,
-                                                     unsigned gmask) {
-  const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
-  const float t1 = r.t1;
-  const int m = g.m;
-  const bool below_on = g.kind != FLAT;
-  const float zfloor = below_margins(r, g.kind, m, gmin, gmax).zfloor;
-  const int gbase = (int)(threadIdx.x & 31) & ~(G - 1);
-  const unsigned gbits = G == 32 ? FULL_WARP : (1u << (G & 31)) - 1u;
-  int alive = s.alive;
-  float t = s.t;
-  int icx = s.icx, icy = s.icy;
-  int cx, cy;  // this lane's cell of the window, and its record
-  dda_cell(r, icx, icy, k, cx, cy);
-  float4 c = cell_record(g, cx, cy);
-  int st = 0;
-  while (st < budget && alive) {  // uniform over the group
-    // the next window's cell: k + G steps on from this window's first
-    int ncx, ncy;
-    dda_cell(r, icx, icy, k + G, ncx, ncy);
-    const float4 nc = cell_record(g, ncx, ncy);
-    const CellExit e = cell_exit(r, cx, cy, 1.0f);
-    const float t_exit_c = fminf(e.t, t1);
-    // inc: the max of the exits of cells 0..k of the window; t after cell k
-    // is fmaxf(t, inc), the t this cell is entered at the same over 0..k-1
-    float inc = t_exit_c;
-#pragma unroll
-    for (int d = 1; d < G; d <<= 1) {
-      const float o = __shfl_up_sync(gmask, inc, d, G);
-      if (k >= d) inc = fmaxf(inc, o);
-    }
-    const float before = __shfl_up_sync(gmask, inc, 1, G);
-    const float t_k = k == 0 ? t : fmaxf(t, before);
-    const float zmin = oz + fminf(t_k * dz, t_exit_c * dz);
-    const float cmax = fmaxf(fmaxf(c.x, c.y), fmaxf(c.z, c.w));
-    const bool run = k < budget - st;  // this cell is within the budget
-    const bool test = run && !(zmin > cmax);
-    bool hit_now = false;
-    float t_c = BIG_T;
-    if (test) {
-      const float t_lo = t_k - T_TOL, t_hi = t_exit_c + T_TOL;
-      if (g.kind == TRIANGLE)
-        intersect_triangles(ox, oy, oz, dx, dy, dz, cx, cy, c.x, c.y, c.z, c.w, t_lo, t_hi,
-                            hit_now, t_c);
-      else if (g.kind == BILINEAR)
-        intersect_bilinear(ox, oy, oz, dx, dy, dz, cx, cy, c.x, c.y, c.z, c.w, t_lo, t_hi,
-                           hit_now, t_c);
-      else
-        intersect_flat(ox, oy, oz, dx, dy, dz, c.x, c.y, c.z, c.w, t_lo, t_hi, hit_now, t_c);
-    }
-    const float t_new = fmaxf(t, inc);
-    const float z_new = oz + t_new * dz;
-    const bool out = (e.t >= t1 - EPS_EXIT) || e.nx < 0 || e.nx >= m || e.ny < 0 ||
-                     e.ny >= m || ((z_new > gmax) && (dz > 0.0f)) ||
-                     (below_on && z_new < zfloor);
-    const unsigned ends = (__ballot_sync(gmask, !run || hit_now || out) >> gbase) & gbits;
-    const unsigned tests = (__ballot_sync(gmask, test) >> gbase) & gbits;
-    if (ends == 0) {  // no cell of the window ends the ray: on from the last one's exit
-      t = __shfl_sync(gmask, t_new, G - 1, G);
-      icx = __shfl_sync(gmask, e.nx, G - 1, G);
-      icy = __shfl_sync(gmask, e.ny, G - 1, G);
-      cx = ncx;
-      cy = ncy;
-      c = nc;
-      if (COUNT) {
-        w.steps += G;
-        w.tests += __popc(tests);
-      }
-      st += G;
-      continue;
-    }
-    const int f = __ffs(ends) - 1;
-    const bool f_run = __shfl_sync(gmask, run, f, G);
-    const bool f_hit = __shfl_sync(gmask, hit_now, f, G);
-    const int taken = f + (f_run ? 1 : 0);  // cells stepped: up to f, and f itself if it ran
-    if (COUNT) {
-      w.steps += taken;
-      w.tests += __popc(tests & (taken >= 32 ? FULL_WARP : (1u << taken) - 1u));
-    }
-    st += taken;
-    if (f_run && !f_hit) {  // out: the serial step has advanced to the next cell
-      alive = 0;
-      t = __shfl_sync(gmask, t_new, f, G);
-      icx = __shfl_sync(gmask, e.nx, f, G);
-      icy = __shfl_sync(gmask, e.ny, f, G);
-    } else {  // a hit in cell f, or the budget spent before it: the ray stands in it
-      t = __shfl_sync(gmask, t_k, f, G);
-      icx = __shfl_sync(gmask, cx, f, G);
-      icy = __shfl_sync(gmask, cy, f, G);
-      if (f_hit) {
-        alive = 0;
-        h = MarchHit{1, __shfl_sync(gmask, t_c, f, G), icx, icy};
-      }
-    }
-  }
-  s.alive = alive;
-  s.t = t;
-  s.icx = icx;
-  s.icy = icy;
   return st;
 }
 

@@ -35,15 +35,10 @@ the kernel reads on the card: when it is false the pass is the max-mip
 pass (the "auto" tail decides it on the device, with no host wait).
 
 The kernel marches the level-0 tail with one lane a ray, passing under
-whole blocks ("auto", the default, and 1), or when asked (`group=32`) with
-a group of 32 lanes a ray, testing 32 consecutive cells of the ray at once
-and ending only under the floor (`l0_min_step(hierarchy=False)`; faster
-only where a few rays walk long level-0 chains above the terrain,
-march_pass.cu). Both give the same hits; a ray that ends as a miss ends in
-another state, after other counts, so the plain version takes the group
-too. `march_pass.mode_launches` counts, on the card, which march each
-launch ran, and while the port's tracing is armed (utils/profiling.py)
-the live lanes each launch was handed, with the spans that launched it.
+whole blocks as `l0_min_step` does, so the plain version is that step.
+`march_pass.mode_launches` counts, on the card, which march each launch
+ran, and while the port's tracing is armed (utils/profiling.py) the live
+lanes each launch was handed, with the spans that launched it.
 
 `march_pass` checks every input before a launch, the range of the level
 plane too, which waits on the card. `launch_pass` is the same pass without
@@ -69,19 +64,15 @@ UNBUDGETED = 1 << 22
 #: the kernel's mode argument: the max-mip march, the exact level-0 tail,
 #: the relaxed tail (march_pass.cu MODE)
 MODE_MAXMIP, MODE_L0, MODE_RELAX = 0, 1, 2
-#: the level-0 tail's lanes a ray that a caller may force: one, or a group
-#: (march_pass.cu GROUP)
-GROUPS = (1, 32)
 #: what a launch ran, the slots of the kernel's tally (march_pass.cu RAN_*)
-TALLY_KEYS = ("maxmip", "l0", "l0_g32", "relax")
+TALLY_KEYS = ("maxmip", "l0", "relax")
 STATE_DTYPES = (torch.int32, torch.float32, torch.int32, torch.int32, torch.int32)
 RESULT_DTYPES = (torch.int32, torch.float32, torch.int32, torch.int32)
 
 
-def check_tail(l0_only, relax: int, budget: int, group="auto") -> None:
-    """Raise unless (l0_only, relax, budget, group) is a pass the kernel
-    defines: relax >= 0, and relax > 0 only for an unbudgeted level-0 tail;
-    group "auto", or one of GROUPS for the exact level-0 tail."""
+def check_tail(l0_only, relax: int, budget: int) -> None:
+    """Raise unless (l0_only, relax, budget) is a pass the kernel defines:
+    relax >= 0, and relax > 0 only for an unbudgeted level-0 tail."""
     tail = isinstance(l0_only, torch.Tensor) or bool(l0_only)
     if relax < 0:
         raise ValueError(f"relax {relax} < 0")
@@ -89,9 +80,6 @@ def check_tail(l0_only, relax: int, budget: int, group="auto") -> None:
         raise ValueError("relax > 0 is a mode of the level-0 tail: it needs l0_only")
     if relax and budget != UNBUDGETED:
         raise ValueError(f"a relaxed pass is defined only unbudgeted, not at budget {budget}")
-    if group != "auto" and (group not in GROUPS or not tail or relax):
-        raise ValueError(f"group {group!r}: want 'auto', or one of {GROUPS} for the exact "
-                         "level-0 tail (l0_only, relax 0)")
 
 
 #: the span of the live-lane count, which no stage is charged with
@@ -101,9 +89,8 @@ COUNT_SPAN = "hmrt.count"
 class LaunchTally:
     """Launches of the march kernel by the march each one ran (TALLY_KEYS),
     counted on the card by the kernel itself: an "auto" tail whose flag
-    was false ran "maxmip", and an exact level-0 tail ran "l0" (one lane a
-    ray) or "l0_g32" (32 lanes a ray, when the caller asked for it).
-    `read()` waits for the card.
+    was false ran "maxmip", an exact level-0 tail "l0" and a relaxed one
+    "relax". `read()` waits for the card.
 
     While the port's tracing is armed, each pass also counts the lanes it
     is handed alive on the planes' device (`count_live`: one reduction of
@@ -168,14 +155,13 @@ def march_pass_reference(rays, state, results, pyr_flat, heights, *, n: int,
                          m: int, levels: int, budget: int,
                          cell_intersect: str = "triangle", clip=None,
                          counter: WorkCounter | None = None,
-                         l0_only=False, relax: int = 0, group="auto", pyr_min=None):
+                         l0_only=False, relax: int = 0, pyr_min=None):
     """The plain torch version: the masked step loop of
     `traversal/march.py`, at most `budget` steps: `maxmip_step`, or with
-    `l0_only` `l0_min_step` (as the kernel marches one lane a ray, for
-    `group` 1 or "auto"; its lane groups' walk for 32), or with `relax` as
-    well `l0_min_step_relaxed`. `pyr_min`: the min pyramid, or None to
-    build it from `heights`. `counter` records the work done."""
-    check_tail(l0_only, relax, budget, group)
+    `l0_only` `l0_min_step`, or with `relax` as well `l0_min_step_relaxed`.
+    `pyr_min`: the min pyramid, or None to build it from `heights`.
+    `counter` records the work done."""
+    check_tail(l0_only, relax, budget)
     if isinstance(l0_only, torch.Tensor):
         l0_only = bool(l0_only)
     ox, oy, oz, dx, dy, dz = rays
@@ -201,8 +187,7 @@ def march_pass_reference(rays, state, results, pyr_flat, heights, *, n: int,
         kw = dict(m=m, levels=levels, intersector=intersector, counter=counter)
         if not relax:
             def step(s):
-                return l0_min_step(ray, s, corners, pyr_flat, pyr_min, gmax, below,
-                                   hierarchy=group != 32, **kw)
+                return l0_min_step(ray, s, corners, pyr_flat, pyr_min, gmax, below, **kw)
         else:
             st.update(relaxed_planes(t))
 
@@ -300,7 +285,7 @@ def _check_inputs(rays, state, results, pyr_flat, corners, n, m, levels, budget)
 def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: int,
                levels: int, budget: int, cell_intersect: str = "triangle",
                clip=None, counts: torch.Tensor | None = None, l0_only=False,
-               relax: int = 0, group="auto", pyr_min: torch.Tensor | None = None):
+               relax: int = 0, pyr_min: torch.Tensor | None = None):
     """One budgeted march pass. Returns (new_state, new_results).
 
     CPU tensors run `march_pass_reference`; CUDA tensors launch the kernel
@@ -309,9 +294,7 @@ def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: i
     steps and exact cell tests in this pass (the kernel's counting
     instance; the timed path passes none). `l0_only` and `relax`: the tail
     modes (module docstring); a relaxed pass counts every step, and the
-    exact walk's intersector calls as cell tests. `group`: the level-0
-    tail's lanes a ray, "auto" or one of GROUPS (module docstring).
-    `pyr_min`: the
+    exact walk's intersector calls as cell tests. `pyr_min`: the
     scene's min pyramid (`Scene.pyr_min_flat`), which the kernel's level-0
     tails, exact and relaxed, read: a pass that may run a tail on the card
     raises without it. While the port's tracing is armed, the pass's live
@@ -320,7 +303,7 @@ def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: i
     Every input is checked before a launch on the card, the levels of the
     `lvl` plane too (a wait on the card); `launch_pass` is the same pass
     without the checks."""
-    check_tail(l0_only, relax, budget, group)
+    check_tail(l0_only, relax, budget)
     p = rays[0].shape[0]
     flag = l0_only if isinstance(l0_only, torch.Tensor) else None
     dev = _build.device_of([*rays, *state, *results, pyr_flat, heights, corners]
@@ -341,14 +324,14 @@ def march_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: i
                              "pyramid: pass pyr_min=scene.pyr_min_flat")
     return launch_pass(rays, state, results, pyr_flat, heights, corners, n=n, m=m,
                        levels=levels, budget=budget, cell_intersect=cell_intersect,
-                       clip=clip, counts=counts, l0_only=l0_only, relax=relax, group=group,
+                       clip=clip, counts=counts, l0_only=l0_only, relax=relax,
                        pyr_min=pyr_min)
 
 
 def launch_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: int,
                 levels: int, budget: int, cell_intersect: str = "triangle",
                 clip=None, counts: torch.Tensor | None = None, l0_only=False,
-                relax: int = 0, group="auto", pyr_min: torch.Tensor | None = None):
+                relax: int = 0, pyr_min: torch.Tensor | None = None):
     """`march_pass` without its checks: the internal launch entry of
     `kernels/compact.py::march_rounds`, which makes every plane it hands
     over itself, from one Scene. It runs no check that waits on the card,
@@ -372,8 +355,7 @@ def launch_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: 
         out = march_pass_reference(rays, state, results, pyr_flat, heights,
                                    n=n, m=m, levels=levels, budget=budget,
                                    cell_intersect=cell_intersect, clip=clip, counter=work,
-                                   l0_only=l0_only, relax=relax, group=group,
-                                   pyr_min=pyr_min)
+                                   l0_only=l0_only, relax=relax, pyr_min=pyr_min)
         if work is not None:
             counts.copy_(torch.stack([work.lane_steps, work.lane_tests]))
         return out
@@ -392,7 +374,6 @@ def launch_pass(rays, state, results, pyr_flat, heights, corners, *, n: int, m: 
             None if mode == MODE_MAXMIP else pyr_min.data_ptr(), p, m, levels, budget,
             INTERSECTOR_IDS[cell_intersect], mode, relax, float(lo), float(hi),
             None if flag_i is None else flag_i.data_ptr(),
-            1 if group == "auto" else group,
             march_pass.mode_launches.slots(dev).data_ptr(), next_ray.data_ptr(),
             None if counts is None else counts.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)

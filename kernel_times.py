@@ -29,19 +29,13 @@ at strides 4, 8 and 16 (render_frame_compact's l0_tail and relax) with the
 march's bound on that frame and the primary tail launch's steps and cell
 tests (bench/floor.py, from the counting instance), the
 level-0 tail launches of the B3 frame (primary and shadow) and of B4's
-orbit frame 0 (primary) replayed on their own inputs with each lane group
-the kernel takes (march_pass's `group`: 1, 32 and "auto"; in a checkout
-from before the groups, its one tail march), the tail launch on samples of
-B3's tail rays from 1,024 to 131,072 live rays by group (the measurements
-behind march_pass.cu's choice of one lane a ray), the relaxed tail launch
-on B3's 8,192 tail rays at each stride (device ms, and the counting
+orbit frame 0 (primary) replayed on their own inputs, the relaxed tail
+launch on B3's 8,192 tail rays at each stride (device ms, and the counting
 instance's steps, cell tests, longest ray and bound), the latency bound of
-B4's tail launch (the probe bench/latency.py on its longest ray, the
-cells 32 lanes a ray walk on it: the ms of its walk, one dependent record
-load and cell test a step; ceil(chain / 32) steps at 32 lanes a ray, the
-longest ray's steps at one lane, and the least of the two), and the registers
-and spill bytes ptxas gave
-each kernel (march_pass by mode), beside the card's name and power limit.
+B4's tail launch (the probe bench/latency.py over the steps the one-lane
+march takes on its longest ray, one dependent record load and cell test a
+step), and the registers and spill bytes ptxas gave each kernel
+(march_pass by mode), beside the card's name and power limit.
 
 --root DIR imports hmrt_tpu_torch from another checkout, e.g. an older
 commit unpacked with `git archive` into a directory that .gitignore lists,
@@ -67,8 +61,6 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 SHADE_REPS = 200   # shade_pass calls per timing (~40-150 us each)
-#: live rays of the tail samples timed by lane group
-SWEEP_RAYS = (1024, 4096, 16384, 32768, 65536, 131072)
 
 
 def variant_library(build, spec: str):
@@ -156,53 +148,41 @@ def shade_inputs(scene, textured: bool) -> tuple:
     return scene.gx, scene.gy, scene.albedo if textured else None
 
 
-def tail_ms_by_group(launches, march_pass, kernel_ms, event_ms) -> list:
-    """Each captured tail launch replayed with every lane group: the
-    kernel's device ms (profiler), the wrapper call's ms by events (with
-    the live-ray count of "auto") and the launch's live rays."""
+def tail_launch_ms(launches, march_pass, kernel_ms, event_ms) -> list:
+    """Each captured tail launch replayed on its own inputs: the kernel's
+    device ms (profiler), the wrapper call's ms by events and the launch's
+    live rays."""
     import torch
-    has_group = "group" in inspect.signature(march_pass).parameters
     out = []
     for args, kw in launches:
-        row = {"rays": int(args[0][0].shape[0]), "live": int((args[1][0] != 0).sum())}
-        for g in ((1, 32, "auto") if has_group else ("parent",)):
-            kw_g = dict(kw) if g == "parent" else {**kw, "group": g}
-            fn = (lambda kw_g=kw_g: march_pass(*args, **kw_g))
-            row[str(g)] = {"kernel_ms": kernel_ms(fn, "march_pass_kernel", 5),
-                           "call_ms": event_ms(fn, 5)}
-        out.append(row)
+        fn = (lambda args=args, kw=kw: march_pass(*args, **kw))
+        out.append({"rays": int(args[0][0].shape[0]), "live": int((args[1][0] != 0).sum()),
+                    "kernel_ms": kernel_ms(fn, "march_pass_kernel", 5),
+                    "call_ms": event_ms(fn, 5)})
         torch.cuda.synchronize()
     return out
 
 
 def latency_probe(launch, scene, march_pass, kernel_ms) -> dict:
     """The probe of bench/latency.py on the live rays of a captured tail
-    launch: the longest chain of cells 32 lanes a ray walk (the level-0
-    DDA to the floor), the probe's device ms over it and so the time of one
-    dependent step, and each march's latency bound, its longest chain of
-    dependent steps at that time: ceil(cells / 32) windows for 32 lanes a
-    ray, the longest ray's own steps for one lane a ray. The least of them
-    bounds the launch, whichever march runs it."""
+    launch: the steps the one-lane march takes on its longest ray (the
+    counting instance's) and the probe's device ms over as many dependent
+    steps from that ray's start, the launch's latency bound (no lane
+    finishes its ray sooner), with the time of one step."""
     import torch
     from hmrt_tpu_torch.bench.latency import l0_walk
     args, kw = launch
     live = torch.nonzero(args[1][0] != 0).squeeze(1)
     sub = tuple(tuple(x.index_select(0, live).contiguous() for x in planes)
                 for planes in args[:3])
-    longest = {}
-    for g in (1, 32):
-        cnt = torch.empty((2, live.numel()), dtype=torch.int32, device=live.device)
-        march_pass(*sub, *args[3:], **{**kw, "counts": cnt, "group": g})
-        longest[g] = cnt[0]
-    k = int(torch.argmax(longest[32]))
-    chain = int(longest[32][k])
+    cnt = torch.empty((2, live.numel()), dtype=torch.int32, device=live.device)
+    march_pass(*sub, *args[3:], **{**kw, "counts": cnt})
+    k = int(torch.argmax(cnt[0]))
+    chain = int(cnt[0][k])
     one = [tuple(x[k:k + 1].contiguous() for x in planes) for planes in sub[:2]]
     ms = kernel_ms(lambda: l0_walk(*one, scene, steps=chain, cell_intersect=kw["cell_intersect"]),
                    "l0_probe_kernel", 5)
-    us = 1e3 * ms / chain
-    bound = {"1": int(longest[1].max()) * us / 1e3, "32": -(-chain // 32) * us / 1e3}
-    return {"chain": chain, "one_lane_steps": int(longest[1].max()), "probe_ms": ms,
-            "us_per_step": us, "bound_ms": bound, "least_bound_ms": min(bound.values())}
+    return {"chain": chain, "probe_ms": ms, "us_per_step": 1e3 * ms / chain, "bound_ms": ms}
 
 
 def relaxed_tail_rays(scene, cam, cfg, march_pass, kernel_ms, tail_survivors) -> dict:
@@ -344,38 +324,18 @@ def main() -> int:
                 if hasattr(fc, "launch_bound"):  # a checkout that counts dead lanes apart
                     tail_bounds[label].update(live=fc.live(),
                                               tail_bound=fc.launch_bound(fc.n_primary - 1))
-        # the level-0 tail launches, replayed by lane group (B3: primary and
-        # shadow; B4 orbit frame 0: primary, its frame has no shadows)
-        by_group, b4_latency = {}, {}
+        # the level-0 tail launches, replayed (B3: primary and shadow; B4
+        # orbit frame 0: primary, its frame has no shadows)
+        tail_ms, b4_latency = {}, {}
         if tails:
             for name, sc, cm, cf in (("b3", scene, cam, cfg_c), ("b4", scene4, cam4, b4.render)):
                 launches = tail_launches(lambda: render_frame_compact(sc, cm, cf, l0_tail=True),
                                          march_pass)
-                runs = tail_ms_by_group(launches, march_pass, kernel_ms, event_ms)
+                runs = tail_launch_ms(launches, march_pass, kernel_ms, event_ms)
                 for label, row in zip(("primary", "shadow"), runs):
-                    by_group[f"{name}_{label}"] = row
+                    tail_ms[f"{name}_{label}"] = row
                 if name == "b4" and importlib.util.find_spec("hmrt_tpu_torch.bench.latency"):
                     b4_latency = latency_probe(launches[0], sc, march_pass, kernel_ms)
-        # the tail launch by the number of live rays: samples of B3's tail
-        # rays, each sorted as the tail takes them, at each lane group
-        by_live = {}
-        if "group" in inspect.signature(march_pass).parameters:
-            for count in SWEEP_RAYS:
-                rays_t, state_t, res_t, _ = tail_survivors(scene, cam, cfg_c, count)
-                kw_t = dict(n=scene.n, m=scene.m, levels=scene.levels, budget=1 << 22,
-                            l0_only=True)
-                if "pyr_min" in inspect.signature(march_pass).parameters:
-                    kw_t["pyr_min"] = scene.pyr_min_flat
-                by_live[count] = {
-                    str(g): kernel_ms(lambda g=g: march_pass(
-                        rays_t, state_t, res_t, scene.pyr_flat, scene.heights, scene.corners,
-                        group=g, **kw_t), "march_pass_kernel", 3)
-                    for g in (1, 32, "auto")}
-                march_pass.mode_launches.reset()
-                march_pass(rays_t, state_t, res_t, scene.pyr_flat, scene.heights,
-                           scene.corners, **kw_t)
-                by_live[count]["auto_ran"] = [k for k, v in
-                                              march_pass.mode_launches.read().items() if v]
         relaxed = relaxed_tail_rays(scene, cam, cfg_c, march_pass, kernel_ms, tail_survivors)
         frames, frames_b2 = {}, {}
         for label, cf in (("compact", cfg_c), ("fused", cfg_f), ("fused", cfg_f),
@@ -420,9 +380,8 @@ def main() -> int:
             **k2,
             "march_pass_ms_per_launch_by_tail": tails,
             "march_bound_by_tail": tail_bounds,
-            "tail_launch_ms_by_group": by_group,
+            "tail_launch_ms": tail_ms,
             "b4_tail_latency": b4_latency,
-            "tail_ms_by_live_rays": by_live,
             "relaxed_tail_rays": relaxed,
             "shade_sectors": sectors,
             "frame_ms_compact": frames["compact"], "frame_ms_fused": frames["fused"],

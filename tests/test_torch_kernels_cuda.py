@@ -55,13 +55,6 @@ def _empty_results(p, dev):
             torch.zeros(p, dtype=torch.int32, device=dev))
 
 
-def _ran_group():
-    """The lanes a ray of the level-0 tail the last launches ran (the tally):
-    the plain version of that walk takes the same group."""
-    ran = {k for k, v in march_pass.mode_launches.read().items() if v}
-    return 32 if "l0_g32" in ran else 1
-
-
 def _old_walk_hits(sc, rays, st, res, ci="triangle", relax=0):
     """The old level-0 walk (`l0_step` over every cell, no min pyramid), or
     with `relax` the old relaxed walk (`l0_step_relaxed`), to the end:
@@ -121,15 +114,12 @@ def _grazing_rays(n, dev, p=4096, seed=0):
                  for a in (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2]))
 
 
-@pytest.mark.parametrize("mode", ["l0", "l0-g1", "l0-g32", 4, 8, 16, "auto-l0", "auto-maxmip",
-                                  "auto-relax"])
+@pytest.mark.parametrize("mode", ["l0", 4, 8, 16, "auto-l0", "auto-maxmip", "auto-relax"])
 @pytest.mark.parametrize("ci", ["triangle", "bilinear", "flat"])
 def test_march_kernel_tail_modes_equal_plain(cuda, ci, mode):
-    """K1's level-0 tail (l0_only; its group chosen on the card, or forced
-    to one lane or 32 lanes a ray) and relaxed tail (relax=k), and both
-    under a device flag, equal their plain versions (the level-0 tail's of
-    the group the launch ran) in all 9 planes and in the counting
-    instance's per-ray counts, from the state a budgeted max-mip pass and
+    """K1's level-0 tail (l0_only) and relaxed tail (relax=k), and both
+    under a device flag, equal their plain versions in all 9 planes and in
+    the counting instance's per-ray counts, from the state a budgeted max-mip pass and
     force_level0 leave, on mixed and grazing rays (many of them under the
     terrain); each tail's hits are its old walk's (`l0_step`, or
     `l0_step_relaxed` at the stride); the tally records the march each
@@ -147,24 +137,20 @@ def test_march_kernel_tail_modes_equal_plain(cuda, ci, mode):
                "auto-relax": torch.tensor(True, device=cuda),
                "auto-maxmip": torch.tensor(False, device=cuda)}.get(mode, True)
     relax = mode if isinstance(mode, int) else 8 if mode == "auto-relax" else 0
-    group = int(mode[4:]) if isinstance(mode, str) and mode.startswith("l0-g") else "auto"
     cnt = torch.empty((2, p), dtype=torch.int32, device=cuda)
     before = march_pass.launches
     march_pass.mode_launches.reset()
     sk, rk = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners,
-                        budget=UNBUDGETED, counts=cnt, l0_only=l0_only, relax=relax, group=group,
+                        budget=UNBUDGETED, counts=cnt, l0_only=l0_only, relax=relax,
                         pyr_min=sc.pyr_min_flat, **kw)
     torch.cuda.synchronize()
     assert march_pass.launches == before + 1
     ran = {k: v for k, v in march_pass.mode_launches.read().items() if v}
-    want = ({"relax"} if relax else {"maxmip"} if mode == "auto-maxmip"
-            else {"l0"} if group == "auto"
-            else {{1: "l0", 32: "l0_g32"}[group]})
-    assert len(ran) == 1 and set(ran) <= want and sum(ran.values()) == 1, ran
+    want = {"relax"} if relax else {"maxmip"} if mode == "auto-maxmip" else {"l0"}
+    assert ran == dict.fromkeys(want, 1), ran
     work = WorkCounter(sc.pyr_flat.shape[0], sc.n, cuda, lanes=p)
     sr, rr = march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights, budget=UNBUDGETED,
-                                  counter=work, l0_only=l0_only, relax=relax,
-                                  group="auto" if relax else _ran_group(), **kw)
+                                  counter=work, l0_only=l0_only, relax=relax, **kw)
     for a, b in zip(sk + rk, sr + rr):
         assert torch.equal(a, b)
     assert torch.equal(cnt[0], work.lane_steps) and torch.equal(cnt[1], work.lane_tests)
@@ -201,9 +187,9 @@ def test_compact_tails_on_card(cuda, l0_tail):
     assert exact.hit.any()
 
 
-#: K1's marches: max-mip, and the level-0 tail at one lane or 32 lanes a
-#: ray, or "auto" (one lane a ray)
-MARCHES = ["maxmip", 1, 32, "auto"]
+#: K1's marches: max-mip, and the level-0 tail ("auto": one lane a ray, as
+#: every path marches it)
+MARCHES = ["maxmip", "auto"]
 
 
 def _march_kw(march, rays, st, sc):
@@ -211,7 +197,7 @@ def _march_kw(march, rays, st, sc):
     starts from force_level0 of the state and reads the min pyramid."""
     if march == "maxmip":
         return st, {}
-    return force_level0(rays, st), dict(l0_only=True, group=march, pyr_min=sc.pyr_min_flat)
+    return force_level0(rays, st), dict(l0_only=True, pyr_min=sc.pyr_min_flat)
 
 
 @pytest.mark.parametrize("march", MARCHES)
@@ -220,10 +206,9 @@ def test_march_kernel_equals_plain_at_ray_counts(cuda, p, march):
     """The persistent kernel on no ray, one ray, a warp and a lane, less
     than a warp, and more rays than one resident wave of the card holds
     (132 SMs x 2,048 threads is 270,336), in every march: all 9 planes and
-    the counting instance's per-ray counts equal the plain version's (the
-    level-0 tail's of the group the tally says the launch ran),
-    unbudgeted and at a budget that ends rays inside a chunk and a window;
-    the level-0 tail's hits are the old walk's."""
+    the counting instance's per-ray counts equal the plain version's,
+    unbudgeted and at a budget that ends rays inside a chunk; the tally
+    names the march; the level-0 tail's hits are the old walk's."""
     sc = _scene(128, cuda)
     rays = _rays(128, cuda, p=max(p, 1), seed=5)
     rays = tuple(x[:p].contiguous() for x in rays)
@@ -240,13 +225,10 @@ def test_march_kernel_equals_plain_at_ray_counts(cuda, p, march):
         torch.cuda.synchronize()
         assert march_pass.launches == before + (1 if p else 0)
         ran = {k for k, v in march_pass.mode_launches.read().items() if v}
-        want_ran = ({"maxmip"} if not tail else {"l0"} if march == "auto"
-                    else {{1: "l0", 32: "l0_g32"}[march]})
-        assert (ran <= want_ran and len(ran) == 1) if p else not ran, ran
+        assert ran == ({"l0" if tail else "maxmip"} if p else set()), ran
         work = WorkCounter(sc.pyr_flat.shape[0], sc.n, cuda, lanes=p)
         sr, rr = march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights,
-                                      budget=budget, counter=work, **kw, l0_only=bool(tail),
-                                      group=_ran_group() if tail else "auto")
+                                      budget=budget, counter=work, **kw, l0_only=bool(tail))
         for a, b in zip(sk + rk, sr + rr):
             assert torch.equal(a, b)
         assert torch.equal(cnt[0], work.lane_steps) and torch.equal(cnt[1], work.lane_tests)
@@ -290,7 +272,7 @@ def test_relaxed_kernel_equals_plain_at_ray_counts(cuda, p, stride):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("march", MARCHES[:-1])
+@pytest.mark.parametrize("march", MARCHES)
 @pytest.mark.parametrize("budget", [37, UNBUDGETED])
 def test_march_kernel_counts_equal_work_counter(cuda, budget, march):
     """The counting instance, in every march: per-ray steps and cell tests
@@ -309,21 +291,20 @@ def test_march_kernel_counts_equal_work_counter(cuda, budget, march):
     torch.cuda.synchronize()
     work = WorkCounter(sc.pyr_flat.shape[0], sc.n, cuda, lanes=20_000)
     march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights, counter=work, **kw,
-                         l0_only=bool(tail), group=tail.get("group", "auto"))
+                         l0_only=bool(tail))
     for a, b in zip(got[0] + got[1], timed[0] + timed[1]):
         assert torch.equal(a, b)
     assert torch.equal(counts[0], work.lane_steps) and torch.equal(counts[1], work.lane_tests)
     assert int(counts[0].sum()) == int(work.steps) and int(counts[1].sum()) == int(work.tests)
 
 
-@pytest.mark.parametrize("group", ["auto", 32])
 @pytest.mark.parametrize("live", [0, 16, 5000])
-def test_march_kernel_wide_tail_launch_equals_plain(cuda, live, group):
+def test_march_kernel_wide_tail_launch_equals_plain(cuda, live):
     """A tail launch shaped as the main path makes it: many lanes, few of
-    them live (B4's is 921,600 lanes with 16 live), marched one lane a ray
-    ("auto") or 32 lanes a ray. All 9 planes and the per-ray counts equal
-    the plain version of that march on the live lanes, the dead lanes come
-    out as they came with 0 steps, and the tally names the march."""
+    them live (B4's is 921,600 lanes with 16 live), marched one lane a ray.
+    All 9 planes and the per-ray counts equal the plain version on the live
+    lanes, the dead lanes come out as they came with 0 steps, and the tally
+    names the march."""
     sc = _scene(1024, cuda)
     p = 300_000
     rays = _rays(1024, cuda, p=p, seed=9)
@@ -335,12 +316,12 @@ def test_march_kernel_wide_tail_launch_equals_plain(cuda, live, group):
     st = force_level0(rays, (torch.where(keep, st[0], 0),) + st[1:])
     assert int(st[0].sum()) == live
     kw = dict(n=sc.n, m=sc.m, levels=sc.levels, budget=UNBUDGETED, l0_only=True,
-              group=group, pyr_min=sc.pyr_min_flat)
+              pyr_min=sc.pyr_min_flat)
     cnt = torch.empty((2, p), dtype=torch.int32, device=cuda)
     march_pass.mode_launches.reset()
     sk, rk = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners, counts=cnt, **kw)
     ran = {k for k, v in march_pass.mode_launches.read().items() if v}
-    assert ran == ({"l0_g32"} if group == 32 else {"l0"}), ran
+    assert ran == {"l0"}, ran
     work = WorkCounter(sc.pyr_flat.shape[0], sc.n, cuda, lanes=p)
     sr, rr = march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights, counter=work, **kw)
     for a, b in zip(sk + rk, sr + rr):

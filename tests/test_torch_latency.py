@@ -1,8 +1,9 @@
 """The latency probe's walk on the CPU (`bench/latency.py::l0_walk`): the
 level-0 tail's step on one ray that never stops, which ends, after the
-steps the lane groups' march (group 32, a cell a step) took on that ray,
-in the state that march ends in. The probe's kernel is held to the same
-plain walk on the card in tests/test_torch_kernels_cuda.py.
+steps the serial walk under the floor (`l0_min_step(hierarchy=False)`, a
+cell a step) took on that ray, in the state that walk ends in. The probe's
+kernel is held to the same plain walk on the card in
+tests/test_torch_kernels_cuda.py.
 """
 
 import numpy as np
@@ -15,7 +16,10 @@ from hmrt_tpu_torch.bench.latency import l0_walk, l0_walk_reference
 from hmrt_tpu_torch.kernels.compact import empty_results, init_state
 from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, march_pass_reference
 from hmrt_tpu_torch.kernels.ray_sort import force_level0
-from hmrt_tpu_torch.traversal.march import WorkCounter
+from hmrt_tpu_torch.traversal.intersect import INTERSECTORS
+from hmrt_tpu_torch.traversal.march import (WorkCounter, below_margins, l0_min_step,
+                                            ray_box_range, ray_inverses, record_corners,
+                                            run_masked)
 
 torch.set_num_threads(2)  # the suite runs several workers at once
 
@@ -30,8 +34,8 @@ def scene():
 
 def _tail(sc, ci):
     """Random and grazing rays after 6 max-mip steps, forced to level 0, and
-    their unbudgeted level-0 tail as the lane groups march it, with its
-    per-ray counts."""
+    their unbudgeted serial walk under the floor, with its per-ray counts:
+    (rays, state, (state, results) at the end, WorkCounter)."""
     rng = np.random.default_rng(2)
     o, d = random_rays(192, N, seed=4)
     hmax = float(sc.heights.max())
@@ -48,9 +52,23 @@ def _tail(sc, ci):
     st, res = march_pass_reference(rays, st, empty_results(p, "cpu"), sc.pyr_flat, sc.heights,
                                    budget=6, **kw)
     st = force_level0(rays, st)
+    ox, oy, oz, dx, dy, dz = rays
+    inv_x, inv_y = ray_inverses(dx, dy)
+    _, t1, _ = ray_box_range(ox, oy, dx, dy, float(sc.n - 1))
+    ray = (ox, oy, oz, dx, dy, dz, inv_x, inv_y, t1)
+    corners = record_corners(sc.heights.reshape(-1), sc.n, sc.m)
+    below = below_margins(ray, sc.pyr_min_flat[-1], sc.pyr_flat[-1], m=sc.m, cell_intersect=ci)
     work = WorkCounter(sc.pyr_flat.shape[0], sc.n, "cpu", lanes=p)
-    out = march_pass_reference(rays, st, res, sc.pyr_flat, sc.heights, budget=UNBUDGETED,
-                               counter=work, l0_only=True, group=32, **kw)
+    alive, t, lvl, icx, icy = st
+    hit, t_hit, hx, hy = res
+    end = run_masked(lambda s: l0_min_step(ray, s, corners, sc.pyr_flat, sc.pyr_min_flat,
+                                           sc.pyr_flat[-1], below, m=sc.m, levels=sc.levels,
+                                           intersector=INTERSECTORS[ci], counter=work,
+                                           hierarchy=False),
+                     dict(alive=alive != 0, t=t, lvl=lvl, icx=icx, icy=icy, hit=hit != 0,
+                          t_hit=t_hit, hx=hx, hy=hy), UNBUDGETED)
+    out = ((end["alive"].to(torch.int32), end["t"], end["lvl"], end["icx"], end["icy"]),
+           (end["hit"].to(torch.int32), end["t_hit"], end["hx"], end["hy"]))
     return rays, st, out, work
 
 

@@ -431,9 +431,14 @@ def test_tail_hits_equal_old_walk_and_jax_under_the_terrain(scene, ci):
     assert_same_hits(got, want)
     assert_same_hits(got, jax_hits(scene, ray, state, res, ci))
     old_work = WorkCounter(scene.pyr_flat.shape[0], scene.n, "cpu", lanes=rays[0].shape[0])
-    march_pass_reference(rays, state, res, scene.pyr_flat, scene.heights, n=scene.n,
-                         m=scene.m, levels=scene.levels, budget=UNBUDGETED, cell_intersect=ci,
-                         l0_only=True, group=32, counter=old_work)
+    corners = record_corners(scene.heights.reshape(-1), scene.n, scene.m)
+    below = below_margins(ray, scene.pyr_min_flat[-1], scene.pyr_flat[-1], m=scene.m,
+                          cell_intersect=ci)
+    run_masked(lambda s: l0_min_step(ray, s, corners, scene.pyr_flat, scene.pyr_min_flat,
+                                     scene.pyr_flat[-1], below, m=scene.m, levels=scene.levels,
+                                     intersector=INTERSECTORS[ci], counter=old_work,
+                                     hierarchy=False),
+               _dict(state, res), UNBUDGETED)
     assert int(work.tests) < int(old_work.tests) and int(work.steps) < int(old_work.steps)
     assert 0 < int(want[0].sum()) < rays[0].shape[0]
 
@@ -520,7 +525,7 @@ def test_tail_hits_special_rays(scene, data):
 
 def test_serial_walk_without_hierarchy_is_old_walk_plus_floor(scene):
     """With hierarchy=False the step is `l0_step` plus the floor exit (the
-    lane groups' walk): on rays the floor does not end, every plane equals
+    serial walk the latency probe models): on rays the floor does not end, every plane equals
     the old walk's; the floor ends rays under the map's lowest height."""
     rays = _under(256, 11, scene)
     ray, state, res = _entry(scene, rays)

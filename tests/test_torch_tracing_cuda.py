@@ -45,9 +45,8 @@ def _rays(dev, seed=0):
                  for a in (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2]))
 
 
-#: (l0_only, relax, group, budget) of each instance's pass after pass 0
-MODES = {"maxmip": (False, 0, "auto", 48), "l0": (True, 0, "auto", UNBUDGETED),
-         "l0_g32": (True, 0, 32, UNBUDGETED), "relax": (True, 8, "auto", UNBUDGETED)}
+#: (l0_only, relax, budget) of each instance's pass after pass 0
+MODES = {"maxmip": (False, 0, 48), "l0": (True, 0, UNBUDGETED), "relax": (True, 8, UNBUDGETED)}
 
 
 @pytest.mark.parametrize("counting", [False, True])
@@ -63,7 +62,7 @@ def test_live_count_equals_torch_and_arming_changes_no_plane(cuda, mode, countin
     st = init_state(rays, None, sc.pyr_flat[-1], n=sc.n, m=sc.m, levels=sc.levels)
     st, res = march_pass(rays, st, empty_results(P, cuda), sc.pyr_flat, sc.heights,
                          sc.corners, budget=24, **kw)
-    l0_only, relax, group, budget = MODES[mode]
+    l0_only, relax, budget = MODES[mode]
     if l0_only:
         st = force_level0(rays, st)
     outs, counts = [], []
@@ -73,12 +72,10 @@ def test_live_count_equals_torch_and_arming_changes_no_plane(cuda, mode, countin
         if armed:
             with tracing():
                 out = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners,
-                                 budget=budget, counts=cnt, l0_only=l0_only, relax=relax,
-                                 group=group, **kw)
+                                 budget=budget, counts=cnt, l0_only=l0_only, relax=relax, **kw)
         else:
             out = march_pass(rays, st, res, sc.pyr_flat, sc.heights, sc.corners,
-                             budget=budget, counts=cnt, l0_only=l0_only, relax=relax,
-                             group=group, **kw)
+                             budget=budget, counts=cnt, l0_only=l0_only, relax=relax, **kw)
         ran = {k for k, v in march_pass.mode_launches.read().items() if v}
         assert ran == {mode}
         outs.append(out[0] + out[1])
