@@ -21,7 +21,11 @@ entry points:
     B3 and B4) on every round and unsort of a B3 and a B4 frame, against
     its plain version bit for bit, timed beside CUB's radix sort
     (yardsticks/ray_sort_cub.cu), torch's argsort and index_selects, and
-    the bytes a reorder cannot avoid;
+    the bytes a reorder cannot avoid; the colour pass (shade_color.py: one
+    launch a compact frame or band, counted from torch.profiler on the
+    main paths of B3, B4 and B5's bands) on a B3 and a B4 frame's inputs,
+    with and without aux buffers, against its plain version bit for bit,
+    timed beside it and the bytes those inputs need;
   - the fused path: B1 (256^2, 512x512, Lambert) under "auto", which takes
     the fused kernel, against the torch oracle; B3 through backend
     "pallas", timed and held against the compact frame; the fused kernel
@@ -221,6 +225,23 @@ def kernel_wrapper(kernel: str):
     from hmrt_tpu_torch.kernels.shade_pass import shade_pass
     return {"march_pass_kernel": march_pass, "shade_pass_kernel": shade_pass,
             "render_tile_kernel": render_frame_fused, "l0_probe_kernel": l0_walk}[kernel]
+
+
+def profiled_launches(fn, kernel: str):
+    """(fn()'s result, the launches of the CUDA kernels whose names contain
+    `kernel` that torch.profiler recorded in that one call), for a kernel
+    whose wrapper keeps no count. The call sits between PAD_S of idle host
+    time on each side, as in `profiled`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PAD_S)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(PAD_S)
+    return out, sum(1 for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and kernel in e.name)
 
 
 def queued_ms(fn, reps: int) -> float:
@@ -777,7 +798,7 @@ def sharding_phase(run_path, card, scene, cam, terr3, scene1, cam1, cfg1, scene4
         bands.append(run_path(f"B5 compact band {r} (rows {r * band}-{(r + 1) * band - 1})",
                               lambda: render_frame_compact(scene, cam, bc, row0=r * band,
                                                            full_height=H5),
-                              ("march_pass", "shade_pass"), ("render_tile",)))
+                              ("march_pass", "shade_pass"), ("render_tile",), color=1))
         cells.append(hit_cells(primary_rays(cam, bc, r * band, H5)).reshape(band, W5, 2))
         sky += not bool(bands[-1].hit.any())
     stacked = {k: torch.cat([getattr(f, k) for f in bands]) for k in ("color", "depth",
@@ -1682,6 +1703,75 @@ def hold_ray_sort(label, render, card, cub, reps: int = 50) -> dict:
             "reorders": len(sorts), "unsorts": len(unsorts), "rows": rows}
 
 
+def color_calls(render) -> list:
+    """The arguments of every `shade_color` call of the compact path in one
+    eager call of render(), in call order."""
+    import hmrt_tpu_torch.kernels.compact as compact
+    calls, real = [], compact.shade_color
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    compact.shade_color = spy
+    try:
+        render()
+    finally:
+        compact.shade_color = real
+    return calls
+
+
+def color_bytes(args) -> int:
+    """The bytes the colour pass must move on the arguments of one
+    `shade_color` call: every lane's hit flag and dz read and its colour
+    written once (and its depth and normal with aux buffers); each hit's
+    normal and albedo read once, and its direction, t and shadow flag where
+    the config reads them. A miss reads nothing more: its colour is the
+    sky's."""
+    hit_i, shadow_hit, cfg = args[0], args[5], args[-1]
+    per_lane = 4 + 4 + 12 + 16 * cfg.aux_buffers
+    per_hit = 24 + 8 * (cfg.shading == "phong") + 4 * (cfg.fog or cfg.aux_buffers) \
+        + 4 * (shadow_hit is not None)
+    return per_lane * hit_i.shape[0] + per_hit * int((hit_i != 0).sum())
+
+
+def hold_shade_color(label, render, card, reps: int = 50) -> dict:
+    """The colour pass of one eager compact frame (render()), replayed on
+    its own inputs with the frame's config and with aux buffers switched:
+    the kernel's colour, depth and normals must equal shade_color_reference's
+    on the card, bit for bit. Each is then timed by `graph_ms`: the kernel
+    (`ms`) and its plain version, the torch maths it replaced (`plain_ms`),
+    beside the bound: `color_bytes` at the card's peak. Returns the kernels
+    line's entry for the frame."""
+    from hmrt_tpu_torch.bench.floor import bound
+    from hmrt_tpu_torch.kernels.shade_color import shade_color, shade_color_reference
+    calls = color_calls(render)
+    if len(calls) != 1:
+        raise AssertionError(f"shade_color, {label}: {len(calls)} calls in one frame, not 1")
+    args = calls[0]
+    cfg = args[-1]
+    for cf in (cfg, dataclasses.replace(cfg, aux_buffers=not cfg.aux_buffers)):
+        got = shade_color(*args[:-1], cf)
+        want = shade_color_reference(*args[:-1], cf)
+        bad = [name for name, a, b in zip(("colour", "depth", "normal"), got, want)
+               if (a is None) != (b is None) or (a is not None and not same_bits(a, b))]
+        if bad:
+            raise AssertionError(f"shade_color, {label} (aux_buffers {cf.aux_buffers}): {bad} "
+                                 f"differ from the plain version's")
+    nbytes = color_bytes(args)
+    b = bound(nbytes, 0)
+    r = {"lanes": args[0].shape[0], "hits": int((args[0] != 0).sum()),
+         "textured": cfg.texture, "shadows": args[5] is not None, "fog": cfg.fog,
+         "ms": graph_ms(lambda: shade_color(*args), reps),
+         "plain_ms": graph_ms(lambda: shade_color_reference(*args), reps),
+         "bound_ms": b[0], "bound_by": b[1], "io_bytes": nbytes, "max_abs_err": 0.0}
+    log(f"shade_color, {label} frame: {r['lanes']} lanes, {r['hits']} hits; colour, depth and "
+        f"normals equal to the plain version's, bit for bit, with and without aux buffers; "
+        f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB, {100 * r['bound_ms'] / r['ms']:.0f}% of it)  [{card}]")
+    return r
+
+
 def live_plain(launch, scene, walk="min"):
     """The plain version of a captured march_pass launch (tail_launches) on
     its live lanes alone: march_pass_reference with the launch's arguments
@@ -2231,16 +2321,26 @@ def main(argv=None) -> int:
     paths = {}  # launches of each kernel on each path, each run from counts of 0
     mode_paths = {}  # march_pass's launches by template instance on each path
 
-    def run_path(label, fn, want, none=()):
+    def run_path(label, fn, want, none=(), color=None):
         """Drive one path with every launch count set to 0 just before and
         read just after; the kernels in `want` must have launched, those in
-        `none` must not."""
+        `none` must not. With `color`, the path runs under torch.profiler
+        and must launch shade_color_kernel (which keeps no host count) that
+        many times."""
         for f in kernel_fns.values():
             f.launches = 0
         march_pass.mode_launches.reset()
-        out = fn()
-        torch.cuda.synchronize()
+        if color is None:
+            out = fn()
+            torch.cuda.synchronize()
+        else:
+            out, n_color = profiled_launches(fn, "shade_color_kernel")
         got = {k: f.launches for k, f in kernel_fns.items()}
+        if color is not None:
+            got["shade_color"] = n_color
+            if n_color != color:
+                raise AssertionError(f"{label}: shade_color launched {n_color} times, not "
+                                     f"{color}")
         paths[label] = got
         mode_paths[label] = march_pass.mode_launches.read()
         log(f"{label}: launches {got}; march_pass by instance {mode_paths[label]}")
@@ -2313,7 +2413,7 @@ def main(argv=None) -> int:
         f"built in {time.perf_counter() - t0:.2f} s")
 
     fr = run_path("B3 main path (render_frame, auto)", lambda: T.render_frame(scene, cam, cfg),
-                  ("march_pass", "shade_pass", "ray_sort"), ("render_tile",))
+                  ("march_pass", "shade_pass", "ray_sort"), ("render_tile",), color=1)
 
     def hold_sort_launches(label, cf):
         """One reorder a sorted round: ROUNDS primary, and min(ROUNDS, 2)
@@ -2437,6 +2537,7 @@ def main(argv=None) -> int:
         f"; bound {k2_bound[0]:.4f} ms ({k2_bound[1]})  [{card}]")
     log_sectors("B3", k2_sectors, p)
     sort_b3 = hold_ray_sort("B3", lambda: render_frame_compact(scene, cam, cfg), card, cub)
+    color_b3 = hold_shade_color("B3", lambda: render_frame_compact(scene, cam, cfg), card)
 
     # shadow rays from the frame's hits, started in the hit cells
     srays, sstate = shadow_start(points, got[:3], hit, hx, hy, scene)
@@ -2490,7 +2591,7 @@ def main(argv=None) -> int:
     cfg1 = b1.render
     scene1, cam1, terr1 = bench_scene(b1, device=dev)
     fr1 = run_path("B1 main path (render_frame, auto)", lambda: T.render_frame(scene1, cam1, cfg1),
-                   ("render_tile",), ("march_pass", "shade_pass"))
+                   ("render_tile",), ("march_pass", "shade_pass"), color=0)
     b1_frac = check_frame("B1", fr1, cfg1)
     b1_ms, b1_times = median_ms(lambda: T.render_frame(scene1, cam1, cfg1), 5)
     log_rate("B1 fused", b1_ms, b1_times, cfg1, b1_frac)
@@ -2829,7 +2930,7 @@ def main(argv=None) -> int:
     cam40 = frame_camera(cams4, 0)
     fr4 = run_path("B4 main path (render_frame, auto, orbit frame 0)",
                    lambda: T.render_frame(scene4, cam40, cfg4),
-                   ("march_pass", "shade_pass", "ray_sort"), ("render_tile",))
+                   ("march_pass", "shade_pass", "ray_sort"), ("render_tile",), color=1)
     hold_sort_launches("B4 main path (render_frame, auto, orbit frame 0)", cfg4)
     b4_launches = paths["B4 main path (render_frame, auto, orbit frame 0)"]
     b4_marches = mode_paths["B4 main path (render_frame, auto, orbit frame 0)"]
@@ -2894,6 +2995,8 @@ def main(argv=None) -> int:
     log_sectors("B4", k2_tex_sectors, p4)
     sort_b4 = hold_ray_sort("B4 orbit frame 0", lambda: render_frame_compact(scene4, cam40, cfg4),
                             card, cub)
+    color_b4 = hold_shade_color("B4 orbit frame 0",
+                                lambda: render_frame_compact(scene4, cam40, cfg4), card)
 
     # the B4 frame's march work, counted as the runner's --floor counts it,
     # against the device time of its march_pass launches
@@ -2994,7 +3097,8 @@ def main(argv=None) -> int:
     log(f"phase 16 took {time.perf_counter() - t16:.1f} s")
 
     phase("done")
-    launches = {k: sum(got[k] for got in paths.values()) for k in kernel_fns}
+    launches = {k: sum(got.get(k, 0) for got in paths.values())
+                for k in (*kernel_fns, "shade_color")}
     log(f"launches over the {len(paths)} paths: {launches}")
     kernels = [
         {"name": "march_pass", "route": "cuda",
@@ -3041,6 +3145,13 @@ def main(argv=None) -> int:
          "ms": sort_b3["ms"], "plain_ms": sort_b3["plain_ms"], "bound_ms": sort_b3["bound_ms"],
          "bound_by": "bytes", "library_ms": sort_b3["library_ms"],
          "argsort_ms": sort_b3["argsort_ms"], "b3_frame": sort_b3, "b4_frame": sort_b4},
+        {"name": "shade_color", "route": "cuda",
+         "source": "hmrt_tpu_torch/kernels/csrc/shade_color.cu", "replaces": None,
+         "launches": launches["shade_color"], "counted_on": [k for k, got in paths.items()
+                                                           if "shade_color" in got],
+         "max_abs_err": 0.0, "ms": color_b3["ms"], "plain_ms": color_b3["plain_ms"],
+         "bound_ms": color_b3["bound_ms"], "bound_by": color_b3["bound_by"],
+         "library_ms": None, "b3_frame": color_b3, "b4_frame": color_b4},
     ]
     log(json.dumps({"host_library": {"build_s": native_s, **host_times,
                                      "b4_scene_build_s": b4_build_s},

@@ -38,6 +38,10 @@ SIGNATURES = {
     "hmrt_march_pass": [_P] * 27 + [_I] * 7 + [_F] * 2 + [_P] * 5,
     # hit hx hy fx fy shade_rec albedo_rec, 6 outputs; p c (cells a side); stream
     "hmrt_shade_pass": [_P] * 13 + [_I] * 2 + [_P],
+    # hit t_hit dx dy dz nx ny nz ar ag ab, occ or null, the light's 5
+    # vectors, color depth-or-null normal-or-null; p phong fog;
+    # ambient specular shininess fog_density; stream
+    "hmrt_shade_color": [_P] * 20 + [_I] * 3 + [_F] * 4 + [_P],
     # params pyr corners pyr_min-or-null gx gy albedo, color hit depth normal
     # cell; H W full_h n m levels intersector phong shadows fog;
     # ambient specular shininess fog_density box_lo box_hi;

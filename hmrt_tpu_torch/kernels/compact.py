@@ -11,7 +11,9 @@ terrain; the last round is unbudgeted, so every ray resolves. Results
 return to launch order by one scatter through the composed permutation
 (`ray_unsort`). The shade pass (`shade_pass`, CUDA kernel 2) then
 runs in launch order, the shadow march repeats the sorted rounds from the
-hit cells, and the final colour maths is plain torch.
+hit cells, and the colour pass (`shade_color`, kernels/shade_color.py:
+Lambert, occlusion, Phong, fog, sky and the clip) writes the Frame's
+planes in one launch.
 
 The schedule only decides which rays march when: any (first_budget,
 rounds, round_budget) gives the same frame, because each ray's march is
@@ -39,8 +41,9 @@ Stage spans (utils/profiling.py, while the port's tracing is armed):
 and "hmrt.march.tail" around each kernel launch, "hmrt.sort" around a
 sorted round's reorder (`ray_sort`: key, sort and gathers) and
 "hmrt.unsort" around the scatter back, "hmrt.shade" (shade data, colour
-maths) and inside it "hmrt.shadow" (the shadow rays and their march) and,
-with fog, "hmrt.shade.fog" (`apply_fog`).
+pass) and inside it "hmrt.shadow" (the shadow rays and their march) and,
+with fog, "hmrt.shade.fog" (`apply_fog` in the colour pass's plain
+version: on the CPU; the CUDA colour pass launches no op inside it).
 
 Frame graphs: a compact frame holds no host wait and no host decision
 (every pass runs over the same P lanes, the "auto" tail is a device flag),
@@ -62,8 +65,8 @@ from hmrt_tpu_torch.config import RenderConfig
 from hmrt_tpu_torch.core.renderer import SHADOW_EPS
 from hmrt_tpu_torch.kernels.march_pass import UNBUDGETED, launch_pass, march_pass
 from hmrt_tpu_torch.kernels.ray_sort import ray_sort, ray_unsort
+from hmrt_tpu_torch.kernels.shade_color import shade_color
 from hmrt_tpu_torch.kernels.shade_pass import shade_pass
-from hmrt_tpu_torch.shading import shade as sh
 from hmrt_tpu_torch.traversal.intersect import BIG_T
 from hmrt_tpu_torch.traversal.march import entry_cell, ray_box_range
 from hmrt_tpu_torch.types import Camera, Frame, Scene
@@ -231,51 +234,25 @@ def empty_results(p: int, dev):
 
 
 def shade_frame(scene: Scene, config: RenderConfig, rays, hit_i, t_hit, hx, hy, *,
-                shade, shadow_hits):
-    """Shade data, shadow rays and the colour maths for primary march
-    results in launch order. `shade` is `shade_pass` or its plain version;
-    `shadow_hits(srays, sstate)` marches the shadow rays to the end and
-    returns their hit plane. Returns flat (color[P,3] clipped to [0, 1],
-    depth[P], normal[P,3], hit[P] bool)."""
-    dx, dy, dz = rays[3:]
+                shade, color, shadow_hits):
+    """Shade data, shadow rays and the colour for primary march results in
+    launch order. `shade` is `shade_pass` or its plain version, `color`
+    `shade_color` or its plain version; `shadow_hits(srays, sstate)`
+    marches the shadow rays to the end and returns their hit plane. Returns
+    flat (color[P,3] clipped to [0, 1], depth[P], normal[P,3], hit[P]
+    bool), depth and normal None without config.aux_buffers."""
     hit = hit_i != 0
     points, fx, fy = hit_points(rays, hit, t_hit, hx, hy)
     nx, ny, nz, ar, ag, ab = shade(hit_i, hx, hy, fx, fy, scene.shade_rec,
                                    scene.albedo_rec if config.texture else None)
-
-    light = scene.light
-    lx, ly, lz = light.sun_dir[0], light.sun_dir[1], light.sun_dir[2]
-    diff = sh.lambert(nx, ny, nz, lx, ly, lz)
-
+    occ = None
     if config.shadows:
         with span("hmrt.shadow"):
             srays, sstate = shadow_start(points, (nx, ny, nz), hit, hx, hy, scene,
                                          config.clip_box)
-            occ = shadow_hits(srays, sstate) != 0
-        diff = torch.where(occ, 0.0, diff)
-
-    sr, sg, sb = light.sun_color[0], light.sun_color[1], light.sun_color[2]
-    r = ar * (config.ambient + diff * sr)
-    g = ag * (config.ambient + diff * sg)
-    b = ab * (config.ambient + diff * sb)
-    if config.shading == "phong":
-        spec = sh.phong_specular(nx, ny, nz, lx, ly, lz, -dx, -dy, -dz,
-                                 config.shininess)
-        if config.shadows:
-            spec = torch.where(occ, 0.0, spec)
-        r = r + config.specular * spec * sr
-        g = g + config.specular * spec * sg
-        b = b + config.specular * spec * sb
-    if config.fog:
-        with span("hmrt.shade.fog"):
-            r, g, b = sh.apply_fog(r, g, b, torch.where(hit, t_hit, 0.0),
-                                   config.fog_density, light.fog_color)
-    skyr, skyg, skyb = sh.sky_color(dz, light.sky_top, light.sky_horizon)
-    color = torch.stack([torch.where(hit, c, s) for c, s in
-                         ((r, skyr), (g, skyg), (b, skyb))], dim=-1)
-    normal = torch.stack([torch.where(hit, c, 0.0) for c in (nx, ny, nz)], dim=-1)
-    return (torch.clamp(color, 0.0, 1.0), torch.where(hit, t_hit, torch.inf), normal,
-            hit)
+            occ = shadow_hits(srays, sstate)
+    return (*color(hit_i, t_hit, rays[3:], (nx, ny, nz), (ar, ag, ab), occ, scene.light,
+                   config), hit)
 
 
 def to_frame(config: RenderConfig, color, depth, normal, hit) -> Frame:
@@ -333,7 +310,7 @@ def render_frame_compact(scene: Scene, camera: Camera, config: RenderConfig, *,
                                             **sched)
     with span("hmrt.shade"):
         return to_frame(config, *shade_frame(
-            scene, config, rays, hit_i, t_hit, hx, hy, shade=shade_pass,
+            scene, config, rays, hit_i, t_hit, hx, hy, shade=shade_pass, color=shade_color,
             shadow_hits=lambda srays, sstate: march_shadows(
                 srays, sstate, scene, rounds=rounds, counts=counts["shadow"], **sched)))
 

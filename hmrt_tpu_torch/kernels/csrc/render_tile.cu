@@ -63,7 +63,9 @@
 // Exactness: the ray directions equal Camera.rays bit for bit (the same
 // expressions in the same order; 1/W and 1/full_h are the f32 reciprocals
 // raygen multiplies by; normalised by a division), and the march, the
-// shade data and the colour maths follow the torch plain version in order.
+// shade data and the colour maths (shade_common.cuh shade_color, which the
+// compact path's colour pass runs too) follow the torch plain version in
+// order.
 // The build's -fmad=false -prec-div=true -prec-sqrt=true keep those bits.
 
 #include <cuda_runtime.h>
@@ -165,51 +167,20 @@ __device__ __forceinline__ void write_pixel(const TileArgs& a, const float* P, c
   const Dir dir = pixel_dir(a, P, i, px.idx - i * a.W);
   const ShadeData d = shade_hit(a, P, dir, px).d;
   const bool hit = px.hit != 0;
-  const float ts = hit ? px.t_hit : 0.0f;
-  const float lx = P[P_SUN + 0], ly = P[P_SUN + 1], lz = P[P_SUN + 2];
-  float diff = fmaxf(d.nx * lx + d.ny * ly + d.nz * lz, 0.0f);
-  if (occ) diff = 0.0f;
-
-  const float sr_ = P[P_SUNCOL + 0], sg_ = P[P_SUNCOL + 1], sb_ = P[P_SUNCOL + 2];
-  float cr = d.ar * (a.ambient + diff * sr_);
-  float cg = d.ag * (a.ambient + diff * sg_);
-  float cb = d.ab * (a.ambient + diff * sb_);
-  if (a.phong) {
-    // phong_specular with V = -d
-    float ndl = d.nx * lx + d.ny * ly + d.nz * lz;
-    float rx = 2.0f * ndl * d.nx - lx;
-    float ry = 2.0f * ndl * d.ny - ly;
-    float rz = 2.0f * ndl * d.nz - lz;
-    float rdv = fmaxf(rx * -dir.x + ry * -dir.y + rz * -dir.z, 0.0f);
-    float spec = ndl > 0.0f ? powf(rdv, a.shininess) : 0.0f;
-    if (occ) spec = 0.0f;
-    cr = cr + a.specular * spec * sr_;
-    cg = cg + a.specular * spec * sg_;
-    cb = cb + a.specular * spec * sb_;
-  }
-  if (a.fog) {
-    float f = expf(-ts * a.fog_density);
-    cr = cr * f + P[P_FOGCOL + 0] * (1 - f);
-    cg = cg * f + P[P_FOGCOL + 1] * (1 - f);
-    cb = cb * f + P[P_FOGCOL + 2] * (1 - f);
-  }
-  if (!hit) {
-    float u = sqrtf(fminf(fmaxf(dir.z, 0.0f), 1.0f));
-    cr = P[P_SKYHOR + 0] * (1.0f - u) + P[P_SKYTOP + 0] * u;
-    cg = P[P_SKYHOR + 1] * (1.0f - u) + P[P_SKYTOP + 1] * u;
-    cb = P[P_SKYHOR + 2] * (1.0f - u) + P[P_SKYTOP + 2] * u;
-  }
+  const LightVecs light{P + P_SUN, P + P_SUNCOL, P + P_SKYTOP, P + P_SKYHOR, P + P_FOGCOL};
+  const ColorSettings look{a.phong, a.fog, a.ambient, a.specular, a.shininess, a.fog_density};
+  const PixelColor c = shade_color(d, dir.x, dir.y, dir.z, hit, px.t_hit, occ, light, look);
 
   const long long px_i = px.idx;
-  a.color[px_i * 3 + 0] = fminf(fmaxf(cr, 0.0f), 1.0f);
-  a.color[px_i * 3 + 1] = fminf(fmaxf(cg, 0.0f), 1.0f);
-  a.color[px_i * 3 + 2] = fminf(fmaxf(cb, 0.0f), 1.0f);
+  a.color[px_i * 3 + 0] = c.r;
+  a.color[px_i * 3 + 1] = c.g;
+  a.color[px_i * 3 + 2] = c.b;
   a.hit[px_i] = hit ? 1 : 0;
-  if (a.depth != nullptr) a.depth[px_i] = hit ? px.t_hit : __int_as_float(0x7f800000);  // +inf
+  if (a.depth != nullptr) a.depth[px_i] = c.depth;
   if (a.normal != nullptr) {
-    a.normal[px_i * 3 + 0] = hit ? d.nx : 0.0f;
-    a.normal[px_i * 3 + 1] = hit ? d.ny : 0.0f;
-    a.normal[px_i * 3 + 2] = hit ? d.nz : 0.0f;
+    a.normal[px_i * 3 + 0] = c.nx;
+    a.normal[px_i * 3 + 1] = c.ny;
+    a.normal[px_i * 3 + 2] = c.nz;
   }
   if (a.cell != nullptr) {
     a.cell[px_i * 2 + 0] = px.hx;

@@ -13,6 +13,9 @@
 // (api/scene.py shade_records; shade_pass.cu); the fused kernel reads them
 // from the gradient planes (N, N) and the planar (3, N*N) albedo
 // (shade_lane). Both records and planes hold the same values.
+//
+// The colour of a pixel from its shade data (shade_color, at the end),
+// shared by the colour pass (shade_color.cu) and the fused tile kernel.
 
 #pragma once
 
@@ -78,4 +81,81 @@ static __device__ __forceinline__ ShadeData shade_records(const float4 g[2], con
     d.ab = bilerp(a[2].x, a[2].y, a[2].z, a[2].w, fx, fy);
   }
   return d;
+}
+
+// The light's vectors, 3 floats each in device memory: the unit direction
+// toward the sun, the sun's colour, the sky at the zenith and at the
+// horizon, the fog's colour. Read by pointer, so a frame replayed from a
+// CUDA graph reads the light as it is when it runs.
+struct LightVecs {
+  const float* sun;
+  const float* sun_color;
+  const float* sky_top;
+  const float* sky_horizon;
+  const float* fog_color;
+};
+
+// The config's colour settings (RenderConfig's fields).
+struct ColorSettings {
+  int phong, fog;
+  float ambient, specular, shininess, fog_density;
+};
+
+// A pixel's outputs: its colour clipped to [0, 1], its depth (t on a hit,
+// +inf on a miss) and its normal ((0, 0, 0) on a miss).
+struct PixelColor {
+  float r, g, b, depth, nx, ny, nz;
+};
+
+// The colour of a pixel from its shade data `d`, its primary direction
+// (dx, dy, dz), its march result (hit, t_hit) and whether its shadow ray
+// hit (`occ`): Lambert, Phong with V = -d, fog, the sky on a miss, the clip.
+// The expressions and their order are those of the plain version
+// (kernels/shade_color.py::shade_color_reference, shading/shade.py).
+static __device__ __forceinline__ PixelColor shade_color(const ShadeData& d, float dx,
+                                                         float dy, float dz, bool hit,
+                                                         float t_hit, bool occ,
+                                                         const LightVecs& L,
+                                                         const ColorSettings& c) {
+  const float ts = hit ? t_hit : 0.0f;
+  const float lx = L.sun[0], ly = L.sun[1], lz = L.sun[2];
+  float diff = fmaxf(d.nx * lx + d.ny * ly + d.nz * lz, 0.0f);
+  if (occ) diff = 0.0f;
+
+  const float sr = L.sun_color[0], sg = L.sun_color[1], sb = L.sun_color[2];
+  float cr = d.ar * (c.ambient + diff * sr);
+  float cg = d.ag * (c.ambient + diff * sg);
+  float cb = d.ab * (c.ambient + diff * sb);
+  if (c.phong) {
+    // phong_specular with V = -d
+    float ndl = d.nx * lx + d.ny * ly + d.nz * lz;
+    float rx = 2.0f * ndl * d.nx - lx;
+    float ry = 2.0f * ndl * d.ny - ly;
+    float rz = 2.0f * ndl * d.nz - lz;
+    float rdv = fmaxf(rx * -dx + ry * -dy + rz * -dz, 0.0f);
+    float spec = ndl > 0.0f ? powf(rdv, c.shininess) : 0.0f;
+    if (occ) spec = 0.0f;
+    cr = cr + c.specular * spec * sr;
+    cg = cg + c.specular * spec * sg;
+    cb = cb + c.specular * spec * sb;
+  }
+  if (c.fog) {
+    float f = expf(-ts * c.fog_density);
+    cr = cr * f + L.fog_color[0] * (1 - f);
+    cg = cg * f + L.fog_color[1] * (1 - f);
+    cb = cb * f + L.fog_color[2] * (1 - f);
+  }
+  if (!hit) {
+    float u = sqrtf(fminf(fmaxf(dz, 0.0f), 1.0f));
+    cr = L.sky_horizon[0] * (1.0f - u) + L.sky_top[0] * u;
+    cg = L.sky_horizon[1] * (1.0f - u) + L.sky_top[1] * u;
+    cb = L.sky_horizon[2] * (1.0f - u) + L.sky_top[2] * u;
+  }
+  return PixelColor{fminf(fmaxf(cr, 0.0f), 1.0f),
+                    fminf(fmaxf(cg, 0.0f), 1.0f),
+                    fminf(fmaxf(cb, 0.0f), 1.0f),
+                    hit ? t_hit : __int_as_float(0x7f800000),  // +inf
+                    hit ? d.nx : 0.0f,
+                    hit ? d.ny : 0.0f,
+                    hit ? d.nz : 0.0f};
 }

@@ -33,6 +33,7 @@ from hmrt_tpu_torch.kernels.compact import (empty_results, init_state, shade_fra
 from hmrt_tpu_torch.kernels.march_pass import (UNBUDGETED, check_counts, check_min_pyramid,
                                                check_records, fused_march_reference,
                                                march_pass_reference)
+from hmrt_tpu_torch.kernels.shade_color import shade_color_reference
 from hmrt_tpu_torch.kernels.shade_pass import shade_pass_reference
 from hmrt_tpu_torch.traversal.intersect import INTERSECTOR_IDS
 from hmrt_tpu_torch.traversal.march import WorkCounter
@@ -100,7 +101,8 @@ def fused_reference_planes(scene: Scene, camera: Camera, config: RenderConfig,
                            row0=None, full_height: int | None = None, counter=None,
                            shadow_counter=None, witness: bool = False):
     """The plain version of the kernel: flat (color[P,3], depth[P],
-    normal[P,3], hit[P] bool, cell[P,2]) of the frame or band, both marches
+    normal[P,3], hit[P] bool, cell[P,2]) of the frame or band (depth and
+    normal None without config.aux_buffers), both marches
     by `fused_march_reference`. `counter` (a traversal.march.WorkCounter)
     records the work of both marches, or of the primary march alone when
     `shadow_counter` takes the shadow march's. `witness`: march by the
@@ -126,6 +128,7 @@ def fused_reference_planes(scene: Scene, camera: Camera, config: RenderConfig,
     hit_i, t_hit, hx, hy = march(rays, state0, counter)
     color, depth, normal, hit = shade_frame(
         scene, config, rays, hit_i, t_hit, hx, hy, shade=shade_pass_reference,
+        color=shade_color_reference,
         shadow_hits=lambda srays, sstate: march(srays, sstate, shadow_counter or counter)[0])
     return color, depth, normal, hit, torch.stack([hx, hy], dim=-1)
 

@@ -19,7 +19,10 @@ the bytes a reorder cannot avoid), the shade_pass kernel's device ms on the
 lanes of the B3 frame (untextured)
 and of B4's orbit frame 0 (textured), three times each by CUDA events over
 SHADE_REPS calls queued behind a spin kernel, with the 32-byte sectors its
-gathers touch in either layout (chip_smoke.py::shade_sectors), the B3
+gathers touch in either layout (chip_smoke.py::shade_sectors), the colour
+pass on the same two frames' inputs (the kernel, and its plain version,
+the torch maths it replaced, each replayed from a CUDA graph, beside the
+bytes it cannot avoid: `color_pass`), the B3
 frame's ms through each path (CUDA events, median of 5), B5's eight bands
 of 270 rows on one card (CUDA events, median of 3, with the marches each
 band's launches ran and each launch's device ms), B2's frame ms through
@@ -113,6 +116,8 @@ def registers(log: str) -> dict:
             if "render_tile_kernel" in entry:  # the timed and the counting instance
                 suffix = "_count" if "ILb1E" in entry else ""
                 regs["render_tile_kernel" + suffix] = [int(m.group(1)), spill]
+            if "shade_color_kernel" in entry:
+                regs["shade_color_kernel"] = [int(m.group(1)), spill]
             if "shade_pass_kernel" in entry:  # one instance before the records
                 suffix = ("_textured" if "ILb1E" in entry else
                           "_untextured" if "ILb0E" in entry else "")
@@ -146,6 +151,32 @@ def shade_inputs(scene, textured: bool) -> tuple:
     if hasattr(scene, "shade_rec"):
         return scene.shade_rec, scene.albedo_rec if textured else None
     return scene.gx, scene.gy, scene.albedo if textured else None
+
+
+def color_pass(scene, cam, cfg, queued_ms, graph_ms) -> dict:
+    """The colour pass of the frame replayed on its own inputs (captured
+    from one compact frame): the kernel's device ms queued by events and
+    replayed from a CUDA graph, and the plain version's (the torch maths the
+    kernel replaced) from a graph, three times each, beside the bytes these
+    inputs need (chip_smoke.py::color_bytes) over 3.35 TB/s. {} in a
+    checkout without the colour pass."""
+    if not importlib.util.find_spec("hmrt_tpu_torch.kernels.shade_color"):
+        return {}
+    from chip_smoke import color_bytes, color_calls
+    from hmrt_tpu_torch.kernels.compact import render_frame_compact
+    from hmrt_tpu_torch.kernels.shade_color import shade_color, shade_color_reference
+    args = color_calls(lambda: render_frame_compact(scene, cam, cfg))[0]
+    p, hits = args[0].shape[0], int((args[0] != 0).sum())
+    nbytes = color_bytes(args)
+    return {"lanes": p, "hits": hits, "textured": cfg.texture,
+            "shadows": args[5] is not None, "fog": cfg.fog, "bytes": nbytes,
+            "bound_ms": nbytes / 3.35e12 * 1e3,
+            "kernel_queued_ms": [queued_ms(lambda: shade_color(*args), SHADE_REPS)
+                                 for _ in range(3)],
+            "kernel_graph_ms": [graph_ms(lambda: shade_color(*args), SHADE_REPS)
+                                for _ in range(3)],
+            "plain_graph_ms": [graph_ms(lambda: shade_color_reference(*args), 50)
+                               for _ in range(3)]}
 
 
 def tail_launch_ms(launches, march_pass, kernel_ms, event_ms) -> list:
@@ -254,9 +285,9 @@ def main() -> int:
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE))
-    from chip_smoke import (card_line, cub_library, event_ms, fused_work, hold_ray_sort,
-                            kernel_ms, launch_times, median_ms, queued_ms, shade_sectors,
-                            tail_launches, tail_survivors)
+    from chip_smoke import (card_line, cub_library, event_ms, fused_work, graph_ms,
+                            hold_ray_sort, kernel_ms, launch_times, median_ms, queued_ms,
+                            shade_sectors, tail_launches, tail_survivors)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import hmrt_tpu_torch as T
     from hmrt_tpu_torch.api.flythrough import frame_camera, orbit_flythrough
@@ -303,6 +334,8 @@ def main() -> int:
         k2 = {f"shade_pass_ms_{k}": [queued_ms(lambda: shade_pass(*lanes, *inputs), SHADE_REPS)
                                      for _ in range(3)]
               for k, (lanes, inputs) in shade_cases.items()}
+        colour = {"b3": color_pass(scene, cam, b3.render, queued_ms, graph_ms),
+                  "b4": color_pass(scene4, cam4, b4.render, queued_ms, graph_ms)}
         # K1's tail modes on the B3 frame: each launch with the tail off,
         # forced, "auto" (the default) and relaxed (in a checkout from before
         # the tail modes, none)
@@ -378,6 +411,7 @@ def main() -> int:
             "march_pass_ms_per_frame": sum(ms for _, ms in per_launch),
             "render_tile_ms_b3": k3, "render_tile_ms_b1": k3_b1, "render_tile": k3_rows,
             **k2,
+            "color_pass": colour,
             "march_pass_ms_per_launch_by_tail": tails,
             "march_bound_by_tail": tail_bounds,
             "tail_launch_ms": tail_ms,
