@@ -14,17 +14,20 @@ third, for the per-layer metrics that read the stages.
 the card, rebuilds the run's scene from the configuration, renders the
 loop's next `trace_frames` frames after the two sub-runs (the same seeded
 lap, the same window positions) once more under torch.profiler, with no
-stacks and the port's tracing armed, reads the trace back with `read` and
-the tally's live-lane counts, prints a table of the stages to standard
-error and keeps the result on `ctx` for the other metrics. It returns
-None, and the metrics are left out, on a CPU run and where the port has
-no `tracing` (an older port): then it renders nothing.
+stacks and the port's tracing armed (`armed_run`), reads the trace back
+with `read` and the tally's live-lane counts, prints a table of the
+stages to standard error and keeps the result on `ctx` for the other
+metrics. It returns None, and the metrics are left out, on a CPU run and
+where the port has no `tracing` (an older port): then it renders nothing.
+A run over several cards (sharded.py) makes the armed sub-run on every
+rank with its own scene and puts the pacing rank's reading on `ctx`.
 
 `read` charges each device op to the stage of the `hmrt.*` spans that
 hold its launch (the runtime event with the op's correlation id), and
 each idle gap of the device to the stage of the launch that ends it, for
-as long as the launch's `hmrt.frame` had run on the host before it: the
-part of the first gap of a frame before that is the harness's. (Only host
+as long as the launch's `hmrt.frame` (on a rank of a mesh, `hmrt.band`)
+had run on the host before it: the part of the first gap of a frame
+before that is the harness's. (Only host
 times are compared with host times: the device's timestamps in the
 trace can sit a millisecond or two off the host's, `Reading.lead_us`.)
 Stages: the live-lane count (`hmrt.count`) is "count", charged to no
@@ -57,6 +60,10 @@ PREFIX = "hmrt."
 UNATTRIBUTED = "unattributed"
 #: the live-lane count's span and stage (hmrt_tpu_torch/kernels/march_pass.py)
 COUNT = "hmrt.count"
+#: the port's spans around one frame's work on its card: a whole frame, or
+#: a rank's band of one (distrib/mesh.py::render_band; its gathers follow
+#: outside it)
+FRAME_SPANS = ("hmrt.frame", "hmrt.band")
 #: the stages the per-layer metrics read, in frame order
 STAGES = ("raygen", "primary march", "primary sort", "shadow march", "shadow sort", "shade")
 
@@ -163,7 +170,7 @@ def read(path: str) -> Reading:
     spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
              if e.get("cat") == "user_annotation" and e.get("tid") == tid
              and e.get("name", "").startswith(PREFIX)]
-    port_frames = sorted((s, t) for s, t, name in spans if name == "hmrt.frame")
+    port_frames = sorted((s, t) for s, t, name in spans if name in FRAME_SPANS)
     frame_starts = [s for s, _ in port_frames]
     dev = sorted((e for e in events if e.get("cat") in trace_mod.DEVICE_CATS
                   and w0 <= e["ts"] < w1), key=lambda e: e["ts"])
@@ -320,12 +327,52 @@ def device_of(ctx):
     return torch.device("cuda", 0)
 
 
-def spans_run(ctx, device, seed: int, tracing, read_live, log=sys.stderr) -> Reading:
-    """Rebuild the run's scene on `device`, render one warm-up frame armed
-    and the loop's next `trace_frames` frames after the two traced
-    sub-runs under torch.profiler with `tracing` armed; returns their
-    Reading with the live lanes of their launches."""
+def armed_run(torch, render_one, frames, sync, cuda: bool, log=sys.stderr) -> Reading | None:
+    """Render `frames` (window positions), each by `render_one(position)`,
+    under torch.profiler with the port's tracing armed, after one warm-up
+    frame armed (the scene's buffers and the tally's slots); returns their
+    Reading with the live lanes of their launches, or None for a port
+    without `tracing`."""
     import numpy as np
+
+    tracing, read_live = port_tracing(), _read_live()
+    if tracing is None:
+        return None
+    with tracing():
+        render_one(frames[0])
+        sync()
+    if read_live is not None:
+        read_live()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof, tracing():
+        for k in frames:
+            with torch.profiler.record_function(trace_mod.FRAME):
+                with torch.profiler.record_function(trace_mod.RENDER):
+                    render_one(k)
+                sync()
+    records = read_live() if read_live is not None else []
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        got = read(path)
+    finally:
+        os.unlink(path)
+    add_live(got, records)
+    print(f"spans sub-run: {got.frames} frames, window {got.window_s:.4f} s, "
+          f"{got.device_ops} device ops, {len(records)} march launches counted, "
+          f"frames at window positions {frames[0]}-{frames[-1]}, "
+          f"{np.mean([r[1] for r in records]) if records else 0:.0f} live lanes a launch",
+          file=log)
+    return got
+
+
+def spans_run(ctx, device, seed: int, log=sys.stderr) -> Reading | None:
+    """Rebuild the run's scene on `device` and render the loop's next
+    `trace_frames` frames after the two traced sub-runs with the port's
+    tracing armed (`armed_run`)."""
     import torch
 
     from hmrt_tpu_torch.api.scene import make_scene
@@ -349,37 +396,11 @@ def spans_run(ctx, device, seed: int, tracing, read_live, log=sys.stderr) -> Rea
     first = int(traffic["trace_frames"])
     start = len(ctx.frame_s) + first + int(traffic["named_frames"])
     fov = float(traffic["fov_deg"])
-    cams = [Camera.create(eye=tuple(eyes[k % len(eyes)]), target=tuple(targets[k % len(eyes)]),
-                          fov_y_deg=fov, device=device) for k in range(start, start + first)]
-    with tracing():  # warm: the new scene's buffers and the tally's slots
-        render_frame(scene, cams[0], rc)
-        sync()
-    if read_live is not None:
-        read_live()
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if cuda:
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof, tracing():
-        for cam in cams:
-            with torch.profiler.record_function(trace_mod.FRAME):
-                with torch.profiler.record_function(trace_mod.RENDER):
-                    render_frame(scene, cam, rc)
-                sync()
-    records = read_live() if read_live is not None else []
-    fd, path = tempfile.mkstemp(suffix=".json")
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        got = read(path)
-    finally:
-        os.unlink(path)
-    add_live(got, records)
+    cams = {k: Camera.create(eye=tuple(eyes[k % len(eyes)]), target=tuple(targets[k % len(eyes)]),
+                             fov_y_deg=fov, device=device) for k in range(start, start + first)}
+    got = armed_run(torch, lambda k: render_frame(scene, cams[k], rc),
+                    range(start, start + first), sync, cuda, log)
     del scene, cams
-    print(f"spans sub-run: {got.frames} frames, window {got.window_s:.4f} s, "
-          f"{got.device_ops} device ops, {len(records)} march launches counted, "
-          f"frames at window positions {start}-{start + first - 1}, "
-          f"{np.mean([r[1] for r in records]) if records else 0:.0f} live lanes a launch",
-          file=log)
     return got
 
 
@@ -391,9 +412,10 @@ def reading(ctx) -> Reading | None:
         return ctx.stage_reading
     got = None
     try:
-        device, tracing = device_of(ctx), port_tracing()
-        if device is not None and tracing is not None:
-            got = spans_run(ctx, device, run_seed(), tracing, _read_live())
+        device = device_of(ctx)
+        if device is not None and port_tracing() is not None:
+            got = spans_run(ctx, device, run_seed())
+        if got is not None:
             print(table(got), file=sys.stderr)
     except Exception:  # a metric reader never raises: the metrics are left out
         traceback.print_exc(file=sys.stderr)

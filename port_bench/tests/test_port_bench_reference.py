@@ -52,7 +52,7 @@ def test_reference_equals_the_port(config, traffic, backend):
             assert compare(fr.color, fr.hit, col, hit, 1e-5) == {"hit_px": 0, "color_px": 0}
 
 
-@pytest.mark.parametrize("config,traffic", [("B3", "flyover"), ("B4", "orbit")])
+@pytest.mark.parametrize("config,traffic", [("B3", "flyover"), ("B4", "orbit"), ("B5", "flyover")])
 def test_control_fails_the_limits(config, traffic):
     """The reference in bfloat16 in the program's place: some number over
     its limit on every frame, where the port's frames stay under all."""

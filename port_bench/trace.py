@@ -27,6 +27,9 @@ FRAME = "port_bench.frame"
 RENDER = "port_bench.render"
 #: the port's own kernels (kernels/csrc), by the names they are launched under
 PORT_KERNELS = ("march_pass_kernel", "shade_pass_kernel", "render_tile_kernel")
+#: NCCL's all-gather kernels, by a part of their names
+#: ("ncclDevKernel_AllGather_RING_LL", ...)
+GATHER = "AllGather"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
